@@ -1,0 +1,34 @@
+"""PyTorch + CUDA port of the ``repro`` reproduction, for NVIDIA Hopper.
+
+The JAX package ``repro`` stays the reference; this package mirrors its
+subpackage layout (``core``, ``configs``, ``models``, ``kernels``,
+``serve``, ``train``, ``launch``) so each module's counterpart is found
+by path. It imports ``torch`` and numpy only — never ``jax`` or
+``repro``. The slice ported so far is continuous-batching greedy serving
+of dense decoder-only LMs over the contiguous KV pool (see ROADMAP.md).
+
+Matmul numerics, set once here for the whole package: the FMAC model
+(16-bit inputs, f32 accumulation, one output rounding) forbids cuBLAS's
+reduced-precision bf16/fp16 reductions, and f32 products must run in
+full f32 rather than TF32.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+torch.backends.cuda.matmul.allow_tf32 = False
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names the
+    CPU. Never falls back: asking for CUDA without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on CUDA unless told otherwise, and no CUDA "
+            "device is available; pass device='cpu' to run on the CPU")
+    return dev

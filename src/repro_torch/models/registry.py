@@ -1,0 +1,56 @@
+"""Architecture registry and the model API the serve path uses (port of
+``repro.models.registry``: ``get_config``, ``init``, ``make_cache``,
+``decode``).
+
+Only ``qwen2.5-3b`` (dense GQA with QKV bias, tied embeddings) is ported;
+every other architecture of the reference raises "not ported yet".
+"""
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.qarith import QArith
+from repro_torch.models import transformer as T
+
+__all__ = ["ARCH_IDS", "get_config", "init", "make_cache", "decode"]
+
+# every architecture of the reference; _MODULES lists the ported ones
+ARCH_IDS = (
+    "llama4-scout-17b-a16e", "mixtral-8x22b", "command-r-35b", "yi-9b",
+    "qwen2.5-3b", "mistral-nemo-12b", "qwen2-vl-7b", "whisper-base",
+    "falcon-mamba-7b", "recurrentgemma-2b",
+)
+
+_MODULES = {"qwen2.5-3b": "qwen2_5_3b"}
+
+
+def get_config(name: str):
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    if name not in _MODULES:
+        raise NotImplementedError(f"arch {name!r} is not ported yet; ported: "
+                                  f"{tuple(_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+def init(cfg, seed: int, dtype=torch.float32, *, device=None):
+    """Parameters of ``cfg`` drawn from a ``torch.Generator`` seeded with
+    ``seed``, made directly on ``device`` (CUDA unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return T.init_lm(cfg, gen, dtype)
+
+
+def make_cache(params, cfg, *, batch_size: int, max_len: int,
+               dtype=torch.bfloat16):
+    """Decode cache for ``batch_size`` lanes, on the parameters' device."""
+    return T.init_cache(cfg, batch_size, max_len, dtype,
+                        device=params["embed"]["embedding"].device)
+
+
+def decode(qa: QArith, params, cfg, token, cache, cache_pos):
+    return T.decode_step(qa, params, cfg, token, cache, cache_pos)

@@ -1,0 +1,114 @@
+"""Dense decoder-only LM, decode path (port of ``repro.models.transformer``).
+
+Parameters keep the reference's stacked layout — every leaf under
+``params["layers"]["b0"]`` carries a leading layer dim L — and decode
+walks the stack with a Python loop where the reference scans it. The
+decode cache mirrors it: ``cache["layers"]["b0"] = (k, v, k_pos)`` with
+k/v ``(L,N,Sc,Hkv,D)`` and k_pos ``(L,N,Sc)`` i32. Only the dense
+``"attn"`` block is ported.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.core.qarith import QArith
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+__all__ = ["init_lm", "init_cache", "decode_step"]
+
+PyTree = Any
+
+
+def block_init(gen: torch.Generator, cfg, dtype=torch.float32) -> PyTree:
+    return {"ln1": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
+            "ln2": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device),
+            "mixer": L.attention_init(gen, cfg, dtype),
+            "ffn": M.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
+
+
+def block_apply(qa: QArith, cfg, p, x, *, positions, cache):
+    """One dense attention block; returns (x, cache) with the cache
+    updated in place."""
+    h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
+    y, cache = L.attention_apply(qa, p["mixer"], h, cfg, positions=positions,
+                                 cache=cache, window=cfg.swa_window)
+    x = qa.add(x, y)
+    h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
+    y = M.mlp_apply(qa, p["ffn"], h, cfg.act_fn)
+    return qa.add(x, y), cache
+
+
+def _map(fn, tree: PyTree) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(tree: PyTree, i: int) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(t[i] for t in tree)
+    return tree[i]
+
+
+def _fill(stack: PyTree, i: int, block: PyTree) -> None:
+    for k, v in block.items():
+        if isinstance(v, dict):
+            _fill(stack[k], i, v)
+        else:
+            stack[k][i] = v
+
+
+def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
+    """Parameters on ``gen``'s device, drawn from ``gen``. Layers are
+    drawn one at a time into the preallocated stack, so building the
+    stack never holds a second copy of the weights."""
+    params = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype),
+              "final_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device)}
+    first = block_init(gen, cfg, dtype)
+    stack = _map(lambda t: t.new_empty((cfg.n_layers, *t.shape)), first)
+    _fill(stack, 0, first)
+    for i in range(1, cfg.n_layers):
+        _fill(stack, i, block_init(gen, cfg, dtype))
+    params["layers"] = {"b0": stack}
+    return params
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
+               device=None) -> PyTree:
+    """Contiguous decode cache: one ``max_len`` stripe per lane (a
+    window-sized ring for sliding-window attention)."""
+    window = cfg.swa_window
+    clen = min(max_len, window) if window else max_len
+    shape = (cfg.n_layers, batch, clen, cfg.n_kv_heads, cfg.head_dim)
+    return {"layers": {"b0": (
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.full(shape[:3], -1, dtype=torch.int32, device=device))}}
+
+
+def _embed_tokens(qa: QArith, params, tokens):
+    return qa.cast(params["embed"]["embedding"][tokens.long()])
+
+
+def _logits(qa: QArith, cfg, params, x):
+    h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
+    return qa.matmul_f32out(h, params["embed"]["embedding"].T)
+
+
+def decode_step(qa: QArith, params, cfg, token, cache, cache_pos):
+    """One decode step. token: (B,1) int; cache_pos: (B,) per-lane depths
+    (−1 ⇒ parked lane: its KV write changes nothing). Returns
+    ``(logits (B,1,V) f32, cache)``; the cache is updated in place."""
+    B, S = token.shape
+    positions = cache_pos.reshape(B, S).to(torch.int32)
+    x = _embed_tokens(qa, params, token)
+    stack, stack_cache = params["layers"]["b0"], cache["layers"]["b0"]
+    for i in range(cfg.n_layers):
+        x, _ = block_apply(qa, cfg, _layer(stack, i), x, positions=positions,
+                           cache=_layer(stack_cache, i))
+    return _logits(qa, cfg, params, x), cache

@@ -1,0 +1,66 @@
+"""Lock-step greedy serving with a KV cache (port of ``repro.serve.decode``).
+
+The reference (oracle) decode path: one fixed batch, every lane at the
+same position, the prompt teacher-forced token by token through the same
+decode step that then picks the continuation. The continuous-batching
+engine must match it token for token; ``cache_len`` pins the cache to the
+engine's pool length (attention reduces over the cache axis, so equal
+shapes give equal reduction order). Matrix products pick their kernels
+by the row count too — torch on the CPU and cuBLAS alike — so a parity
+check also runs the reference at the engine's lane count.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.core.qarith import QArith
+from repro_torch.models import registry as R
+from repro_torch.serve.cache import cache_dtype
+
+__all__ = ["generate"]
+
+
+def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
+             max_new_tokens: int = 32, temperature: float = 0.0,
+             cache_len: int | None = None, device=None) -> torch.Tensor:
+    """prompts: (B, S_prompt) int → (B, S_prompt + max_new) int32, greedy.
+
+    Runs on ``device`` (CUDA unless ``"cpu"``), where ``params`` must
+    live. ``cache_len`` overrides the KV-cache length (default exactly
+    ``S_prompt + max_new_tokens``); longer caches are masked out and
+    change nothing semantically.
+    """
+    if temperature > 0:
+        raise ValueError("sampling (temperature > 0) is ported with the "
+                         "sampling slice; generate is greedy")
+    dev = resolve_device(device)
+    if params["embed"]["embedding"].device.type != dev.type:
+        raise ValueError(f"params are on {params['embed']['embedding'].device}, "
+                         f"generate runs on {dev}")
+    prompts = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    qa = QArith(policy)
+    B, S0 = prompts.shape
+    max_len = cache_len if cache_len is not None else S0 + max_new_tokens
+    if max_len < S0 + max_new_tokens and not cfg.sub_quadratic:
+        raise ValueError(f"cache_len {max_len} < prompt {S0} + "
+                         f"max_new_tokens {max_new_tokens}")
+    # same value dtype as the engine's CachePool — the parity contract
+    # includes the KV storage rounding, not just the arithmetic
+    cache = R.make_cache(params, cfg, batch_size=B, max_len=max_len,
+                         dtype=cache_dtype(policy))
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int32, device=dev)
+
+    out = [prompts]
+    logits = None
+    for t in range(S0):
+        logits, cache = R.decode(qa, params, cfg, prompts[:, t:t + 1], cache, pos(t))
+    for t in range(max_new_tokens):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+        if t < max_new_tokens - 1:
+            logits, cache = R.decode(qa, params, cfg, tok, cache, pos(S0 + t))
+    return torch.cat(out, dim=1)

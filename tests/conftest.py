@@ -37,6 +37,10 @@ def pytest_configure(config):
         "markers",
         "multihost: N-process jax.distributed fault-tolerance tests "
         "(subprocess-heavy; opt in with -m multihost)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's kernels); skipped "
+        "without one")
     markexpr = config.getoption("markexpr", "") or ""
     if "dist" in markexpr and "not dist" not in markexpr:
         os.environ["XLA_FLAGS"] = _DIST_XLA_FLAGS
