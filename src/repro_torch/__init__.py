@@ -2,10 +2,12 @@
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 subpackage layout (``core``, ``configs``, ``models``, ``kernels``,
-``serve``, ``train``, ``launch``) so each module's counterpart is found
+``optim``, ``data``, ``serve``, ``train``, ``launch``) so each module's counterpart is found
 by path. It imports ``torch`` and numpy only — never ``jax`` or
-``repro``. The slice ported so far is continuous-batching greedy serving
-of dense decoder-only LMs over the contiguous KV pool (see ROADMAP.md).
+``repro``. The slices ported so far: continuous-batching greedy serving
+of dense decoder-only LMs over the contiguous KV pool, and single-device
+pure-bf16 training with the paper's SR and Kahan optimizers (``optim``,
+``train``, ``data``, ``launch.train``); see ROADMAP.md.
 
 Matmul numerics, set once here for the whole package: the FMAC model
 (16-bit inputs, f32 accumulation, one output rounding) forbids cuBLAS's

@@ -1,4 +1,4 @@
-"""Parameter conversion from the reference's layout.
+"""Parameter and train-state conversion from the reference's layout.
 
 The reference stores the dense LM as a stacked tree: every leaf under
 ``layers.b0`` carries a leading layer dim L. The port keeps that layout,
@@ -14,8 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.sgd import SGDState
+from repro_torch.train.train_state import TrainState
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_jax_train_state"]
 
 _DENSE_LM = {
     "embed": {"embedding": None},
@@ -52,3 +55,27 @@ def from_jax_params(tree: Any, *, device=None) -> dict:
     through ``np.asarray``) → the port's params on ``device`` (CUDA unless
     ``"cpu"``). Raises on a leaf the ported dense LM does not have."""
     return _convert(tree, _DENSE_LM, "", resolve_device(device))
+
+
+def from_jax_train_state(state: Any, *, device=None) -> TrainState:
+    """The reference's ``TrainState`` with numpy leaves (passed through
+    ``jax.tree_util.tree_map(np.asarray, ...)``) → the port's
+    ``TrainState`` on ``device``: params, the ``AdamWState`` (m, v, the
+    0-dim c₁/c₂) or ``SGDState`` (momentum), and the Kahan buffers, each
+    dtype kept. Without a gradient transport ``wire_residuals`` is None."""
+    dev = resolve_device(device)
+    if getattr(state, "wire_residuals", None) is not None:
+        raise ValueError("wire residuals are ported with the dist slice (ROADMAP A5)")
+
+    def tree(t):
+        return None if t is None else _convert(t, _DENSE_LM, "", dev)
+
+    opt = state.opt_state
+    if hasattr(opt, "v"):
+        opt = AdamWState(tree(opt.m), tree(opt.v), _tensor(opt.c1, dev),
+                         _tensor(opt.c2, dev), tree(opt.kahan_c))
+    elif hasattr(opt, "momentum"):
+        opt = SGDState(tree(opt.momentum), tree(opt.kahan_c))
+    else:
+        raise TypeError(f"unknown optimizer state {type(opt).__name__}")
+    return TrainState(int(np.asarray(state.step)), tree(state.params), opt, None)

@@ -1,0 +1,79 @@
+"""Deterministic synthetic LM stream (port of ``repro.data.synthetic``:
+``TokenStream`` and ``lm_batches``).
+
+The stream is seeded, keyed by (seed, step) and *learnable*: an order-2
+hash grammar over a Zipf unigram prior, so cross-entropy has real
+headroom below the unigram entropy. The grammar and the prior are the
+reference's (the same numpy draws from ``seed``, the same int32 hash with
+wrap-around); the per-batch uniforms come from numpy's generator keyed by
+(seed, step) instead of ``jax.random``, so the tokens differ from the
+reference's. Fed the reference's uniforms, :meth:`TokenStream.from_uniform`
+gives its tokens exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["TokenStream", "lm_batches"]
+
+
+@dataclasses.dataclass
+class TokenStream:
+    vocab: int
+    order: int = 2
+    seed: int = 0
+    zipf_a: float = 1.1
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # hidden transition: next-token depends on hash of last `order`
+        self._mix = rng.integers(1, 2**31 - 1, size=self.order, dtype=np.int64)
+        self._shift = int(rng.integers(0, self.vocab))
+        ranks = np.arange(1, self.vocab + 1, dtype=np.float64)
+        p = ranks ** (-self.zipf_a)
+        self._p = p / p.sum()
+        self._cdf = np.cumsum(self._p).astype(np.float32)
+
+    def from_uniform(self, u: np.ndarray) -> np.ndarray:
+        """(B, S+1) int32 tokens from f32 uniforms u of shape
+        (B, S+1+order): a Zipf sample by inverse CDF, then the grammar."""
+        base = np.searchsorted(self._cdf, np.asarray(u, np.float32)).astype(np.int32)
+        mix = self._mix.astype(np.int32)
+        hist = base[:, :self.order]
+        toks = []
+        with np.errstate(over="ignore"):
+            for b in base[:, self.order:].T:
+                # with p=0.5 the next token is a hash of the history (int32
+                # arithmetic wrapping as the reference's), else the sample
+                h = np.sum(hist * mix, axis=-1, dtype=np.int32) % np.int32(self.vocab)
+                tok = np.where((b + h) % 2 == 0, h, b).astype(np.int32)
+                hist = np.concatenate([hist[:, 1:], tok[:, None]], axis=1)
+                toks.append(tok)
+        return np.stack(toks, axis=1)
+
+    def batch(self, step_seed: tuple[int, int], batch: int, seq: int) -> np.ndarray:
+        """(B, S+1) int32 — callers split into tokens/labels."""
+        u = np.random.default_rng(step_seed).random((batch, seq + 1 + self.order),
+                                                    dtype=np.float32)
+        return self.from_uniform(u)
+
+
+def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
+               start_step: int = 0, device=None) -> Iterator[dict]:
+    """Step-keyed LM stream on ``device`` (CUDA unless ``"cpu"``): batch i
+    is a pure function of (seed, i), so ``start_step=k`` yields exactly the
+    suffix of the ``start_step=0`` stream from batch k on — the resume
+    contract. Yields ``{"tokens", "labels"}`` int32 (B, S)."""
+    dev = resolve_device(device)
+    stream = TokenStream(vocab, seed=seed)
+    i = start_step
+    while True:
+        toks = torch.from_numpy(stream.batch((seed, i), batch, seq)).to(dev)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        i += 1

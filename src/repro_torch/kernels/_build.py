@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so``
-at the repository root — the hash covers the source and the flags, so an
-edited source is rebuilt — and loaded once per process. Building needs the
-CUDA toolkit; nothing here runs when a kernel module is imported.
+at the repository root — the hash covers the source, the shared headers
+``csrc/*.cuh`` and the flags, so an edited source is rebuilt — and loaded
+once per process. Each kernel has its own lock, so ``load_all`` runs one
+``nvcc`` per source at once. Building needs the CUDA toolkit; nothing
+here runs when a kernel module is imported.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BuildInfo", "load", "builds"]
+__all__ = ["BuildInfo", "load", "load_all", "builds"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,7 +37,8 @@ class BuildInfo:
     log: str               # nvcc/ptxas output
 
 
-_lock = threading.Lock()
+_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 builds: dict[str, BuildInfo] = {}
 
@@ -53,12 +57,16 @@ def _nvcc() -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``, built if missing."""
-    with _lock:
+    with _guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
         src = CSRC / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
         so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
         seconds, log = 0.0, ""
         if not so.exists():
@@ -76,3 +84,10 @@ def load(name: str) -> ctypes.CDLL:
         builds[name] = BuildInfo(so, seconds, log)
         _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """Build (one ``nvcc`` per source, all at once) and load ``names``."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load, names)))

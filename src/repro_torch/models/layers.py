@@ -1,5 +1,6 @@
-"""Quantized layers: dense, embedding, norms, RoPE, GQA decode attention
-(port of ``repro.models.layers``, the parts the serving slice runs).
+"""Quantized layers: dense, embedding, norms, RoPE, GQA attention — the
+full-sequence flash path (training) and single-token decode (serving)
+(port of ``repro.models.layers``, the parts those slices run).
 
 All contractions go through :class:`repro_torch.core.qarith.QArith` —
 16-bit inputs, f32 accumulation, one output rounding. Attention is one
@@ -19,7 +20,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   fused_decode_attention)
 
 __all__ = ["dense_init", "dense", "embed_init", "norm_init", "norm_apply",
-           "rope", "decode_attention", "attention_init", "attention_apply"]
+           "rope", "flash_attention", "decode_attention", "attention_init",
+           "attention_apply"]
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +90,147 @@ def rope(x, positions, theta: float = 10000.0):
 
 
 # ---------------------------------------------------------------------------
-# Attention
+# Attention (GQA + causal/SWA masks, flash-chunked for long sequences)
 # ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window):
+    # q_pos: (Sq,), k_pos: (Sk,) → bool (Sq, Sk) "allowed"
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= q_pos[:, None] - k_pos[None, :] < window
+    ok &= k_pos[None, :] >= 0            # ring-buffer empty slots carry pos=-1
+    return ok
+
+
+def _expand_kv(k, n_heads: int):
+    """GQA → MHA: repeat each KV head over its group of q heads (the
+    reference's ``jnp.repeat`` along the head axis)."""
+    Hkv = k.shape[2]
+    if Hkv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // Hkv, dim=2)
+
+
+def _f32_product(a, b):
+    """``a @ b`` with an f32 result: compute-dtype operands upcast (exact)
+    and summed in f32 — the reference's ``preferred_element_type=f32``."""
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def _scores(q, kc, q_pos, k_pos, *, causal, window, softcap):
+    """Masked f32 scores (B,H,Sq,C) of f32 q (B,H,Sq,D) against a chunk kc
+    (B,H,C,D), and the softcap's tanh term. Divisors are tensors: CUDA
+    divides by a Python scalar through its reciprocal."""
+    D = q.shape[-1]
+    s = torch.matmul(q, kc.transpose(-1, -2)) / q.new_tensor(math.sqrt(D))
+    tanh_term = None
+    if softcap:
+        tanh_term = torch.tanh(s / q.new_tensor(softcap))
+        s = softcap * tanh_term
+    ok = _mask(q_pos, k_pos, causal=causal, window=window)
+    return torch.where(ok, s, NEG_INF), tanh_term
+
+
+class _FlashCore(torch.autograd.Function):
+    """Flash attention with a recomputing backward (reference
+    ``_flash_core``, ``layers.py:163-273``): residuals are just
+    (q, k, v, out, lse); the backward recomputes p per KV chunk in the
+    reference's op order — ``Drow`` = Σ dout·out, ds rounded to the
+    compute dtype, dq accumulated in f32.
+
+    q, k, v: (B,S,H,D) in the compute dtype (k, v already expanded to H
+    heads). Returns out (B,H,Sq,D) in the compute dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, softcap):
+        dtype = q.dtype
+        B, Sq, H, D = q.shape
+        Sk = k.shape[1]
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        qh = q.transpose(1, 2).to(torch.float32)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # (B,H,Sk,D)
+        q_pos = torch.arange(Sq, device=q.device)
+        m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+        for j in range(Sk // chunk):
+            sl = slice(j * chunk, (j + 1) * chunk)
+            k_pos = torch.arange(sl.start, sl.stop, device=q.device)
+            s, _ = _scores(qh, kh[:, :, sl].to(torch.float32), q_pos, k_pos, **kw)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + _f32_product(p.to(dtype), vh[:, :, sl])
+            m = m_new
+        l_safe = torch.clamp(l, min=1e-30)
+        out = (acc / l_safe[..., None]).to(dtype)
+        lse = m + torch.log(l_safe)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (chunk, kw)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        chunk, kw = ctx.cfg
+        dtype = q.dtype
+        D = q.shape[-1]
+        Sk = k.shape[1]
+        dout = dout.to(dtype)
+        qh = q.transpose(1, 2)
+        kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+        q32 = qh.to(torch.float32)
+        q_pos = torch.arange(q.shape[1], device=q.device)
+        # row term: D_i = Σ_d dout·out
+        Drow = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
+        dq = torch.zeros(q32.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for j in range(Sk // chunk):
+            sl = slice(j * chunk, (j + 1) * chunk)
+            k_pos = torch.arange(sl.start, sl.stop, device=q.device)
+            kc = kh[:, :, sl]
+            s, tanh_term = _scores(q32, kc.to(torch.float32), q_pos, k_pos, **kw)
+            p = torch.exp(s - lse[..., None])                # (B,H,Sq,C)
+            dvs.append(_f32_product(p.to(dtype).transpose(-1, -2), dout).to(dtype))
+            dp = _f32_product(dout, vh[:, :, sl].transpose(-1, -2))
+            ds = p * (dp - Drow[..., None])
+            if kw["softcap"]:
+                ds = ds * (1.0 - torch.square(tanh_term))
+            ds = (ds / ds.new_tensor(math.sqrt(D))).to(dtype)
+            dq = dq + _f32_product(ds, kc)
+            dks.append(_f32_product(ds.transpose(-1, -2), qh).to(dtype))
+        dk = torch.cat(dks, dim=2).transpose(1, 2)
+        dv = torch.cat(dvs, dim=2).transpose(1, 2)
+        return dq.transpose(1, 2).to(q.dtype), dk, dv, None, None, None, None
+
+
+def flash_attention(qa: QArith, q, k, v, *, q_offset=0, causal=True,
+                    window=None, chunk: int = 1024, softcap=None):
+    """Online-softmax attention over KV chunks (memory O(Sq·chunk)).
+
+    q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D). One fused op per the FMAC model:
+    f32 internals, single rounding of the output. The backward recomputes
+    p per chunk (no per-chunk probabilities kept). The reference's head
+    padding exists only for tensor parallelism and is ported with the
+    ``dist`` slice.
+    """
+    Hq = q.shape[2]
+    Sk = k.shape[1]
+    del q_offset  # full-sequence path starts at 0; decode uses decode_attention
+    chunk_eff = min(chunk, Sk)
+    if Sk % chunk_eff:
+        raise ValueError(f"key length {Sk} is not a multiple of the chunk {chunk_eff}")
+    out = _FlashCore.apply(q, _expand_kv(k, Hq), _expand_kv(v, Hq), bool(causal),
+                           window, int(chunk_eff), softcap)   # (B,H,Sq,D)
+    return qa.cast(out.transpose(1, 2))
+
 
 def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
                      window=None, softcap=None):
@@ -124,18 +265,22 @@ def attention_init(gen: torch.Generator, cfg, dtype=torch.float32):
     }
 
 
-def attention_apply(qa: QArith, p, x, cfg, *, positions, cache, window=None):
-    """One decode token per lane against the contiguous per-lane cache.
+def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None,
+                    chunk: int = 1024):
+    """Full-sequence causal attention (``cache=None``: training, the
+    reference's flash branch), or one decode token per lane against the
+    contiguous per-lane cache.
 
-    x: (B,1,Dm); positions: (B,1) per-lane depths, −1 for a parked lane;
-    cache: ``(k_cache, v_cache, k_pos)`` for this layer. The lane's K/V
-    land at cell ``pos % Sc`` **in place** (the reference returns a new
-    cache from a donated buffer). A parked lane's write is routed to cell
-    0 carrying that cell's current contents, so it changes nothing — the
-    reference drops it as out of range. Returns ``(out, cache)``.
+    x: (B,S,Dm); positions: (B,S). Decoding: S = 1, positions are the
+    per-lane depths, −1 for a parked lane; cache: ``(k_cache, v_cache,
+    k_pos)`` for this layer. The lane's K/V land at cell ``pos % Sc``
+    **in place** (the reference returns a new cache from a donated
+    buffer). A parked lane's write is routed to cell 0 carrying that
+    cell's current contents, so it changes nothing — the reference drops
+    it as out of range. Returns ``(out, cache)``.
     """
     B, S, _ = x.shape
-    if S != 1:
+    if cache is not None and S != 1:
         raise ValueError(f"the contiguous decode path takes one token per "
                          f"lane, got {S}; chunked prefill is ported with the "
                          "paged-serving slice")
@@ -145,6 +290,10 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, cache, window=None):
     v = dense(qa, p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = flash_attention(qa, q, k, v, causal=True, window=window, chunk=chunk,
+                              softcap=cfg.attn_logit_softcap)
+        return dense(qa, p["wo"], out.reshape(B, S, cfg.n_heads * hd)), None
 
     k_cache, v_cache, k_pos = cache
     Sc = k_cache.shape[1]

@@ -1,6 +1,6 @@
-"""Architecture registry and the model API the serve path uses (port of
-``repro.models.registry``: ``get_config``, ``init``, ``make_cache``,
-``decode``).
+"""Architecture registry and the model API the serve and train paths use
+(port of ``repro.models.registry``: ``get_config``, ``init``,
+``forward_logits``, ``make_cache``, ``decode``).
 
 Only ``qwen2.5-3b`` (dense GQA with QKV bias, tied embeddings) is ported;
 every other architecture of the reference raises "not ported yet".
@@ -15,7 +15,7 @@ from repro_torch import resolve_device
 from repro_torch.core.qarith import QArith
 from repro_torch.models import transformer as T
 
-__all__ = ["ARCH_IDS", "get_config", "init", "make_cache", "decode"]
+__all__ = ["ARCH_IDS", "get_config", "init", "forward_logits", "make_cache", "decode"]
 
 # every architecture of the reference; _MODULES lists the ported ones
 ARCH_IDS = (
@@ -43,6 +43,13 @@ def init(cfg, seed: int, dtype=torch.float32, *, device=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return T.init_lm(cfg, gen, dtype)
+
+
+def forward_logits(qa: QArith, params, cfg, batch: dict, *, remat: bool = True,
+                   attn_chunk: int = 1024):
+    """Teacher-forced logits (B,S,V) f32 of ``batch["tokens"]``."""
+    return T.forward(qa, params, cfg, batch["tokens"], remat=remat,
+                     attn_chunk=attn_chunk)
 
 
 def make_cache(params, cfg, *, batch_size: int, max_len: int,

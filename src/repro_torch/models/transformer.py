@@ -1,23 +1,29 @@
-"""Dense decoder-only LM, decode path (port of ``repro.models.transformer``).
+"""Dense decoder-only LM: the full-sequence forward (training) and the
+decode step (port of ``repro.models.transformer``).
 
 Parameters keep the reference's stacked layout — every leaf under
-``params["layers"]["b0"]`` carries a leading layer dim L — and decode
-walks the stack with a Python loop where the reference scans it. The
-decode cache mirrors it: ``cache["layers"]["b0"] = (k, v, k_pos)`` with
-k/v ``(L,N,Sc,Hkv,D)`` and k_pos ``(L,N,Sc)`` i32. Only the dense
-``"attn"`` block is ported.
+``params["layers"]["b0"]`` carries a leading layer dim L — and both paths
+walk the stack with a Python loop where the reference scans it. The
+forward splits each stacked leaf with one ``unbind``, whose backward
+stacks the per-layer gradients into one stacked gradient; with
+``remat=True`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of the scan body), so only layer inputs
+are kept for the backward. The decode cache mirrors the stack:
+``cache["layers"]["b0"] = (k, v, k_pos)`` with k/v ``(L,N,Sc,Hkv,D)`` and
+k_pos ``(L,N,Sc)`` i32. Only the dense ``"attn"`` block is ported.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qarith import QArith
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
-__all__ = ["init_lm", "init_cache", "decode_step"]
+__all__ = ["init_lm", "init_cache", "forward", "decode_step"]
 
 PyTree = Any
 
@@ -29,12 +35,14 @@ def block_init(gen: torch.Generator, cfg, dtype=torch.float32) -> PyTree:
             "ffn": M.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)}
 
 
-def block_apply(qa: QArith, cfg, p, x, *, positions, cache):
-    """One dense attention block; returns (x, cache) with the cache
-    updated in place."""
+def block_apply(qa: QArith, cfg, p, x, *, positions, cache=None,
+                attn_chunk: int = 1024):
+    """One dense attention block; returns (x, cache) — the decode cache
+    updated in place, or None for the full-sequence path."""
     h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
     y, cache = L.attention_apply(qa, p["mixer"], h, cfg, positions=positions,
-                                 cache=cache, window=cfg.swa_window)
+                                 cache=cache, window=cfg.swa_window,
+                                 chunk=attn_chunk)
     x = qa.add(x, y)
     h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
     y = M.mlp_apply(qa, p["ffn"], h, cfg.act_fn)
@@ -98,6 +106,29 @@ def _embed_tokens(qa: QArith, params, tokens):
 def _logits(qa: QArith, cfg, params, x):
     h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
     return qa.matmul_f32out(h, params["embed"]["embedding"].T)
+
+
+def _unstack(stack: PyTree, n_layers: int) -> list[PyTree]:
+    """Per-layer views of the stacked tree, one ``unbind`` per leaf."""
+    parts = _map(lambda t: t.unbind(0), stack)
+    return [_map(lambda layers, i=i: layers[i], parts) for i in range(n_layers)]
+
+
+def forward(qa: QArith, params, cfg, tokens, *, positions=None, remat: bool = True,
+            attn_chunk: int = 1024, logits: bool = True):
+    """Full-sequence forward. tokens: (B,S) int. Returns logits (B,S,V) f32,
+    or the final hidden state when ``logits=False``."""
+    B, Sq = tokens.shape[:2]
+    if positions is None:
+        positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
+    x = _embed_tokens(qa, params, tokens)
+
+    def body(x, p):
+        return block_apply(qa, cfg, p, x, positions=positions, attn_chunk=attn_chunk)[0]
+
+    for p in _unstack(params["layers"]["b0"], cfg.n_layers):
+        x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
+    return _logits(qa, cfg, params, x) if logits else x
 
 
 def decode_step(qa: QArith, params, cfg, token, cache, cache_pos):

@@ -1,0 +1,205 @@
+"""Optimizer substrate: policy-aware quantized update arithmetic (port of
+``repro.optim.base``).
+
+Every line of the paper's Algorithms 2–5 is one FPU op: bf16 (or sub-16)
+inputs, f32 accumulator, output rounded once to the storage format.
+:class:`UpdateOps` encodes that contract:
+
+* ``q(x)``           — nearest-round ``x`` onto the state/param grid
+* ``q_sr(x, noise)`` — stochastically round (the paper's ⊖ output mode)
+* ``f32(x)``         — read a stored tensor into the 32-bit accumulator
+
+Randomness. The reference splits one JAX key per leaf; the port keys one
+random stream per leaf instead: :class:`StepKey` ``(seed, step)`` gives
+leaf ``i`` a ``torch.Generator`` seeded from ``(seed, step, i)``, from
+which :meth:`LeafNoise.bits` draws the leaf's u32 SR bits. The bits differ
+from ``jax.random``'s; to compare with the reference bit for bit, pass a
+:class:`GivenKey` holding the reference's own bits.
+
+On the card, ``q_sr`` onto native bf16 launches the ``sr_cast`` CUDA kernel
+with those bits (the same function as the reference's bf16 bit trick).
+
+The optimizers update **in place**: ``update`` writes each leaf's new
+weights and state into the tensors it was given (after computing all of the
+leaf's new values) and returns them, so a step never holds a second copy
+of the optimizer state.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core.formats import (FloatFormat, random_bits, round_nearest,
+                                      round_stochastic)
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.kernels.sr_cast import sr_cast
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+__all__ = ["UpdateOps", "Optimizer", "LeafNoise", "StepKey", "GivenKey",
+           "leafwise", "state_ops", "param_ops", "init_params_for_policy",
+           "write_back"]
+
+PyTree = Any
+_M64 = (1 << 64) - 1
+
+
+def _mix(*ints: int) -> int:
+    """splitmix64 over the integers: a 63-bit generator seed."""
+    h = 0x9E3779B97F4A7C15
+    for v in ints:
+        h = (h ^ (int(v) & _M64)) & _M64
+        h = (h + 0x9E3779B97F4A7C15) & _M64
+        h = ((h ^ (h >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+        h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _M64
+        h ^= h >> 31
+    return h >> 1
+
+
+class LeafNoise:
+    """The SR randomness of one leaf: u32 bits (int32) and, for the fp16 and
+    small-exponent grids, f32 uniforms — each from its own generator seeded
+    from the leaf's seed, on the device it is drawn for."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def _gen(self, stream: int, device) -> torch.Generator:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_mix(self.seed, stream))
+        return gen
+
+    def bits(self, shape, device) -> torch.Tensor:
+        return random_bits(shape, generator=self._gen(0, device), device=device)
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        return torch.rand(shape, generator=self._gen(1, device), device=device)
+
+
+class StepKey(NamedTuple):
+    """Per-leaf random streams of one training step."""
+    seed: int
+    step: int
+
+    def leaf(self, i: int) -> LeafNoise:
+        return LeafNoise(_mix(self.seed, self.step, i))
+
+
+class _GivenNoise:
+    def __init__(self, bits, uniform):
+        self._bits, self._uniform = bits, uniform
+
+    @staticmethod
+    def _take(t, what, shape, device):
+        if t is None:
+            raise ValueError(f"no {what} given for this leaf")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what} of shape {tuple(t.shape)} for a leaf of "
+                             f"shape {tuple(shape)}")
+        return t.to(device)
+
+    def bits(self, shape, device):
+        return self._take(self._bits, "bits", shape, device)
+
+    def uniform(self, shape, device):
+        return self._take(self._uniform, "uniforms", shape, device)
+
+
+class GivenKey:
+    """Explicit per-leaf randomness, in leaf order: ``bits[i]`` (int32 or
+    int64 tensors carrying u32) and optionally ``uniform[i]`` (f32). Used to
+    feed both frameworks the same bits."""
+
+    def __init__(self, bits: Sequence, uniform: Sequence | None = None):
+        self._bits = list(bits)
+        self._uniform = list(uniform) if uniform is not None else [None] * len(self._bits)
+
+    def leaf(self, i: int) -> _GivenNoise:
+        return _GivenNoise(self._bits[i], self._uniform[i])
+
+
+class UpdateOps:
+    def __init__(self, fmt: FloatFormat, native_dtype: torch.dtype):
+        self.fmt = fmt
+        self._dtype = native_dtype
+        self._native = fmt.name in ("bf16", "fp16", "fp32")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    def f32(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.float32)
+
+    def q(self, x: torch.Tensor) -> torch.Tensor:
+        """One FPU op output: nearest-round onto the grid, stored."""
+        if self._native:
+            return x.to(self._dtype)
+        return round_nearest(self.f32(x), self.fmt)
+
+    def q_sr(self, x: torch.Tensor, noise) -> torch.Tensor:
+        """One FPU op output with stochastic rounding, randomness from
+        ``noise`` (a leaf's :class:`LeafNoise`)."""
+        if self.fmt.name == "fp32":
+            return x.to(self._dtype)
+        x = self.f32(x).contiguous()
+        if self.fmt.name == "bf16" and self._dtype == torch.bfloat16:
+            return sr_cast(x, noise.bits(x.shape, x.device))
+        needs_u = self.fmt.name == "fp16" or not self.fmt.is_f32_exponent
+        y = round_stochastic(
+            x, self.fmt,
+            noise=None if self.fmt.name == "fp16" else noise.bits(x.shape, x.device),
+            u=noise.uniform(x.shape, x.device) if needs_u else None)
+        return y.to(self._dtype) if self._native else y
+
+    def zeros_like(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(x.shape, dtype=self._dtype, device=x.device)
+
+
+def state_ops(policy: PrecisionPolicy) -> UpdateOps:
+    return UpdateOps(policy.state_format, policy.state_dtype)
+
+
+def param_ops(policy: PrecisionPolicy) -> UpdateOps:
+    if policy.master_weights:
+        return UpdateOps(policy.param_format, torch.float32)
+    return UpdateOps(policy.param_format, policy.param_dtype)
+
+
+def leafwise(fn: Callable, params: PyTree, *trees: PyTree | None, key) -> list[PyTree]:
+    """Apply ``fn(w, *leaves, noise)`` per parameter leaf across aligned
+    trees, ``noise = key.leaf(i)`` for leaf ``i``. ``fn`` returns a tuple;
+    the result is a list of trees (one per tuple slot). Trees passed as
+    ``None`` contribute ``None`` leaves."""
+    p_leaves = tree_leaves(params)
+    cols = [[None] * len(p_leaves) if t is None else tree_leaves(t) for t in trees]
+    outs = [fn(w, *[c[i] for c in cols], key.leaf(i)) for i, w in enumerate(p_leaves)]
+    return [tree_unflatten(params, [o[j] for o in outs]) for j in range(len(outs[0]))]
+
+
+def write_back(dst: torch.Tensor | None, src: torch.Tensor | None):
+    """Store a leaf's new value into its old tensor (the in-place update)."""
+    if dst is None:
+        return None
+    if src is not dst:
+        dst.copy_(src)
+    return dst
+
+
+def init_params_for_policy(params_f32: PyTree, policy: PrecisionPolicy) -> PyTree:
+    """Cast freshly-initialized f32 params onto the policy's storage grid."""
+    return tree_map(param_ops(policy).q, params_f32)
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """``init`` builds state, ``update`` applies one step of the policy's
+    Algorithm (2–5 / exact / mixed):
+    ``update(grads, state, params, *, step, key, lr) -> (params, state)``,
+    with params and state updated in place."""
+
+    name: str
+    policy: PrecisionPolicy
+    init: Callable[[PyTree], PyTree]
+    update: Callable[..., tuple[PyTree, PyTree]]

@@ -1,0 +1,104 @@
+"""Kernel-backed optimizers: the fused-update path (port of
+``repro.optim.fused``, single device).
+
+Same interface as :func:`repro_torch.optim.sgd` / :func:`adamw`, but each
+leaf update is ONE launch of a hand-written CUDA kernel
+(``kernels/fused_sgd.py``, ``kernels/fused_adamw.py``): one pass over
+w, m, (v,) g, (c) and the SR bits — Appendix B's efficiency argument.
+Only native-bf16 policies are supported (the kernels implement the bf16
+grid). Given the same per-leaf bits, the result equals the reference
+optimizers' bit for bit: the kernels round every op as they do and
+contract no multiply-add.
+
+Each leaf's SR bits are drawn (``key.leaf(i).bits``), used and freed
+before the next leaf's, and w, m, v, c are updated in place, so a step
+holds no second copy of the optimizer state. The shard-local mode of the
+reference (``mesh=``/``pspecs=``) is ported with the ``dist`` slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.kernels.fused_adamw import fused_adamw
+from repro_torch.kernels.fused_sgd import fused_sgd
+from repro_torch.optim.adamw import AdamWState, init_state, snap
+from repro_torch.optim.base import Optimizer, state_ops
+from repro_torch.optim.sgd import SGDState
+from repro_torch.tree import tree_leaves, tree_map
+
+__all__ = ["fused_sgd_optimizer", "fused_adamw_optimizer"]
+
+
+def _check(policy: PrecisionPolicy, mesh, pspecs):
+    if policy.param_format.name != "bf16" or policy.update_rounding == "exact":
+        raise ValueError(
+            f"fused kernels implement the bf16 16-bit-FPU recipe; "
+            f"policy {policy.name!r} is not supported")
+    if mesh is not None or pspecs is not None:
+        raise ValueError("the shard-local fused update (mesh=/pspecs=) is ported "
+                         "with the dist slice (ROADMAP A5)")
+
+
+def _leaves(params, *trees):
+    """Per-leaf tuples across aligned trees (None trees give None)."""
+    cols = [tree_leaves(params)]
+    cols += [[None] * len(cols[0]) if t is None else tree_leaves(t) for t in trees]
+    return list(zip(*cols))
+
+
+def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
+                        weight_decay: float = 0.0, mesh=None,
+                        pspecs=None) -> Optimizer:
+    _check(policy, mesh, pspecs)
+    sops = state_ops(policy)
+    stochastic = policy.update_rounding == "stochastic"
+
+    def init(params):
+        m = tree_map(sops.zeros_like, params)
+        c = tree_map(sops.zeros_like, params) if policy.kahan else None
+        return SGDState(m, c)
+
+    def update(grads, state, params, *, step, key, lr):
+        del step
+        with torch.no_grad():
+            for i, (w, g, m, c) in enumerate(_leaves(params, grads, state.momentum,
+                                                     state.kahan_c)):
+                bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
+                fused_sgd(w, m, g.to(torch.bfloat16), c=c, bits=bits,
+                          stochastic=stochastic, lr=lr, momentum=momentum,
+                          wd=weight_decay)
+                del bits
+        return params, state
+
+    return Optimizer(f"fused_sgd[{policy.name}]", policy, init, update)
+
+
+def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
+                          b2: float = 0.99609375, eps: float = 1e-8,
+                          weight_decay: float = 0.01, mesh=None,
+                          pspecs=None) -> Optimizer:
+    _check(policy, mesh, pspecs)
+    sops = state_ops(policy)
+    stochastic = policy.update_rounding == "stochastic"
+    b1q, b2q = snap(sops, b1), snap(sops, b2)
+
+    def init(params):
+        return init_state(sops, sops, params, policy.kahan)
+
+    def update(grads, state, params, *, step, key, lr):
+        del step
+        with torch.no_grad():
+            c1 = sops.q(sops.f32(state.c1) * b1q)
+            c2 = sops.q(sops.f32(state.c2) * b2q)
+            c1f, c2f = float(c1), float(c2)       # one host read per step
+            for i, (w, g, m, v, c) in enumerate(_leaves(params, grads, state.m, state.v,
+                                                        state.kahan_c)):
+                bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
+                fused_adamw(w, m, v, g.to(torch.bfloat16), c=c, bits=bits,
+                            stochastic=stochastic, lr=lr, b1=b1q, b2=b2q, eps=eps,
+                            wd=weight_decay, c1=c1f, c2=c2f)
+                del bits
+        return params, AdamWState(state.m, state.v, c1, c2, state.kahan_c)
+
+    return Optimizer(f"fused_adamw[{policy.name}]", policy, init, update)

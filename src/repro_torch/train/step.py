@@ -1,9 +1,19 @@
-"""Step builders (port of ``repro.train.step``: ``compute_params`` and the
-slot-indexed serve step; the train step arrives with the training slice).
+"""Train / eval / serve step builders (port of ``repro.train.step``).
+
+``make_train_step`` returns ``(state, batch, seed) -> (state, metrics)``
+closed over config, policy and optimizer. Precision flows per the paper:
+forward/backward run in the policy's compute format (master-copy policies
+cast a bf16 working copy of the weights for compute), gradients land in
+the compute dtype and feed the quantized optimizer update (Algorithms
+2–5), which writes the new weights and state in place. ``grad_accum=k``
+runs k microbatches over one working copy, accumulating f32 gradients,
+before one update on their mean. The reference's gradient transports
+(``transport=``, ``pspecs=``, ``placement=``) are ported with the dist
+slice.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -12,17 +22,14 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
 from repro_torch.kernels import dispatch
 from repro_torch.models import registry as R
+from repro_torch.optim.base import StepKey
 from repro_torch.serve import cache as SC
+from repro_torch.train.train_state import TrainState, softmax_xent
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["compute_params", "make_serve_step"]
+__all__ = ["compute_params", "make_train_step", "make_eval_step", "make_serve_step"]
 
 PyTree = Any
-
-
-def _tree_map(fn, tree: PyTree) -> PyTree:
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def compute_params(params: PyTree, policy: PrecisionPolicy) -> PyTree:
@@ -35,8 +42,106 @@ def compute_params(params: PyTree, policy: PrecisionPolicy) -> PyTree:
     if not policy.master_weights or policy.compute_format.name == "fp32":
         return params
     if policy.compute_format.name == "bf16":
-        return _tree_map(lambda w: w.to(torch.bfloat16), params)
-    return _tree_map(lambda w: round_nearest(w, policy.compute_format), params)
+        return tree_map(lambda w: w.to(torch.bfloat16), params)
+    return tree_map(lambda w: round_nearest(w, policy.compute_format), params)
+
+
+def _split_microbatches(batch: dict, k: int) -> list[dict]:
+    """k microbatches along every leaf's batch dim."""
+    for name, x in batch.items():
+        if x.shape[0] % k:
+            raise ValueError(f"global batch {x.shape[0]} of {name!r} not divisible "
+                             f"by grad_accum={k}")
+    return [{name: x.chunk(k)[i] for name, x in batch.items()} for i in range(k)]
+
+
+def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
+                    remat: bool = True, attn_chunk: int = 1024,
+                    loss_fn: Callable | None = None, pspecs=None, placement=None,
+                    transport=None, grad_accum: int = 1):
+    """One train step: ``(state, batch, seed) -> (state, metrics)`` with
+    metrics ``loss`` (f32 tensor), ``lr`` (float) and ``grad_norm``.
+
+    ``batch`` holds ``tokens`` and ``labels`` (B,S) on the parameters'
+    device. The SR randomness of step ``state.step`` comes from
+    ``StepKey(seed, state.step)``: one stream per parameter leaf. The
+    params and optimizer state of ``state`` are updated in place and
+    returned in the new state.
+    """
+    for name, given in (("transport", transport), ("pspecs", pspecs),
+                        ("placement", placement)):
+        if given is not None:
+            raise ValueError(f"{name}= is ported with the dist slice (ROADMAP A5)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    qa = QArith(policy)
+
+    def _loss(wc, batch):
+        logits = R.forward_logits(qa, wc, cfg, batch, remat=remat, attn_chunk=attn_chunk)
+        if loss_fn is not None:
+            return loss_fn(logits, batch)
+        return softmax_xent(logits, batch["labels"])
+
+    def _micro_grads(wc, leaves, batch):
+        with torch.enable_grad():
+            loss = _loss(wc, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), list(grads)
+
+    def train_step(state: TrainState, batch, seed) -> tuple[TrainState, dict]:
+        key = StepKey(int(seed), int(state.step))
+        # the working copy, as fresh autograd leaves sharing its storage
+        wc = compute_params(state.params, policy)
+        leaves = [w.detach().requires_grad_(True) for w in tree_leaves(wc)]
+        wc = tree_unflatten(wc, leaves)
+        if grad_accum > 1:
+            loss, acc = None, None
+            for mb in _split_microbatches(batch, grad_accum):
+                mb_loss, grads = _micro_grads(wc, leaves, mb)
+                if acc is None:
+                    loss, acc = mb_loss.to(torch.float32), [g.to(torch.float32) for g in grads]
+                else:
+                    loss = loss + mb_loss
+                    for a, g in zip(acc, grads):
+                        a.add_(g.to(torch.float32))
+                del grads
+            k = torch.tensor(grad_accum, dtype=torch.float32, device=loss.device)
+            loss = loss / k
+            grads = [a / k for a in acc]
+            del acc
+        else:
+            loss, grads = _micro_grads(wc, leaves, batch)
+        del wc, leaves
+        grads = tree_unflatten(state.params, grads)
+        lr = lr_schedule(state.step)
+        grad_norm = _global_norm(grads)
+        new_params, new_opt = optimizer.update(grads, state.opt_state, state.params,
+                                               step=state.step, key=key, lr=lr)
+        metrics = {"loss": loss.to(torch.float32), "lr": lr, "grad_norm": grad_norm}
+        return TrainState(state.step + 1, new_params, new_opt, None), metrics
+
+    return train_step
+
+
+def _global_norm(tree) -> torch.Tensor:
+    with torch.no_grad():
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in tree_leaves(tree)))
+
+
+def make_eval_step(cfg, policy: PrecisionPolicy, *, attn_chunk: int = 1024):
+    qa = QArith(policy)
+
+    def eval_step(params, batch):
+        with torch.no_grad():
+            wc = compute_params(params, policy)
+            logits = R.forward_logits(qa, wc, cfg, batch, remat=False,
+                                      attn_chunk=attn_chunk)
+            loss = softmax_xent(logits, batch["labels"])
+            acc = (logits.argmax(-1) == batch["labels"]).to(torch.float32).mean()
+        return {"loss": loss, "acc": acc}
+
+    return eval_step
 
 
 def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,

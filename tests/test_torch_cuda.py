@@ -1,13 +1,16 @@
-"""The CUDA decode kernel and the port's engine on a GPU (marker ``cuda``).
+"""The CUDA kernels, the engine and the trainer on a GPU (marker ``cuda``).
 
 Skipped without a CUDA device. On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same CUDA
-inputs at atol = rtol = 1e-2 on the f32 output (sums in another order; an
-f32-ulp difference can flip the bf16 rounding of one probability), and
-parked lanes must be exact zeros.
+The decode kernel is held against its plain PyTorch version on the same
+CUDA inputs at atol = rtol = 1e-2 on the f32 output (sums in another
+order; an f32-ulp difference can flip the bf16 rounding of one
+probability), and parked lanes must be exact zeros. The update kernels
+(``sr_cast``, ``fused_adamw``, ``fused_sgd``) must equal their plain
+versions bit for bit in every variant at ragged sizes (NaN lanes: NaN on
+both sides): every op rounds once, and none is contracted into an FMA.
 """
 import numpy as np
 import pytest
@@ -16,9 +19,14 @@ import torch
 from repro_torch.core.policy import get_policy
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import dispatch
+from repro_torch.kernels import fused_adamw as FA
+from repro_torch.kernels import fused_sgd as FS
+from repro_torch.kernels import sr_cast as SC
+from repro_torch.launch import train as launch_train
 from repro_torch.models import registry as R
 from repro_torch.serve.decode import generate
 from repro_torch.serve.engine import Engine
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -91,3 +99,114 @@ def test_engine_matches_generate_on_the_card(cuda):
                            cache_len=24).cpu().numpy()
             for i, c in enumerate(cs):
                 assert np.array_equal(ref[i, s0:], c.tokens)
+
+
+# ---------------------------------------------------------------------------
+# update kernels
+# ---------------------------------------------------------------------------
+
+VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+ADAMW_HP = dict(lr=1e-3, b1=0.8984375, b2=0.99609375, eps=1e-8, wd=0.01,
+                c1=0.8984375, c2=0.99609375)
+SGD_HP = dict(lr=0.1, momentum=0.9, wd=1e-4)
+
+
+def _same(got, want):
+    nan = torch.isnan(want.float())
+    assert torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(got[~nan].view(torch.int16), want[~nan].view(torch.int16))
+
+
+def _state(dev, n, seed, *, edges=True):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda s: (torch.randn(n, generator=g, device=dev) * s).to(torch.bfloat16)  # noqa: E731
+    out = dict(w=r(1.0), m=r(0.1), v=r(0.1).abs(), g=r(1.0), c=r(2.0**-9),
+               bits=torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                                  dtype=torch.int32))
+    if edges and n >= 5:
+        out["g"][:3] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+        out["w"][3:5] = torch.tensor([3.3895e38, -3.3895e38])
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
+def test_sr_cast_kernel_matches_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda) * 7
+    if n >= 5:
+        x[:5] = torch.tensor([float("inf"), float("-inf"), float("nan"), 3.3961e38, -3.3961e38])
+    bits = torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=cuda, dtype=torch.int32)
+    before = SC.LAUNCHES
+    got = SC.sr_cast(x, bits)
+    torch.cuda.synchronize()
+    assert SC.LAUNCHES == before + 1
+    _same(got, SC.sr_cast_ref(x, bits))
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
+@pytest.mark.parametrize("stochastic,kahan", VARIANTS)
+def test_fused_adamw_kernel_matches_plain(cuda, n, stochastic, kahan):
+    x = _state(cuda, n, n)
+    c = x["c"] if kahan else None
+    bits = x["bits"] if stochastic else None
+    want = FA.fused_adamw_ref(x["w"], x["m"], x["v"], x["g"], c=c, bits=bits,
+                              stochastic=stochastic, **ADAMW_HP)
+    before = FA.LAUNCHES
+    got = FA.fused_adamw(x["w"], x["m"], x["v"], x["g"], c=c, bits=bits,
+                         stochastic=stochastic, **ADAMW_HP)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        if b is not None:
+            _same(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
+@pytest.mark.parametrize("stochastic,kahan", VARIANTS)
+def test_fused_sgd_kernel_matches_plain(cuda, n, stochastic, kahan):
+    x = _state(cuda, n, n + 1)
+    c = x["c"] if kahan else None
+    bits = x["bits"] if stochastic else None
+    want = FS.fused_sgd_ref(x["w"], x["m"], x["g"], c=c, bits=bits, stochastic=stochastic,
+                            **SGD_HP)
+    before = FS.LAUNCHES
+    got = FS.fused_sgd(x["w"], x["m"], x["g"], c=c, bits=bits, stochastic=stochastic,
+                       **SGD_HP)
+    torch.cuda.synchronize()
+    assert FS.LAUNCHES == before + 1
+    for a, b in zip(got, want):
+        if b is not None:
+            _same(a, b)
+
+
+def test_update_wrappers_reject_what_the_kernels_cannot_take(cuda):
+    x = _state(cuda, 64, 0, edges=False)
+    w, m, v, g, c, bits = (x[k] for k in ("w", "m", "v", "g", "c", "bits"))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.fused_adamw(w[::2], m[::2], v[::2], g[::2], bits=bits[::2], **ADAMW_HP)
+    with pytest.raises(ValueError, match="bf16"):
+        FA.fused_adamw(w.float(), m, v, g, bits=bits, **ADAMW_HP)
+    with pytest.raises(ValueError, match="elements"):
+        FS.fused_sgd(w, m[:32], g, bits=bits, **SGD_HP)
+    with pytest.raises(ValueError, match="int32"):
+        FS.fused_sgd(w, m, g, c=c, bits=bits.long(), **SGD_HP)
+    with pytest.raises(ValueError, match="on cpu"):
+        FS.fused_sgd(w, m, g.cpu(), bits=bits, **SGD_HP)
+    with pytest.raises(ValueError, match="f32 x and int32 bits"):
+        SC.sr_cast(w, bits)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_reduced_launcher_trains_on_the_card(cuda, fused):
+    argv = ["--reduced", "--steps", "3", "--batch", "2", "--seq", "32",
+            "--policy", "bf16_sr_kahan"] + (["--fused-update"] if fused else [])
+    args = launch_train.parse_args(argv)
+    run = launch_train.build(args)
+    n_leaves = len(tree_leaves(run.state.params))
+    counts = (FA, SC)
+    before = [k.LAUNCHES for k in counts]
+    state, info = launch_train.train(args, run, log=lambda *_: None)
+    launched = [k.LAUNCHES - b for k, b in zip(counts, before)]
+    assert state.step == 3
+    assert launched == ([3 * n_leaves, 0] if fused else [0, 3 * n_leaves])
+    assert all(np.isfinite(row["loss"]) for row in info["history"])
