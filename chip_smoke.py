@@ -6,36 +6,57 @@
 Phases, each printing its lines (a failed check exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: the four CUDA kernels (decode attention, ``sr_cast``,
-   ``fused_adamw``, ``fused_sgd``), built from this checkout with one
-   ``nvcc`` per source at once; nvcc time, registers and spills;
+2. build: the four CUDA sources (decode attention — contiguous and paged
+   entry points — ``sr_cast``, ``fused_adamw``, ``fused_sgd``), built from
+   this checkout with one ``nvcc`` per source at once; nvcc time,
+   registers and spills;
 3. kernel: the decode kernel against its plain PyTorch version at the
    serving path's shapes (B=8 lanes, 16/2 heads, D=128, bf16, Sc 256 and
    2048): mixed depths, two parked lanes (exact zeros), window 64 +
    softcap 30; its time beside its bound, the plain version's time and
    ``scaled_dot_product_attention``'s (a yardstick the port never calls);
-4. serve (main path of serving): full-width qwen2.5-3b (36 layers, random
-   weights from a seed) served by the continuous-batching engine with the
-   fused decode kernel — 12 requests from the synthetic stream; every
-   request must finish, the kernel must have launched 36 times per
-   serve-step call, and the tokens must equal the port's ``generate``
-   (same kernel, batched to the engine's 8 rows) bit for bit; then a
-   profile of steady-state serve steps;
-5. update kernels: ``sr_cast`` (with ±inf, NaN and near-max lanes),
+4. kernel-paged: the paged decode kernel on a shuffled page pool (P=16,
+   views of 256, 1024 and 4096 keys; two lanes share prefix pages, null
+   blocks trail, two lanes parked; one variant with window 64 + softcap
+   30): ``torch.equal`` to the contiguous kernel on the gathered view,
+   within atol = rtol = 1e-2 of its plain version, parked lanes exactly
+   zero; its time beside its bound, the plain version's and
+   ``scaled_dot_product_attention``'s on the pre-gathered view;
+5. serve (main path of contiguous serving): full-width qwen2.5-3b (36
+   layers, random weights from a seed) served by the continuous-batching
+   engine with the fused decode kernel — 12 requests from the synthetic
+   stream; every request must finish, the kernel must have launched 36
+   times per serve-step call, and the tokens must equal the port's
+   ``generate`` (same kernel, batched to the engine's 8 rows) bit for bit;
+6. serve-paged (main path of paged serving): the same model served by
+   the paged engine (8 slots, max_len 1024, pages of 16, 64 pages — below
+   the 512 of byte parity, so it preempts — prefix cache on, fused paged
+   kernel) on 16 requests whose prompts (32–256 tokens, 3 in 4 behind one
+   128-token prefix) come from the synthetic stream; every request
+   finishes with the tokens of a contiguous fused engine on the same
+   stream, at least one preemption and one prefix hit, pool invariants at
+   drain and no live page after ``clear_prefix``, 36 paged-kernel launches
+   per serve step; then the same stream with ``prefill_chunk=32`` in fewer
+   steps, its tokens held to the chunk-1 run token for token or, where
+   they part, at the logit level (ROADMAP C10); then a profile of
+   steady-state serve steps of each engine, contiguous and paged, with
+   the host wall time per step before, under and after the profiler (the
+   profiles come last: the profiler may slow the launches of later work);
+7. update kernels: ``sr_cast`` (with ±inf, NaN and near-max lanes),
    ``fused_adamw`` and ``fused_sgd`` (nearest or SR × Kahan off or on)
    against their plain versions on one int32 bits tensor, at a ragged
    n = 1,000,003 and at the embedding leaf's 151936×2048 elements: every
    output ``torch.equal``; device time at the embedding size beside the
    bytes bound and the plain version's time (no single PyTorch call
    computes these updates, so there is no library time);
-6. train (main path of training): full-width qwen2.5-3b trained through
+8. train (main path of training): full-width qwen2.5-3b trained through
    the launcher's own functions, ``--policy bf16_sr_kahan --fused-update
    --batch 2 --seq 2048``, 8 steps at lr 3e-3: every loss finite, the
    last below step 0's, ``fused_adamw`` launched once per parameter leaf
    per step; ms per step, tokens per second, the optimizer's ms per step
    (CUDA events) beside its bound, peak device memory; then one more step
    under the profiler (device time, idle share, top kernels);
-7. update parity (main path of the non-fused optimizer and of fused
+9. update parity (main path of the non-fused optimizer and of fused
    SGD): from the trained state and one fresh gradient, one step of
    ``adamw`` against ``fused_adamw_optimizer`` and of ``sgd`` against
    ``fused_sgd_optimizer`` with the same per-leaf bits, leaf by leaf:
@@ -67,7 +88,16 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12    # H100 SXM data sheet, dense bf16
 B, HQ, HKV, D = 8, 16, 2, 128
 MAIN_SC = 256               # the engine's max_len below
-KERNELS = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd")
+PAGE = 16                   # the paged engine's page size
+PAGED_MAX_LEN = 1024        # the paged engine's max_len: its views are 64 pages
+PAGED_N_PAGES = 64          # below byte parity (8 x 64 = 512), so the run preempts
+# a chunked token may part from the chunk-1 token only where the chunk-1
+# model's logit for its own token exceeds the chunked token's by at most
+# this (the bf16 products of a chunk step run at 8*32 rows, ROADMAP C10)
+CHUNK_LOGIT_TOL = 0.125
+SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd")
+KERNELS = ("decode_attention", "paged_decode_attention", "sr_cast", "fused_adamw",
+           "fused_sgd")
 EMBED_N = 151936 * 2048     # the embedding leaf of qwen2.5-3b
 # bytes per element each update kernel must move in its main-path variant
 # (SR + Kahan): every bf16 input read once, bits read once, outputs written
@@ -146,10 +176,10 @@ def phase_card() -> str:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
-    print(f"[build] {len(KERNELS)} kernels built and loaded in "
+    _build.load_all(SOURCES)
+    print(f"[build] {len(SOURCES)} kernel sources built and loaded in "
           f"{time.perf_counter() - t0:.2f}s wall (one nvcc per source, in parallel)")
-    for name in KERNELS:
+    for name in SOURCES:
         info = _build.builds[name]
         print(f"[build] {name}: nvcc {info.seconds:.2f}s -> {info.path.name}")
         for line in info.log.splitlines():
@@ -252,20 +282,15 @@ def phase_kernel(card: str) -> dict:
     return row
 
 
-def phase_main_path(card: str) -> int:
-    import numpy as np
+def serve_model():
+    """Full-width qwen2.5-3b with random weights from seed 0, on the card,
+    under ``bf16_standard``: what both serving phases serve."""
     import torch
     from repro_torch.core.policy import get_policy
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import serve_stream, synthetic_stream
     from repro_torch.models import registry as R
-    from repro_torch.serve.decode import generate
-    from repro_torch.serve.engine import Engine
 
     policy = get_policy("bf16_standard")
     cfg = R.get_config("qwen2.5-3b")
-    n_slots, max_len = 8, MAIN_SC
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = R.init(cfg, 0, policy.param_dtype, device="cuda")
@@ -275,6 +300,19 @@ def phase_main_path(card: str) -> int:
           f"{n_params / 1e9:.3f} B params ({policy.name}) initialised on the card "
           f"in {time.perf_counter() - t0:.2f}s; peak device memory during init "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return params, cfg, policy
+
+
+def phase_main_path(card: str, params, cfg, policy) -> int:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import serve_stream, synthetic_stream
+    from repro_torch.serve.decode import generate
+    from repro_torch.serve.engine import Engine
+
+    n_slots, max_len = 8, MAIN_SC
 
     def engine():
         return Engine(params, cfg, policy, n_slots=n_slots, max_len=max_len,
@@ -330,30 +368,366 @@ def phase_main_path(card: str) -> int:
           f"requests ({len(groups)} reference batches of {n_slots} rows)")
     print(f"[main] peak device memory while serving and checking "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
-    phase_profile(eng, cfg, card)
-    return launches
+    return launches, eng
 
 
-def phase_profile(eng, cfg, card: str, steps: int = 3):
+def _paged_inputs(n_blocks: int, seed: int, *, window=None, softcap=None):
+    """A paged pool on the card for B lanes with views of n_blocks pages:
+    lane depths mixed over the view, each lane's pages on shuffled rows,
+    lanes 0 and 1 sharing their first two (full) pages, unmapped blocks
+    trailing on the null row R−1 (positions −1), lanes 3 and 6 parked."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    Sc = n_blocks * PAGE
+    R = B * n_blocks + 1
+    q = torch.randn((B, 1, HQ, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((R, PAGE, HKV, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((R, PAGE, HKV, D), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.full((R, PAGE), -1, dtype=torch.int32, device=dev)
+    depth = torch.linspace(max(Sc // 8, 2 * PAGE), Sc - 1, B).to(torch.int32).tolist()
+    table = torch.full((B, n_blocks), R - 1, dtype=torch.int32)
+    rows = torch.randperm(R - 1, generator=torch.Generator().manual_seed(seed)).tolist()
+    cells = torch.arange(PAGE, dtype=torch.int32, device=dev)
+    for lane in range(B):
+        for blk in range(depth[lane] // PAGE + 1):
+            if lane == 1 and blk < 2:
+                table[1, blk] = table[0, blk]          # shared prefix page
+                continue
+            r = rows.pop()
+            table[lane, blk] = r
+            pos[r] = torch.where(blk * PAGE + cells <= depth[lane], blk * PAGE + cells, -1)
+    q_pos = torch.tensor(depth, dtype=torch.int32, device=dev)
+    q_pos[3] = q_pos[6] = -1
+    return dict(q=q, k=k, v=v, pos=pos, table=table.to(dev), q_pos=q_pos, window=window,
+                softcap=softcap)
+
+
+def _paged_bound_ms(x) -> tuple[float, str]:
+    """Least time for this input: q, the table rows and the positions of
+    the views of active lanes, q_pos, the distinct K/V cells some active
+    lane can see (a shared page is one input) read once, the f32 output
+    written once, over HBM; 4·D flops per (query head, visible cell) of
+    each lane against the bf16 peak."""
+    import torch
+    active = x["q_pos"] >= 0
+    table = x["table"][active].long()
+    kp = x["pos"][table].reshape(table.shape[0], -1)
+    qp = x["q_pos"][active][:, None]
+    ok = (kp >= 0) & (kp <= qp)
+    if x["window"] is not None:
+        ok &= qp - kp < x["window"]
+    cell = (table[:, :, None] * PAGE + torch.arange(PAGE, device=table.device)).reshape(
+        table.shape[0], -1)
+    n_cells = int(cell[ok].unique().numel())
+    n_active = int(active.sum())
+    nbytes = (n_active * HQ * D * 2 + table.numel() * 4 + int(table.unique().numel()) * PAGE * 4
+              + B * 4 + n_cells * HKV * D * 2 * 2 + B * HQ * D * 4)
+    flops = int(ok.sum()) * HQ * 4 * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel_paged(card: str) -> dict:
+    """The paged kernel ≡ the contiguous kernel on the gathered view
+    (bitwise), within 1e-2 of its plain version; its time beside its bound,
+    the plain version's and SDPA's on the pre-gathered view."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+
+    def paged(fn, x):
+        return fn(x["q"], x["k"], x["v"], x["pos"], x["table"], x["q_pos"],
+                  window=x["window"], softcap=x["softcap"], p_dtype=torch.bfloat16)
+
+    def view(t, x):
+        return DA._gather_view(t, x["table"]).contiguous()
+
+    max_err, row = 0.0, None
+    for n_blocks in (256 // PAGE, PAGED_MAX_LEN // PAGE, 4096 // PAGE):
+        Sc = n_blocks * PAGE
+        cases = {"shared+null+parked": _paged_inputs(n_blocks, 10),
+                 "window+softcap": _paged_inputs(n_blocks, 11, window=64, softcap=30.0)}
+        for name, x in cases.items():
+            got = paged(DA.fused_paged_decode_attention, x)
+            want = paged(DA.paged_decode_attention_ref, x)
+            contiguous = DA.fused_decode_attention(
+                x["q"], view(x["k"], x), view(x["v"], x), view(x["pos"], x), x["q_pos"],
+                window=x["window"], softcap=x["softcap"], p_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == (B, 1, HQ, D),
+                  f"paged kernel output {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"view {Sc} {name}: non-finite output")
+            check(torch.equal(got, contiguous),
+                  f"view {Sc} {name}: paged kernel != contiguous kernel on the gathered view")
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            check(torch.allclose(got, want, atol=ATOL, rtol=RTOL),
+                  f"view {Sc} {name}: paged kernel vs plain max |err| {err}")
+            for lane in (3, 6):
+                check(bool((got[lane] == 0).all()), f"view {Sc}: parked lane {lane} not zero")
+            print(f"[kernel-paged] view {Sc} keys {name}: paged kernel == contiguous kernel "
+                  f"on pages[block_table] (torch.equal); max |kernel - plain| {err:.3e} "
+                  f"(atol=rtol={ATOL}); parked lanes 3, 6 exactly zero")
+        x = cases["shared+null+parked"]
+        kv_bytes = 2 * x["k"].numel() * x["k"].element_size()
+        copies = [x] + [{n: t.clone() if hasattr(t, "clone") else t for n, t in x.items()}
+                        for _ in range(-(-64 * 2**20 // kv_bytes) - 1)]
+        ms = time_ms([lambda c=c: paged(DA.fused_paged_decode_attention, c) for c in copies])
+        plain_ms = time_ms([lambda c=c: paged(DA.paged_decode_attention_ref, c)
+                            for c in copies])
+
+        def sdpa(c):
+            kv = view(c["pos"], c)
+            allowed = ((kv >= 0) & (kv <= c["q_pos"][:, None]))[:, None, None, :]
+            qt = c["q"].transpose(1, 2)
+            kt, vt = view(c["k"], c).transpose(1, 2), view(c["v"], c).transpose(1, 2)
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                          enable_gqa=True)
+        library_ms = time_ms([sdpa(c) for c in copies])
+        enqueue_us = host_us(lambda: paged(DA.fused_paged_decode_attention, x))
+        bound_ms, bound_by = _paged_bound_ms(x)
+        print(f"[kernel-paged] view {Sc} keys on {card}: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention on the pre-gathered view {library_ms:.4f} ms "
+              f"(device time, {len(copies)} input copies rotated); host enqueue "
+              f"{enqueue_us:.1f} us per kernel call")
+        if Sc == PAGED_MAX_LEN:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+        del copies, cases, x
+    row["max_abs_err"] = max_err
+    return row
+
+
+def paged_stream(vocab: int):
+    """16 requests from the synthetic stream (seed 0, Poisson 1.0 per step,
+    prompts 32–256, generations 16–64); 3 in 4 prompts are cut to start
+    with one common 128-token prefix (8 pages) and keep at least 8 tokens
+    of their own."""
+    import numpy as np
+    from repro_torch.launch.serve import synthetic_stream
+    draws = synthetic_stream(np.random.default_rng(0), 16, rate=1.0, prompt_lens=(32, 256),
+                             gen_lens=(16, 64), vocab=vocab)
+    common = np.random.default_rng(1).integers(0, vocab, 128).astype(np.int32)
+    return [(t, np.concatenate([common, p[:max(p.size - 128, 8)]]) if i % 4 != 3 else p, g)
+            for i, (t, p, g) in enumerate(draws)]
+
+
+def lockstep_logits(params, cfg, policy, seqs, rows: int, cache_len: int, fused: bool):
+    """Teacher-force each sequence through single-token steps in batches of
+    ``rows`` lanes (the engine's row count, so every product has its
+    shapes). Returns, per sequence, the argmax after every token and the
+    full logits after its last token (on the host)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.qarith import QArith
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry as R
+    qa = QArith(policy)
+    out = []
+    for start in range(0, len(seqs), rows):
+        group = seqs[start:start + rows]
+        T = max(s.size for s in group)
+        batch = np.zeros((rows, T), np.int32)
+        for i, s in enumerate(group):
+            batch[i, :s.size] = s
+        tokens = torch.from_numpy(batch).to("cuda")
+        cache = R.make_cache(params, cfg, batch_size=rows, max_len=cache_len,
+                             dtype=policy.compute_dtype)
+        argmax, last = [], [None] * len(group)
+        with dispatch.fused_decode(fused):
+            for t in range(T):
+                pos = torch.full((rows,), t, dtype=torch.int32, device="cuda")
+                logits, cache = R.decode(qa, params, cfg, tokens[:, t:t + 1], cache, pos)
+                argmax.append(logits[:, 0].argmax(-1).cpu())
+                for i, s in enumerate(group):
+                    if t == s.size - 1:
+                        last[i] = logits[i, 0].float().cpu()
+        argmax = torch.stack(argmax, 1).numpy()
+        out.extend((argmax[i, :s.size], last[i]) for i, s in enumerate(group))
+    return out
+
+
+def phase_serve_paged(card: str, params, cfg, policy) -> int:
+    """The paged engine at full width: launches, prefix hits, preemption,
+    pool invariants, tokens == the contiguous engine's; then chunked."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.serve.engine import Engine
+
+    n_slots = 8
+    stream = paged_stream(cfg.vocab)
+    print(f"[serve-paged] stream: {len(stream)} requests, prompts "
+          f"{[p.size for _, p, _ in stream]}, generations {[g for _, _, g in stream]}, "
+          f"arrival steps {[t for t, _, _ in stream]}")
+
+    def engine(**kw):
+        return Engine(params, cfg, policy, n_slots=n_slots, max_len=PAGED_MAX_LEN,
+                      fused_decode=True, device="cuda", **kw)
+
+    def counted(eng):
+        """Count the engine's single-token serve-step calls."""
+        calls = []
+        fn = eng._fns[1]
+        eng._fns[1] = lambda *a, **kw: calls.append(1) or fn(*a, **kw)
+        return calls
+
+    def report(tag, eng, res):
+        st = eng.stats
+        print(f"[serve-paged] {tag} on {card}: {st.finished}/{len(stream)} finished, "
+              f"{st.steps} engine steps, {res.calls} serve-step calls, {st.tokens_generated} "
+              f"tokens in {res.seconds:.3f}s -> {st.tokens_generated / res.seconds:.1f} tok/s, "
+              f"{1e3 * res.seconds / res.calls:.2f} ms per serve step; pool "
+              f"{eng.pool.nbytes() / 2**20:.1f} MiB, {st.kv_pages_live} pages live at drain, "
+              f"{st.preemptions} preemptions, {st.prefix_hits} prefix hits, "
+              f"{st.prefix_tokens_reused} prefix tokens skipped")
+
+    def tokens(res):
+        check(len(res.completions) == len(stream), f"{len(res.completions)} completions")
+        out = {c.rid: c.tokens for c in res.completions}
+        for rid, (_, _, gen) in enumerate(stream):
+            check(out[rid].size == gen, f"rid {rid} stopped short of {gen} tokens")
+        return out
+
+    paged_kw = dict(paged=True, page_size=PAGE, n_pages=PAGED_N_PAGES)
+    warm = engine(**paged_kw)
+    warm.submit(np.arange(4, dtype=np.int32), 2)
+    warm.run()
+    del warm
+    eng = engine(**paged_kw)
+    single = counted(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DA.PAGED_LAUNCHES = 0
+    res = serve_stream(eng, stream)
+    launches = DA.PAGED_LAUNCHES
+    report(f"paged (page {PAGE}, {PAGED_N_PAGES} pages, prefix cache, chunk 1)", eng, res)
+    paged_tok = tokens(res)
+    st = eng.stats
+    check(launches == cfg.n_layers * len(single) == cfg.n_layers * res.calls,
+          f"paged kernel launches {launches} != {cfg.n_layers} x {res.calls} serve steps")
+    check(st.preemptions >= 1, "the paged run never preempted")
+    check(st.prefix_hits >= 1, "the paged run had no prefix hit")
+    eng.pool.check_invariants()
+    cached = eng.pool.n_cached_pages
+    check(st.kv_pages_live == cached, f"{st.kv_pages_live} pages live at drain, "
+          f"{cached} held by the prefix index")
+    eng.pool.clear_prefix()
+    check(eng.pool.n_live_pages == 0, f"{eng.pool.n_live_pages} pages live after clear_prefix")
+    eng.pool.check_invariants()
+    print(f"[serve-paged] pool invariants hold at drain; {cached} index-held pages, none "
+          f"live after clear_prefix; {launches} paged kernel launches ({cfg.n_layers} per "
+          f"serve step); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB on {card}")
+    del eng
+
+    contiguous = engine()
+    DA.LAUNCHES = 0
+    res = serve_stream(contiguous, stream)
+    report("contiguous reference (max_len 1024, chunk 1)", contiguous, res)
+    check(DA.LAUNCHES == cfg.n_layers * res.calls, "contiguous reference launches")
+    want = tokens(res)
+    for rid in want:
+        check(np.array_equal(paged_tok[rid], want[rid]),
+              f"rid {rid}: paged {paged_tok[rid].tolist()} != contiguous {want[rid].tolist()}")
+    print(f"[serve-paged] paged tokens == contiguous tokens for all {len(want)} requests")
+    del contiguous
+
+    chunked = engine(prefill_chunk=32, **paged_kw)
+    single = counted(chunked)
+    DA.PAGED_LAUNCHES = 0
+    res = serve_stream(chunked, stream)
+    report("paged + chunked prefill 32", chunked, res)
+    check(DA.PAGED_LAUNCHES == cfg.n_layers * len(single), "chunked run paged launches")
+    check(chunked.stats.steps < st.steps,
+          f"chunked prefill took {chunked.stats.steps} steps, chunk 1 took {st.steps}")
+    got = tokens(res)
+    chunked.pool.check_invariants()
+    del chunked
+    parted = {rid: int(np.argmax(got[rid] != want[rid])) for rid in want
+              if not np.array_equal(got[rid], want[rid])}
+    print(f"[serve-paged] chunked tokens == chunk-1 tokens for {len(want) - len(parted)} of "
+          f"{len(want)} requests; parting at {parted}")
+    chunk_probe(params, cfg, policy, stream)
+    if parted:
+        seqs = [np.concatenate([stream[rid][1], want[rid][:t]]) for rid, t in parted.items()]
+        held = lockstep_logits(params, cfg, policy, seqs, n_slots, PAGED_MAX_LEN, True)
+        for (rid, t), (argmax, last) in zip(parted.items(), held):
+            s0 = stream[rid][1].size
+            check(np.array_equal(argmax[s0 - 1:], want[rid][:t + 1]),
+                  f"rid {rid}: teacher-forced argmax does not reproduce the chunk-1 run")
+            margin = float(last[int(want[rid][t])] - last[int(got[rid][t])])
+            check(0 <= margin <= CHUNK_LOGIT_TOL,
+                  f"rid {rid} parts at token {t} with a logit margin {margin}")
+            print(f"[serve-paged] rid {rid} parts at token {t}: the chunk-1 model prefers "
+                  f"{int(want[rid][t])} over the chunked run's {int(got[rid][t])} by "
+                  f"{margin:.4g} (<= {CHUNK_LOGIT_TOL})")
+    return launches, engine(**paged_kw)
+
+
+def chunk_probe(params, cfg, policy, stream):
+    """ROADMAP C10: one 32-token chunk step against 32 single-token steps
+    from the same empty cache, 8 lanes of prompt prefixes; the last row's
+    logits and the written cache, bitwise or by how much."""
+    import numpy as np
+    import torch
+    from repro_torch.core.qarith import QArith
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry as R
+    qa = QArith(policy)
+    C = 32
+    toks = torch.from_numpy(np.stack([p[:C] for _, p, _ in stream[:8]])).to("cuda")
+    caches, logits = [], []
+    with dispatch.fused_decode():
+        for chunk in (1, C):
+            cache = R.make_cache(params, cfg, batch_size=8, max_len=PAGED_MAX_LEN,
+                                 dtype=policy.compute_dtype)
+            for t in range(0, C, chunk):
+                pos = torch.arange(t, t + chunk, dtype=torch.int32, device="cuda")
+                pos = pos[None].expand(8, chunk).contiguous()
+                rows = torch.full((8,), chunk - 1, device="cuda")
+                out, cache = R.decode(qa, params, cfg, toks[:, t:t + chunk], cache,
+                                      pos if chunk > 1 else pos[:, 0], out_rows=rows)
+            logits.append(out[:, 0].float())
+            caches.append(cache["layers"]["b0"])
+    diff = float((logits[0] - logits[1]).abs().max())
+    same_kv = all(torch.equal(a, b) for a, b in zip(*caches))
+    k_diff = float((caches[0][0].float() - caches[1][0].float()).abs().max())
+    print(f"[serve-paged] chunk probe (ROADMAP C10): a 32-token chunk step vs 32 single-token "
+          f"steps, 8 lanes, full width: last-row logits bitwise={diff == 0.0} (max |diff| "
+          f"{diff:.4g}), K/V cache bitwise={same_kv} (max |K diff| {k_diff:.4g}); argmax "
+          f"equal on {int((logits[0].argmax(-1) == logits[1].argmax(-1)).sum())}/8 lanes")
+
+
+def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3):
     """Where a serve step's time goes: 8 lanes decoding in steady state,
-    host wall time per step against the device time the profiler records
-    for its kernels, kernel launches per step and the top kernels."""
+    host wall time per step before, under and after the profiler, against
+    the device time the profiler records for its kernels, kernel launches
+    per step and the top kernels."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def wall_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / steps
 
     rng = np.random.default_rng(1)
     for _ in range(eng.pool.n_slots):
         eng.submit(rng.integers(0, cfg.vocab, size=32).astype(np.int32), 64)
     for _ in range(40):                   # past the prompts: every lane decodes
         eng.step()
-    torch.cuda.synchronize()
+    before_ms = wall_ms()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+        host_ms = wall_ms()
+    after_ms = wall_ms()
     avgs = prof.key_averages()
 
     def dev_us(e):
@@ -363,9 +737,11 @@ def phase_profile(eng, cfg, card: str, steps: int = 3):
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                                       "cudaLaunchKernelExC")) / steps
-    print(f"[profile] on {card}: {host_ms:.2f} ms host wall per serve step, "
+    print(f"[profile] {tag} on {card}: steady-state host wall per serve step {before_ms:.2f} "
+          f"ms before the profiler, {host_ms:.2f} ms under it, {after_ms:.2f} ms after it; "
           f"{device_ms:.2f} ms device kernel time per step (device idle "
-          f"{max(0.0, 1 - device_ms / host_ms):.1%}), {launches:.0f} kernel launches per step")
+          f"{max(0.0, 1 - device_ms / host_ms):.1%} under the profiler), {launches:.0f} "
+          f"kernel launches per step")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:7.3f} ms/step  {e.count / steps:6.0f} "
               f"calls/step  {e.key[:90]}")
@@ -703,8 +1079,15 @@ def main():
     t0 = time.perf_counter()
     card = phase_card()
     phase_build()
-    rows = {"decode_attention": phase_kernel(card)}
-    launches = {"decode_attention": phase_main_path(card)}
+    rows = {"decode_attention": phase_kernel(card),
+            "paged_decode_attention": phase_kernel_paged(card)}
+    model = serve_model()
+    launches, engines = {}, {}
+    launches["decode_attention"], engines["contiguous"] = phase_main_path(card, *model)
+    launches["paged_decode_attention"], engines["paged"] = phase_serve_paged(card, *model)
+    for tag, eng in engines.items():     # last: the profiler may slow later launches
+        phase_profile(eng, model[1], card, tag)
+    del model, engines, eng
     torch.cuda.empty_cache()
     rows.update(phase_update_kernels(card))
     run, state, launches["fused_adamw"] = phase_train(card)
@@ -712,16 +1095,18 @@ def main():
     parity = phase_parity(run, state, card)
     launches["sr_cast"], launches["fused_sgd"] = parity["sr_cast"], parity["fused_sgd"]
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s on {card}")
-    sources = {
-        "decode_attention": "src/repro/kernels/decode_attention.py:42",
-        "sr_cast": "src/repro/kernels/sr_cast.py:26",
-        "fused_adamw": "src/repro/kernels/fused_adamw.py:36",
-        "fused_sgd": "src/repro/kernels/fused_sgd.py:18",
+    replaces = {
+        "decode_attention": ("decode_attention", "src/repro/kernels/decode_attention.py:42"),
+        "paged_decode_attention": ("decode_attention",
+                                   "src/repro/kernels/decode_attention.py:102"),
+        "sr_cast": ("sr_cast", "src/repro/kernels/sr_cast.py:26"),
+        "fused_adamw": ("fused_adamw", "src/repro/kernels/fused_adamw.py:36"),
+        "fused_sgd": ("fused_sgd", "src/repro/kernels/fused_sgd.py:18"),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-        "replaces": sources[name], "launches": launches[name], **rows[name]}
+        "source": f"src/repro_torch/kernels/csrc/{replaces[name][0]}.cu",
+        "replaces": replaces[name][1], "launches": launches[name], **rows[name]}
         for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

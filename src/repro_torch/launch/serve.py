@@ -9,6 +9,14 @@ statistics. Runs on CUDA unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --policy bf16_standard --max-len 256 --fused-decode
+
+Paged KV pool + chunked prefill + prefix cache (the prefix cache is on by
+default with ``--paged``; ``--no-prefix-cache`` turns it off):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --paged --page-size 16 \\
+        --prefill-chunk 32 --fused-decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \\
+        --device cpu --paged --page-size 16 --n-pages 24 --prefill-chunk 8
 """
 from __future__ import annotations
 
@@ -94,6 +102,23 @@ def main(argv=None):
                     help="decode attention via the CUDA kernel (one block "
                          "per lane and kv-head, parked lanes skipped); token "
                          "parity with the plain path")
+    ap.add_argument("--paged", action="store_true",
+                    help="back full-context attention layers with the paged KV "
+                         "pool (token-granular allocation via a per-lane block "
+                         "table); token parity with the contiguous pool")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (with --paged)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="pool pages (default slots*ceil(max_len/page): byte "
+                         "parity with the contiguous pool; lower it to "
+                         "oversubscribe lanes per byte)")
+    ap.add_argument("--prefill-chunk", type=int, default=1,
+                    help="prompt tokens admitted per engine iteration (>1 = "
+                         "chunked prefill, interleaved with decode)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable prompt-prefix page sharing (with --paged it "
+                         "is on by default for attention-only full-context "
+                         "stacks)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
@@ -106,7 +131,11 @@ def main(argv=None):
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
     engine = Engine(params, cfg, policy, n_slots=args.slots,
                     max_len=args.max_len, eos_id=args.eos_id,
-                    fused_decode=args.fused_decode, device=device)
+                    fused_decode=args.fused_decode, paged=args.paged,
+                    page_size=args.page_size, n_pages=args.n_pages,
+                    prefill_chunk=args.prefill_chunk,
+                    prefix_cache=False if args.no_prefix_cache else None,
+                    device=device)
 
     rng = np.random.default_rng(args.seed)
     # every request must fit the pool: clamp generation lengths to what the
@@ -121,9 +150,11 @@ def main(argv=None):
                               gen_lens=(min(args.gen_lens[0], hi), hi),
                               vocab=cfg.vocab)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    layout = (f"paged page={args.page_size} pages={engine.pool.n_pages}"
+              if args.paged else "contiguous")
     print(f"[serve] {cfg.name} policy={policy.name} slots={args.slots} "
-          f"max_len={args.max_len} kv_dtype={engine.pool.dtype} contiguous "
-          f"pool={engine.pool.nbytes() / 2**20:.1f} MiB "
+          f"max_len={args.max_len} kv_dtype={engine.pool.dtype} {layout} "
+          f"pool={engine.pool.nbytes() / 2**20:.1f} MiB chunk={args.prefill_chunk} "
           f"fused_decode={args.fused_decode} device={where}")
 
     res = serve_stream(engine, stream)
@@ -135,6 +166,13 @@ def main(argv=None):
           f"utilization {st.utilization:.1%} (live tokens / pool capacity); "
           f"lane occupancy {st.lane_occupancy:.1%} (prefill share "
           f"{st.prefill_slot_steps / max(st.active_slot_steps, 1):.1%})")
+    if args.paged:
+        print(f"[serve] pages: {engine.pool.n_pages} total, "
+              f"{st.kv_pages_live} live at drain; {st.preemptions} preemptions")
+        if engine.prefix_cache:
+            print(f"[serve] prefix cache: {st.prefix_hits} hits, "
+                  f"{st.prefix_tokens_reused} prefill tokens skipped; "
+                  f"{engine.pool.n_cached_pages} pages indexed at drain")
     if res.completions:
         lat = np.asarray([c.finished_step - c.admitted_step for c in res.completions])
         tf = np.asarray([c.first_token_step - res.arrivals[c.rid]

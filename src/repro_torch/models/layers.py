@@ -1,12 +1,15 @@
 """Quantized layers: dense, embedding, norms, RoPE, GQA attention — the
-full-sequence flash path (training) and single-token decode (serving)
-(port of ``repro.models.layers``, the parts those slices run).
+full-sequence flash path (training) and decode against the contiguous or
+the paged KV pool, one token or a prefill chunk per lane (serving) (port
+of ``repro.models.layers``, the parts those slices run).
 
 All contractions go through :class:`repro_torch.core.qarith.QArith` —
 16-bit inputs, f32 accumulation, one output rounding. Attention is one
 fused op: f32 internals, output rounded once. Public functions keep the
 reference's layouts: dense kernels ``(d_in, d_out)``, q ``(B,S,H,D)``,
-caches ``(N,Sc,Hkv,D)`` plus an i32 ``(N,Sc)`` position map (−1 = empty).
+caches ``(N,Sc,Hkv,D)`` plus an i32 ``(N,Sc)`` position map (−1 = empty),
+page pools ``(R,P,Hkv,D)`` plus ``(R,P)`` positions and a ``(N,n_blocks)``
+block table.
 """
 from __future__ import annotations
 
@@ -17,11 +20,40 @@ import torch
 from repro_torch.core.qarith import QArith
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
-                                                  fused_decode_attention)
+                                                  fused_decode_attention,
+                                                  fused_paged_decode_attention)
 
 __all__ = ["dense_init", "dense", "embed_init", "norm_init", "norm_apply",
            "rope", "flash_attention", "decode_attention", "attention_init",
-           "attention_apply"]
+           "attention_apply", "copy_page_rows"]
+
+
+def copy_page_rows(pages, dst, src, pdim: int = 0):
+    """Physical page copy in place: ``pages[dst[j]] = pages[src[j]]``.
+
+    The copy-on-write primitive of the prefix cache
+    (:mod:`repro_torch.serve.paged`): before a lane's first write into a
+    page it shares with the prefix index or another lane, the engine
+    remaps that block to a private page and the serve step copies the row
+    here — K rows, never the whole pool. All sources are read before any
+    destination is written, as in the reference. ``dst``/``src`` are (K,)
+    integer tensors holding exactly the real copies (the reference pads a
+    static K with out-of-range rows it drops; PyTorch runs eagerly, so the
+    port passes no padding). ``pdim`` is the page-row dim: 0 for a bare
+    paged leaf, 1 under the stacked layer dim.
+
+    Applies identically to ``k_pages``/``v_pages`` *and* ``pos_pages``:
+    the private copy must carry the source positions, or the copied KV
+    cells would mask away as empty.
+    """
+    dst, src = dst.long(), src.long()
+    if pdim == 0:
+        pages[dst] = pages[src]
+    elif pdim == 1:
+        pages[:, dst] = pages[:, src]
+    else:
+        raise ValueError(f"page dim {pdim}: pools carry pages at dim 0 or 1")
+    return pages
 
 
 # ---------------------------------------------------------------------------
@@ -234,25 +266,45 @@ def flash_attention(qa: QArith, q, k, v, *, q_offset=0, causal=True,
 
 def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
                      window=None, softcap=None):
-    """Attention of one query token per lane against a KV cache.
+    """Attention of one query token, or a chunk of them, per lane against
+    a KV cache.
 
-    q: (B,1,Hq,D); caches: (B,Sc,Hkv,D); k_pos: (B,Sc) i32 (−1 ⇒ empty
-    cell); q_pos: (B,) i32 (−1 ⇒ parked lane). Inside a
-    :func:`repro_torch.kernels.dispatch.fused_decode` context it runs the
+    q: (B,S,Hq,D); caches: (B,Sc,Hkv,D); k_pos: (B,Sc) i32 (−1 ⇒ empty
+    cell); q_pos: (B,) i32 for S=1 (−1 ⇒ parked lane) or (B,S) per-query
+    positions (−1 ⇒ masked query row: chunk padding). S=1 inside a
+    :func:`repro_torch.kernels.dispatch.fused_decode` context runs the
     fused decode kernel; otherwise its plain PyTorch version. Both give
-    the same op order and one output rounding. A multi-token chunk
-    (chunked prefill) arrives with the paged-serving slice.
+    the same op order and one output rounding. S>1 (chunked prefill)
+    always takes the plain multi-query path: every query row masks the
+    same (Sc,) cache axis, so a row reduces over the keys as the S=1
+    path does (reference ``layers.py:358-379``).
     """
     B, S = q.shape[:2]
-    if S != 1:
-        raise ValueError(f"decode attention takes one token per lane, got {S}; "
-                         "chunked prefill is ported with the paged-serving slice")
-    q_pos = q_pos.reshape(B)
-    attend = (fused_decode_attention if dispatch.fused_decode_enabled()
-              else decode_attention_ref)
-    out = attend(q, k_cache, v_cache, k_pos, q_pos, window=window,
-                 softcap=softcap, p_dtype=qa.dtype)
-    return qa.cast(out)
+    if S == 1:
+        q_pos = q_pos.reshape(B)
+        attend = (fused_decode_attention if dispatch.fused_decode_enabled()
+                  else decode_attention_ref)
+        out = attend(q, k_cache, v_cache, k_pos, q_pos, window=window,
+                     softcap=softcap, p_dtype=qa.dtype)
+        return qa.cast(out)
+    Hq, D = q.shape[2:]
+    Hkv = k_cache.shape[2]
+    qg = q.reshape(B, S, Hkv, Hq // Hkv, D).to(torch.float32)
+    s = torch.einsum("bshgd,bkhd->bshgk", qg, k_cache.to(torch.float32)) \
+        * (1.0 / math.sqrt(D))
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = q_pos.reshape(B, S)[:, :, None, None, None]
+    kp = k_pos[:, None, None, None, :]
+    ok = (kp <= qp) & (kp >= 0)
+    if window is not None:
+        ok &= qp - kp < window
+    s = torch.where(ok, s, NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bshgk,bkhd->bshgd", p.to(qa.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return qa.cast(out.reshape(B, S, Hq, D))
 
 
 def attention_init(gen: torch.Generator, cfg, dtype=torch.float32):
@@ -266,24 +318,36 @@ def attention_init(gen: torch.Generator, cfg, dtype=torch.float32):
 
 
 def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None,
-                    chunk: int = 1024):
+                    chunk: int = 1024, block_table=None):
     """Full-sequence causal attention (``cache=None``: training, the
-    reference's flash branch), or one decode token per lane against the
-    contiguous per-lane cache.
+    reference's flash branch), or S decode tokens per lane against a KV
+    cache (serving). x: (B,S,Dm); positions: (B,S). Returns ``(out, cache)``.
 
-    x: (B,S,Dm); positions: (B,S). Decoding: S = 1, positions are the
-    per-lane depths, −1 for a parked lane; cache: ``(k_cache, v_cache,
-    k_pos)`` for this layer. The lane's K/V land at cell ``pos % Sc``
-    **in place** (the reference returns a new cache from a donated
-    buffer). A parked lane's write is routed to cell 0 carrying that
-    cell's current contents, so it changes nothing — the reference drops
-    it as out of range. Returns ``(out, cache)``.
+    Decoding, positions are the tokens' per-lane depths, −1 for a parked
+    lane or a chunk's padding token. Two cache layouts, both written **in
+    place** (the reference returns a new cache from a donated buffer):
+
+    * contiguous tuple ``(k_cache, v_cache, k_pos)``: a token lands at cell
+      ``pos % Sc`` of its lane. The reference drops the write of a token at
+      position −1 as out of range; here a padding token at chunk index j
+      rewrites the cell ``(pos_0 + j) % Sc`` (``pos_0``: the lane's first
+      position, 0 for a parked lane) with its own current contents. A
+      lane's real tokens sit at consecutive positions from index 0 and its
+      padding after them, so for S ≤ Sc every write of one lane hits its own
+      cell: no two writes of a step race for a cell.
+    * paged dict ``{"k_pages", "v_pages", "pos_pages"}`` — a shared
+      (R,P,Hkv,D) pool plus a per-lane ``block_table`` (B, n_blocks) of
+      physical rows (reference ``layers.py:440-477``). Row R−1 is the null
+      page: unmapped blocks point there and real tokens never write there.
+      Dropped writes (padding, parked lanes, and — a scheduler-bug guard —
+      a real token aimed at an unmapped block) go to the null row with
+      position −1, so its positions stay −1 and gathered null blocks mask
+      out. Token at logical position p lands at view index p, so the paged
+      view equals a contiguous cache of the same length. S=1 inside
+      ``fused_decode`` runs the paged kernel on the pool; otherwise the
+      gathered view ``pages[block_table]`` goes to :func:`decode_attention`.
     """
     B, S, _ = x.shape
-    if cache is not None and S != 1:
-        raise ValueError(f"the contiguous decode path takes one token per "
-                         f"lane, got {S}; chunked prefill is ported with the "
-                         "paged-serving slice")
     hd = cfg.head_dim
     q = dense(qa, p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = dense(qa, p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
@@ -295,18 +359,49 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None
                               softcap=cfg.attn_logit_softcap)
         return dense(qa, p["wo"], out.reshape(B, S, cfg.n_heads * hd)), None
 
-    k_cache, v_cache, k_pos = cache
-    Sc = k_cache.shape[1]
-    tpos = positions.reshape(B).to(torch.int32)
+    tpos = positions.reshape(B, S).to(torch.int32)
     live = tpos >= 0
-    lane = torch.arange(B, device=x.device)
-    slot = torch.where(live, tpos % Sc, 0)
-    keep = live[:, None, None]
-    k_cache[lane, slot] = torch.where(keep, k[:, 0].to(k_cache.dtype), k_cache[lane, slot])
-    v_cache[lane, slot] = torch.where(keep, v[:, 0].to(v_cache.dtype), v_cache[lane, slot])
-    k_pos[lane, slot] = torch.where(live, tpos, k_pos[lane, slot])
-
-    out = decode_attention(qa, q, k_cache, v_cache, k_pos, q_pos=tpos,
-                           window=window, softcap=cfg.attn_logit_softcap)
+    q_pos = tpos[:, -1] if S == 1 else tpos
+    if isinstance(cache, dict):
+        if block_table is None:
+            raise ValueError("the paged cache needs a block table")
+        kp, vp, pp = cache["k_pages"], cache["v_pages"], cache["pos_pages"]
+        R, P = pp.shape
+        n_blocks = block_table.shape[1]
+        blk = torch.where(live, tpos // P, 0).clamp(0, n_blocks - 1)
+        page = torch.gather(block_table, 1, blk.long())
+        write = live & (page < R - 1)
+        page = torch.where(write, page, R - 1).reshape(-1).long()
+        off = torch.where(live, tpos % P, 0).reshape(-1).long()
+        kp[page, off] = k.reshape(B * S, cfg.n_kv_heads, hd).to(kp.dtype)
+        vp[page, off] = v.reshape(B * S, cfg.n_kv_heads, hd).to(vp.dtype)
+        pp[page, off] = torch.where(write, tpos, -1).reshape(-1)
+        if S == 1 and dispatch.fused_decode_enabled():
+            out = qa.cast(fused_paged_decode_attention(
+                q, kp, vp, pp, block_table, q_pos, window=window,
+                softcap=cfg.attn_logit_softcap, p_dtype=qa.dtype))
+        else:
+            table = block_table.long()
+            view = (B, n_blocks * P)
+            out = decode_attention(
+                qa, q, kp[table].reshape(*view, cfg.n_kv_heads, hd),
+                vp[table].reshape(*view, cfg.n_kv_heads, hd),
+                pp[table].reshape(view), q_pos=q_pos, window=window,
+                softcap=cfg.attn_logit_softcap)
+    else:
+        k_cache, v_cache, k_pos = cache
+        Sc = k_cache.shape[1]
+        if S > Sc:
+            raise ValueError(f"a chunk of {S} tokens overruns the {Sc}-cell cache")
+        lane = torch.arange(B, device=x.device)[:, None].expand(B, S)
+        first = torch.clamp(tpos[:, :1], min=0)
+        offs = torch.arange(S, device=x.device, dtype=torch.int32)[None, :]
+        slot = torch.where(live, tpos, first + offs) % Sc
+        keep = live[..., None, None]
+        k_cache[lane, slot] = torch.where(keep, k.to(k_cache.dtype), k_cache[lane, slot])
+        v_cache[lane, slot] = torch.where(keep, v.to(v_cache.dtype), v_cache[lane, slot])
+        k_pos[lane, slot] = torch.where(live, tpos, k_pos[lane, slot])
+        out = decode_attention(qa, q, k_cache, v_cache, k_pos, q_pos=q_pos,
+                               window=window, softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, S, cfg.n_heads * hd)
     return dense(qa, p["wo"], out), cache

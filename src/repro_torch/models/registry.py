@@ -53,11 +53,14 @@ def forward_logits(qa: QArith, params, cfg, batch: dict, *, remat: bool = True,
 
 
 def make_cache(params, cfg, *, batch_size: int, max_len: int,
-               dtype=torch.bfloat16):
-    """Decode cache for ``batch_size`` lanes, on the parameters' device."""
-    return T.init_cache(cfg, batch_size, max_len, dtype,
-                        device=params["embed"]["embedding"].device)
+               dtype=torch.bfloat16, page_size=None, n_rows=None):
+    """Decode cache for ``batch_size`` lanes, on the parameters' device;
+    ``page_size``/``n_rows`` build the paged pool instead."""
+    return T.init_cache(cfg, batch_size, max_len, dtype, page_size=page_size,
+                        n_rows=n_rows, device=params["embed"]["embedding"].device)
 
 
-def decode(qa: QArith, params, cfg, token, cache, cache_pos):
-    return T.decode_step(qa, params, cfg, token, cache, cache_pos)
+def decode(qa: QArith, params, cfg, token, cache, cache_pos, *, block_table=None,
+           out_rows=None):
+    return T.decode_step(qa, params, cfg, token, cache, cache_pos,
+                         block_table=block_table, out_rows=out_rows)

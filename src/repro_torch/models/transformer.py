@@ -10,7 +10,9 @@ stacks the per-layer gradients into one stacked gradient; with
 reference's ``jax.checkpoint`` of the scan body), so only layer inputs
 are kept for the backward. The decode cache mirrors the stack:
 ``cache["layers"]["b0"] = (k, v, k_pos)`` with k/v ``(L,N,Sc,Hkv,D)`` and
-k_pos ``(L,N,Sc)`` i32. Only the dense ``"attn"`` block is ported.
+k_pos ``(L,N,Sc)`` i32, or — paged — ``{"k_pages", "v_pages",
+"pos_pages"}`` with pages ``(L,R,P,Hkv,D)`` and positions ``(L,R,P)``.
+Only the dense ``"attn"`` block is ported.
 """
 from __future__ import annotations
 
@@ -36,13 +38,13 @@ def block_init(gen: torch.Generator, cfg, dtype=torch.float32) -> PyTree:
 
 
 def block_apply(qa: QArith, cfg, p, x, *, positions, cache=None,
-                attn_chunk: int = 1024):
+                attn_chunk: int = 1024, block_table=None):
     """One dense attention block; returns (x, cache) — the decode cache
     updated in place, or None for the full-sequence path."""
     h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
     y, cache = L.attention_apply(qa, p["mixer"], h, cfg, positions=positions,
                                  cache=cache, window=cfg.swa_window,
-                                 chunk=attn_chunk)
+                                 chunk=attn_chunk, block_table=block_table)
     x = qa.add(x, y)
     h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
     y = M.mlp_apply(qa, p["ffn"], h, cfg.act_fn)
@@ -87,11 +89,23 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               device=None) -> PyTree:
-    """Contiguous decode cache: one ``max_len`` stripe per lane (a
-    window-sized ring for sliding-window attention)."""
+               page_size=None, n_rows=None, device=None) -> PyTree:
+    """Decode cache: one ``max_len`` stripe per lane (a window-sized ring
+    for sliding-window attention), or with ``page_size``/``n_rows`` the
+    paged pool of ``n_rows`` pages of ``page_size`` cells for full-context
+    layers (all layers share one block table; reference
+    ``transformer.py:146-190``). Ring layers stay contiguous: their cache
+    is already token-tight."""
+    if (page_size is None) != (n_rows is None):
+        raise ValueError("page_size and n_rows must be given together")
     window = cfg.swa_window
     clen = min(max_len, window) if window else max_len
+    if page_size is not None and clen == max_len:
+        shape = (cfg.n_layers, n_rows, page_size, cfg.n_kv_heads, cfg.head_dim)
+        return {"layers": {"b0": {
+            "k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "pos_pages": torch.full(shape[:3], -1, dtype=torch.int32, device=device)}}}
     shape = (cfg.n_layers, batch, clen, cfg.n_kv_heads, cfg.head_dim)
     return {"layers": {"b0": (
         torch.zeros(shape, dtype=dtype, device=device),
@@ -131,15 +145,25 @@ def forward(qa: QArith, params, cfg, tokens, *, positions=None, remat: bool = Tr
     return _logits(qa, cfg, params, x) if logits else x
 
 
-def decode_step(qa: QArith, params, cfg, token, cache, cache_pos):
-    """One decode step. token: (B,1) int; cache_pos: (B,) per-lane depths
-    (−1 ⇒ parked lane: its KV write changes nothing). Returns
-    ``(logits (B,1,V) f32, cache)``; the cache is updated in place."""
+def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,
+                block_table=None, out_rows=None):
+    """One decode step. token: (B,S) int; cache_pos: (B,) per-lane depths
+    for S=1 or (B,S) per-token positions (chunked prefill); −1 marks a
+    parked lane or a padding token, whose KV write changes nothing.
+    ``block_table`` (B, n_blocks) i32 routes a paged cache. Returns
+    ``(logits (B,S,V) f32, cache)``; the cache is updated in place.
+
+    ``out_rows`` ((B,) int) keeps one token row per lane before the
+    logits: logits are then (B,1,V). A chunk step reads only each lane's
+    last real row, and the logits product then has the B rows of a
+    single-token step (matmul rows depend on the row count, ROADMAP C6)."""
     B, S = token.shape
     positions = cache_pos.reshape(B, S).to(torch.int32)
     x = _embed_tokens(qa, params, token)
     stack, stack_cache = params["layers"]["b0"], cache["layers"]["b0"]
     for i in range(cfg.n_layers):
         x, _ = block_apply(qa, cfg, _layer(stack, i), x, positions=positions,
-                           cache=_layer(stack_cache, i))
+                           cache=_layer(stack_cache, i), block_table=block_table)
+    if out_rows is not None:
+        x = torch.gather(x, 1, out_rows.long()[:, None, None].expand(-1, 1, x.shape[-1]))
     return _logits(qa, cfg, params, x), cache

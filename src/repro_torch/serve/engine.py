@@ -1,33 +1,55 @@
-"""Continuous-batching decode engine over the contiguous slotted KV pool
-(port of ``repro.serve.engine``: greedy decoding, one prompt token per
-step, no mesh).
+"""Continuous-batching decode engine over a slotted KV pool (port of
+``repro.serve.engine``: greedy decoding, no mesh; sampling is a later
+slice).
 
-Every :meth:`Engine.step` is one iteration of
+The engine owns ``n_slots`` decode lanes backed by one
+:class:`repro_torch.serve.cache.CachePool` allocation — or, with
+``paged=True``, one :class:`repro_torch.serve.paged.PagedCachePool` whose
+KV memory is allocated page by page as sequences grow. Every
+:meth:`Engine.step` is one iteration of
 
 1. **admit** — pending requests are popped into free slots; the freshly
    acquired slot ids form the step's ``reset`` mask, so slot
-   re-initialization happens inside the serve step;
-2. **decode** — one call of :func:`repro_torch.train.step.make_serve_step`
-   advances every occupied lane by one token: a prompt token while the
-   lane is prefilling, its last output afterwards;
-3. **evict** — lanes whose token completed a sequence (EOS or
-   ``max_new_tokens``) release their slot, which the next iteration's
-   admission refills mid-flight.
+   re-initialization happens inside the serve step. The paged pool
+   additionally gates admission on pages covering the prompt — and, with
+   the **prefix cache** on, first maps the longest cached prefix of the
+   prompt into the lane's block table *shared* (refcounted pages, no
+   copy), so those tokens skip prefill;
+2. **plan** — per lane (oldest admission first): prefilling lanes are
+   scheduled up to ``prefill_chunk`` prompt tokens, decode lanes exactly
+   one. Under paging each lane's block table is extended to cover its
+   scheduled positions and any *shared* block it is about to write is
+   copy-on-write remapped (private page + row copy in the step); when the
+   free list runs dry, cached-but-unreferenced prefix pages are reclaimed
+   LRU-first, then the *youngest* lane is preempted (pages and slot freed,
+   request re-queued at the front — greedy decode regenerates its tokens
+   identically), and a lane that still cannot be covered parks;
+3. **decode** — one call of :func:`repro_torch.train.step.make_serve_step`
+   (width 1, or the prefill chunk when some lane feeds more than one
+   token) advances every scheduled lane;
+4. **evict** — lanes whose token completed a sequence (EOS or
+   ``max_new_tokens``) release their slot (and one reference per mapped
+   page), which the next iteration's admission refills mid-flight. Lanes
+   that just finished their prompt publish its full pages into the prefix
+   index first.
 
 A request of prompt length ``S0`` occupies its lane for
-``S0 + n_generated - 1`` steps; the first generated token is the model
-output of the step that consumed the last prompt token. Under nearest
-rounding the engine is token-for-token identical to lock-step
-:func:`repro_torch.serve.decode.generate` run at the engine's lane count.
-
-The paged pool, chunked prefill, prefix caching and sampling arrive with
-later slices; asking for them raises.
+``ceil(S0 / C) + n_generated - 1`` steps (minus the prefill a prefix hit
+skips); the first generated token is the model output of the step that
+consumed the last prompt token. Under nearest rounding the engine with
+``prefill_chunk=1`` is token-for-token identical to lock-step
+:func:`repro_torch.serve.decode.generate` run at the engine's lane count,
+paged or not, prefix hits included: a paged lane's gathered view is
+index for index the contiguous cache. A chunk step multiplies N·C rows
+where a single-token step multiplies N, and matmul rows depend on the
+row count (ROADMAP C6), so chunked prefill is held to the unchunked
+engine at the logit level (ROADMAP C10, tests/test_torch_paged_engine.py).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -35,21 +57,45 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.serve.cache import CachePool
+from repro_torch.serve.paged import PagedCachePool
 from repro_torch.train.step import make_serve_step
 
 __all__ = ["Request", "Completion", "EngineStats", "Engine"]
+
+
+def _not_full_context_attention(cfg, max_len: int) -> Optional[str]:
+    """Why (cfg, max_len) is *not* an attention-only full-context stack
+    — ``None`` when it is. Chunked prefill and the prefix cache share
+    this gate: both assume a lane's KV at position ``p`` is a pure
+    function of tokens ``[0, p]`` addressable at cache index ``p``
+    (recurrent state advances strictly one token per step; ring-window
+    cells are slot-contiguous and overwritten, so they can be neither
+    chunk-written nor shared between lanes).
+    """
+    if cfg.family == "ssm" or any(
+            k in ("rec", "mamba") for k in cfg.block_pattern):
+        return ("an attention-only stack is required "
+                "(recurrent state advances one token per step)")
+    windows = [cfg.swa_window]
+    if "local_attn" in cfg.block_pattern:
+        windows.append(cfg.local_attn_window)
+    for w in windows:
+        if w is not None and w < max_len:
+            return ("full-context attention is required "
+                    f"(ring window {w} < max_len {max_len})")
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
 class Request:
     """One generation request. ``prompt`` is a 1-D i32 token array.
 
-    ``temperature == 0`` (default) decodes greedily; ``temperature > 0``
-    samples with optional top-k / top-p filtering, deterministically per
-    ``(seed, rid)`` (see :mod:`repro.serve.sampling`). The two ``*_step``
-    fields are engine-internal carry: recompute preemption re-queues the
-    request with its *original* admission/first-token steps, so TTFT
-    accounting spans the preemption instead of restarting at it.
+    The port decodes greedily (``submit`` refuses ``temperature > 0``);
+    the sampling fields are the reference's, for the sampling slice. The
+    two ``*_step`` fields are engine-internal carry: recompute preemption
+    re-queues the request with its *original* admission/first-token
+    steps, so TTFT accounting spans the preemption instead of restarting
+    at it.
     """
     rid: int
     prompt: np.ndarray
@@ -115,9 +161,11 @@ class _Slot:
     prompt: np.ndarray
     max_new_tokens: int
     admitted_step: int
+    seq: int                      # global admission order (preemption rank)
     fed: int = 0                  # tokens consumed so far (= next position)
     last_token: int = 0           # model output of the previous step
     first_token_step: int = -1
+    published: bool = False       # prompt prefix pushed to the index
     generated: list = dataclasses.field(default_factory=list)
 
 
@@ -127,20 +175,34 @@ class Engine:
     ``n_slots`` bounds concurrency, ``max_len`` bounds per-request
     ``len(prompt) + max_new_tokens``. The engine runs on ``device`` (CUDA
     unless ``"cpu"``), where ``params`` must live; the KV pool is
-    allocated there once. ``fused_decode=True`` runs decode attention
-    through the CUDA kernel (its plain version on the CPU).
+    allocated there once. ``fused_decode=True`` runs single-token decode
+    attention through the CUDA kernel (its plain version on the CPU).
+
+    ``paged=True`` backs full-context attention layers with a
+    :class:`~repro_torch.serve.paged.PagedCachePool` (``page_size`` tokens
+    per page, ``n_pages`` pages — default byte parity with the contiguous
+    pool; undersubscribe it to serve more lanes per byte).
+    ``prefill_chunk=C > 1`` admits prompts C tokens per iteration instead
+    of one, interleaved with in-flight decodes; it requires an
+    attention-only, full-context stack.
+
+    ``prefix_cache=None`` (default) enables prompt-prefix sharing whenever
+    it is sound — paged pool + attention-only full-context stack (the same
+    gate as chunked prefill). Pass ``False`` to disable, ``True`` to
+    require (raises when the config is ineligible).
     """
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
                  n_slots: int = 8, max_len: int = 128,
                  eos_id: Optional[int] = None, fused_decode: bool = False,
-                 paged: bool = False, prefill_chunk: int = 1, device=None):
-        if paged:
-            raise ValueError("paged=True: the paged KV pool is ported with "
-                             "the paged-serving slice")
-        if prefill_chunk != 1:
-            raise ValueError("prefill_chunk > 1: chunked prefill is ported "
-                             "with the paged-serving slice")
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None, prefill_chunk: int = 1,
+                 prefix_cache: Optional[bool] = None, device=None):
+        if prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        reason = _not_full_context_attention(cfg, max_len)
+        if prefill_chunk > 1 and reason is not None:
+            raise ValueError(f"chunked prefill: {reason}")
         self.device = resolve_device(device)
         p_dev = params["embed"]["embedding"].device
         if p_dev.type != self.device.type:
@@ -150,14 +212,37 @@ class Engine:
         self.policy = policy
         self.params = params
         self.eos_id = eos_id
-        self.pool = CachePool(params, cfg, policy, n_slots=n_slots,
-                              max_len=max_len)
-        self._step_fn = make_serve_step(cfg, policy, fused_decode=fused_decode)
+        self.paged = bool(paged)
+        self.prefill_chunk = int(prefill_chunk)
+        if prefix_cache is None:
+            self.prefix_cache = self.paged and reason is None
+        elif prefix_cache:
+            if not self.paged:
+                raise ValueError("prefix_cache requires paged=True "
+                                 "(sharing works on page refcounts)")
+            if reason is not None:
+                raise ValueError(f"prefix cache: {reason}")
+            self.prefix_cache = True
+        else:
+            self.prefix_cache = False
+        if paged:
+            self.pool: Any = PagedCachePool(
+                params, cfg, policy, n_slots=n_slots, max_len=max_len,
+                page_size=page_size, n_pages=n_pages)
+        else:
+            self.pool = CachePool(params, cfg, policy, n_slots=n_slots,
+                                  max_len=max_len)
+        # one step function per token width: 1, and the chunk when C > 1
+        self._fns = {w: make_serve_step(cfg, policy, fused_decode=fused_decode,
+                                        paged=self.paged, chunk=w)
+                     for w in {1, self.prefill_chunk}}
         self._slots: list[Optional[_Slot]] = [None] * n_slots
         self._pending: deque[Request] = deque()
         self._next_rid = 0
+        self._next_seq = 0
         self.stats = EngineStats()
-        self.stats.kv_capacity_tokens = n_slots * max_len
+        self.stats.kv_capacity_tokens = (
+            self.pool.capacity_tokens if paged else n_slots * max_len)
 
     # -- request intake -----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
@@ -192,49 +277,179 @@ class Engine:
     def has_work(self) -> bool:
         return bool(self._pending) or any(s is not None for s in self._slots)
 
-    # -- the iteration ------------------------------------------------------
+    # -- scheduling helpers -------------------------------------------------
     def _admit(self, reset: np.ndarray) -> None:
-        """Pop pending requests into free slots (FIFO, no reordering)."""
-        while self._pending and self.pool.n_free:
-            req = self._pending.popleft()
-            slot = self.pool.acquire()
-            self._slots[slot] = _Slot(req.rid, req.prompt, req.max_new_tokens,
-                                      self.stats.steps)
-            reset[slot] = True
-            self.stats.admitted += 1
+        """Pop pending requests into free slots (FIFO, no reordering).
 
+        The paged pool additionally gates on pages covering the request's
+        prompt plus one decode page — counting reclaimable cached-prefix
+        pages as available, and *not* counting the blocks a prefix-cache
+        match already covers (those pages are adopted shared, and are
+        excluded from reclaim so admission cannot evict its own match).
+        A request whose prompt prefix is cached starts with ``fed`` past
+        the matched blocks: the skipped positions never enter prefill.
+        """
+        while self._pending and self.pool.n_free:
+            req = self._pending[0]
+            matched: list[int] = []
+            if self.paged:
+                if self.prefix_cache:
+                    matched = self.pool.match_prefix(req.prompt)
+                need = self.pool.blocks_for(min(req.prompt.size + 1,
+                                                self.pool.max_len))
+                avail = (self.pool.n_free_pages +
+                         self.pool.n_reclaimable(exclude=matched))
+                if avail < need - len(matched):
+                    break
+            self._pending.popleft()
+            slot = self.pool.acquire()
+            fed0 = 0
+            if matched:
+                self.pool.adopt_prefix(slot, matched)
+                # never skip the whole prompt: the last prompt token is
+                # re-fed to produce the first-token logits (its write
+                # into the shared final block copy-on-write remaps it)
+                fed0 = min(len(matched) * self.pool.page_size,
+                           req.prompt.size - 1)
+                self.stats.prefix_hits += 1
+                self.stats.prefix_tokens_reused += fed0
+            admitted = (req.admitted_step if req.admitted_step >= 0
+                        else self.stats.steps)
+            self._slots[slot] = _Slot(
+                req.rid, req.prompt, req.max_new_tokens, admitted,
+                self._next_seq, fed=fed0,
+                first_token_step=req.first_token_step)
+            self._next_seq += 1
+            reset[slot] = True
+            if req.admitted_step < 0:   # first admission, not a re-entry
+                self.stats.admitted += 1
+
+    def _preempt(self, victim: int, reset: np.ndarray) -> None:
+        """Evict a lane to reclaim its pages; its request re-queues at the
+        front and — greedy decode being deterministic — regenerates the
+        same tokens on re-admission (vLLM's recompute preemption). The
+        original ``admitted_step``/``first_token_step`` ride along on the
+        re-queued request: TTFT and admission counts span the preemption
+        rather than restarting at re-admission."""
+        s = self._slots[victim]
+        self._slots[victim] = None
+        self.pool.release(victim)
+        reset[victim] = False   # nothing left to reset; slot is free again
+        self._pending.appendleft(Request(
+            s.rid, s.prompt, s.max_new_tokens,
+            admitted_step=s.admitted_step,
+            first_token_step=s.first_token_step))
+        self.stats.preemptions += 1
+        # regenerated tokens are recounted on re-admission; admitted is
+        # deliberately NOT decremented (it counts requests, not events)
+        self.stats.tokens_generated -= len(s.generated)
+
+    def _plan(self, reset: np.ndarray, page_reset: Optional[np.ndarray],
+              copies: list) -> np.ndarray:
+        """Tokens to feed per lane this step ((N,) i32, 0 = parked).
+
+        Oldest admission first, so page pressure falls on the youngest
+        lanes: a lane that cannot get its blocks preempts strictly
+        younger lanes (never an already-planned one), and parks if it is
+        the youngest itself. Under paging each scheduled lane's write
+        range is readied by ``prepare_write`` — fresh pages join the
+        step's ``page_reset`` mask, copy-on-write remaps of shared
+        blocks append (dst, src) rows to ``copies``.
+        """
+        n = self.pool.n_slots
+        feeds = np.zeros((n,), np.int32)
+        order = sorted((i for i in range(n) if self._slots[i] is not None),
+                       key=lambda i: self._slots[i].seq)
+        for i in order:
+            s = self._slots[i]
+            if s is None:        # preempted by an older lane this step
+                continue
+            remaining = s.prompt.size - s.fed
+            c = min(self.prefill_chunk, remaining) if remaining > 0 else 1
+            if self.paged:
+                while True:
+                    got = self.pool.prepare_write(i, s.fed, c)
+                    if got is not None:
+                        fresh, cow = got
+                        for p in fresh:
+                            page_reset[p] = True
+                        copies.extend(cow)
+                        break
+                    young = [j for j in order
+                             if self._slots[j] is not None
+                             and self._slots[j].seq > s.seq]
+                    if not young:
+                        c = 0    # youngest lane and no pages: park
+                        break
+                    victim = max(young, key=lambda j: self._slots[j].seq)
+                    self._preempt(victim, reset)
+            feeds[i] = c
+        return feeds
+
+    # -- the iteration ------------------------------------------------------
     def step(self) -> list[Completion]:
         """One continuous-batching iteration; returns requests finished."""
         n = self.pool.n_slots
+        C = self.prefill_chunk
         reset = np.zeros((n,), bool)
+        page_reset = (np.zeros((self.pool.n_rows,), bool)
+                      if self.paged else None)
+        copies: list[tuple[int, int]] = []
+        # 1. admit into free slots
         self._admit(reset)
-        token = np.zeros((n, 1), np.int32)
+        # 2. plan feeds (and, when paged, map blocks / CoW / preempt / park)
+        feeds = self._plan(reset, page_reset, copies)
+        width = C if C > 1 and int(feeds.max(initial=0)) > 1 else 1
+        # 3. assemble slot-indexed inputs
+        token = np.zeros((n, width), np.int32)
         pos = np.zeros((n,), np.int32)
         active = np.zeros((n,), bool)
         for i, s in enumerate(self._slots):
-            if s is None:
+            if s is None or feeds[i] == 0:
                 continue
             active[i] = True
             pos[i] = s.fed
-            token[i, 0] = s.prompt[s.fed] if s.fed < s.prompt.size else s.last_token
+            if s.fed < s.prompt.size:
+                c = int(feeds[i])
+                token[i, :c] = s.prompt[s.fed:s.fed + c]
+            else:
+                token[i, 0] = s.last_token
+        # 4. one serve step for every lane
         dev = self.device
-        out, self.pool.cache = self._step_fn(
-            self.params, self.pool.cache, torch.from_numpy(token).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(active).to(dev),
-            torch.from_numpy(reset).to(dev))
-        sampled = out.reshape(n).cpu().numpy()
 
+        def put(a):
+            return torch.from_numpy(a).to(dev)
+
+        kw = {}
+        if self.paged:
+            kw["block_table"] = put(self.pool.block_table.copy())
+            kw["page_reset"] = put(page_reset)
+            if copies:
+                dst, src = np.asarray(copies, np.int32).T
+                kw["copy_dst"], kw["copy_src"] = put(dst.copy()), put(src.copy())
+        if width > 1:
+            kw["n_tok"] = put(feeds)
+        out, self.pool.cache = self._fns[width](
+            self.params, self.pool.cache, put(token), put(pos), put(active),
+            put(reset), **kw)
+        sampled = out.reshape(n).cpu().numpy()
+        # 5. account, publish prefixes, evict
         self.stats.steps += 1
         self.stats.slot_steps += n
         done: list[Completion] = []
         for i, s in enumerate(self._slots):
-            if s is None:
+            if s is None or feeds[i] == 0:
                 continue
             self.stats.active_slot_steps += 1
-            s.fed += 1
+            s.fed += int(feeds[i])
             if s.fed < s.prompt.size:
                 self.stats.prefill_slot_steps += 1
                 continue                      # prompt not exhausted yet
+            if self.prefix_cache and not s.published:
+                # prefill just completed: the lane's full prompt blocks
+                # now hold exactly the shared-prefix KV — index them
+                self.pool.publish_prefix(i, s.prompt)
+                s.published = True
             tok = int(sampled[i])
             if s.first_token_step < 0:
                 s.first_token_step = self.stats.steps
@@ -250,14 +465,18 @@ class Engine:
                 self._slots[i] = None
                 self.pool.release(i)
                 self.stats.finished += 1
+        # every occupied slot holds KV — parked lanes included (their
+        # pages are exactly the ones pinning the pool under pressure)
         live_tokens = sum(s.fed for s in self._slots if s is not None)
         self.stats.kv_token_steps += live_tokens
         self.stats.kv_tokens_live = live_tokens
+        self.stats.kv_pages_live = (self.pool.n_live_pages
+                                    if self.paged else 0)
         return done
 
     def run(self, max_steps: Optional[int] = None) -> list[Completion]:
-        """Step until drained (or ``max_steps`` *further* iterations);
-        completions in finish order."""
+        """Step until drained (or ``max_steps`` *further* iterations —
+        relative to this call); completions in finish order."""
         out: list[Completion] = []
         start = self.stats.steps
         while self.has_work():

@@ -148,36 +148,69 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                     paged: bool = False, chunk: int = 1,
                     return_logits: bool = False):
     """Slot-indexed greedy decode step:
-    ``(params, cache, token, pos[, active, reset]) → (next_token, cache)``.
+    ``(params, cache, token, pos[, active, reset, ...]) → (next_token, cache)``.
 
-    token (N,1) int, pos (N,) i32 per-slot depths; ``reset`` ((N,) bool)
+    token (N,C) int, pos (N,) i32 per-slot depths; ``reset`` ((N,) bool)
     re-initializes slots before the step (how the engine admits into a
     recycled slot), ``active`` ((N,) bool) marks the lanes that decode —
-    parked lanes run at pos −1 (their KV write changes nothing) and report
+    parked lanes run at pos −1 (their KV writes change nothing) and report
     token −1. The cache is updated in place and returned.
 
     ``fused_decode=True`` runs the step inside
-    :func:`repro_torch.kernels.dispatch.fused_decode`, so attention against
-    the pool goes through the CUDA decode kernel. The paged pool, chunked
-    prefill and the logits-returning sampling variant are later slices.
+    :func:`repro_torch.kernels.dispatch.fused_decode`, so single-token
+    attention against the pool goes through the CUDA decode kernel (the
+    paged kernel for a paged pool).
+
+    ``paged=True`` expects the paged cache layout
+    (:func:`repro_torch.models.transformer.init_cache`) and keyword inputs
+    ``block_table`` ((N, n_blocks) i32, logical block → physical page row)
+    and ``page_reset`` ((R,) bool, physical pages recycled *this* step —
+    their position rows go to −1, the page analogue of ``reset``), and
+    optionally ``copy_dst``/``copy_src`` ((K,) i32, exactly the real
+    copy-on-write row copies, applied after ``page_reset`` and before the
+    model's KV writes; see :func:`repro_torch.serve.cache.copy_pages`).
+
+    ``chunk=C > 1`` is the *chunked-prefill* variant: ``token`` is (N, C)
+    and ``n_tok`` ((N,) i32) says how many of each lane's C tokens are real
+    this step (1 for decode lanes, up to C for prefilling lanes; padding
+    tokens run at position −1 → writes dropped, rows discarded). The
+    returned token is the model output of each lane's *last real* token
+    (reference ``step.py:260-387``); only that row reaches the logits
+    product, which the reference computes for every row and then indexes.
+    The logits-returning sampling variant is a later slice.
     """
-    if paged:
-        raise ValueError("the paged KV pool is ported with the paged-serving slice")
-    if chunk != 1:
-        raise ValueError("chunked prefill (chunk > 1) is ported with the "
-                         "paged-serving slice")
     if return_logits:
         raise ValueError("the logits-returning step is ported with the sampling slice")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
     qa = QArith(policy)
 
-    def serve_step(params, cache, token, pos, active=None, reset=None):
+    def serve_step(params, cache, token, pos, active=None, reset=None, *,
+                   block_table=None, page_reset=None, n_tok=None, copy_dst=None,
+                   copy_src=None):
         with dispatch.fused_decode(fused_decode):
             wc = compute_params(params, policy)
             if reset is not None:
                 cache = SC.reset_slots(cache, reset)
-            if active is not None:
-                pos = torch.where(active, pos, -1)
-            logits, new_cache = R.decode(qa, wc, cfg, token, cache, pos)
+            if paged and page_reset is not None:
+                cache = SC.reset_pages(cache, page_reset)
+            if paged and copy_dst is not None:
+                cache = SC.copy_pages(cache, copy_dst, copy_src)
+            if chunk == 1:
+                cache_pos = pos if active is None else torch.where(active, pos, -1)
+                last = None
+            else:
+                # per-token positions; tokens past a lane's n_tok (and whole
+                # parked lanes) run at −1: KV writes dropped, rows discarded
+                offs = torch.arange(chunk, dtype=torch.int32, device=pos.device)
+                valid = offs[None, :] < n_tok[:, None]
+                if active is not None:
+                    valid &= active[:, None]
+                cache_pos = torch.where(valid, pos[:, None] + offs[None, :], -1)
+                last = torch.clamp(n_tok - 1, 0, chunk - 1)
+            logits, new_cache = R.decode(qa, wc, cfg, token, cache, cache_pos,
+                                         block_table=block_table if paged else None,
+                                         out_rows=last)
             next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             if active is not None:
                 new_cache = SC.keep_active(active, new_cache, cache)

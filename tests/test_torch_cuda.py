@@ -7,7 +7,9 @@ Skipped without a CUDA device. On the card:
 The decode kernel is held against its plain PyTorch version on the same
 CUDA inputs at atol = rtol = 1e-2 on the f32 output (sums in another
 order; an f32-ulp difference can flip the bf16 rounding of one
-probability), and parked lanes must be exact zeros. The update kernels
+probability), and parked lanes must be exact zeros. The paged kernel
+shares the contiguous kernel's body, so on a pool it must equal the
+contiguous kernel on the gathered view ``pages[block_table]`` bit for bit. The update kernels
 (``sr_cast``, ``fused_adamw``, ``fused_sgd``) must equal their plain
 versions bit for bit in every variant at ragged sizes (NaN lanes: NaN on
 both sides): every op rounds once, and none is contracted into an FMA.
@@ -99,6 +101,90 @@ def test_engine_matches_generate_on_the_card(cuda):
                            cache_len=24).cpu().numpy()
             for i, c in enumerate(cs):
                 assert np.array_equal(ref[i, s0:], c.tokens)
+
+
+def _paged(dev, *, B=4, n_blocks=6, P=8, Hkv=2, G=4, D=64, dtype=torch.bfloat16, seed=0):
+    """A shuffled pool: lane b holds positions 0..q_pos[b]; lanes 0 and 1
+    share their first block; unmapped blocks point at the null row R−1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    R = B * n_blocks + 1
+    q = torch.randn((B, 1, Hkv * G, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((R, P, Hkv, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((R, P, Hkv, D), generator=g, device=dev).to(dtype)
+    pos = torch.full((R, P), -1, dtype=torch.int32, device=dev)
+    q_pos = torch.tensor([n_blocks * P - 3, P + 2, 0, 2 * P], dtype=torch.int32, device=dev)[:B]
+    table = torch.full((B, n_blocks), R - 1, dtype=torch.int32, device=dev)
+    rows = torch.randperm(R - 1, generator=g, device=dev).tolist()
+    for b in range(B):
+        for blk in range(int(q_pos[b]) // P + 1):
+            if b == 1 and blk == 0:
+                table[1, 0] = table[0, 0]
+                continue
+            r = rows.pop()
+            table[b, blk] = r
+            cells = blk * P + torch.arange(P, device=dev, dtype=torch.int32)
+            pos[r] = torch.where(cells <= q_pos[b], cells, -1)
+    return q, k, v, pos, table, q_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kw", [{}, dict(window=7, softcap=30.0)])
+def test_paged_kernel_equals_contiguous_kernel_on_the_view(cuda, dtype, kw):
+    q, k, v, pos, table, q_pos = _paged(cuda, dtype=dtype)
+    q_pos[2] = -1                                          # a parked lane
+    view = lambda t: DA._gather_view(t, table).contiguous()  # noqa: E731
+    before = (DA.LAUNCHES, DA.PAGED_LAUNCHES)
+    got = DA.fused_paged_decode_attention(q, k, v, pos, table, q_pos, p_dtype=dtype, **kw)
+    want = DA.fused_decode_attention(q, view(k), view(v), view(pos), q_pos, p_dtype=dtype,
+                                     **kw)
+    plain = DA.paged_decode_attention_ref(q, k, v, pos, table, q_pos, p_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert (DA.LAUNCHES, DA.PAGED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, want)
+    assert bool((got[2] == 0).all())
+    torch.testing.assert_close(got, plain, atol=TOL, rtol=TOL)
+
+
+def test_paged_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v, pos, table, q_pos = _paged(cuda, G=8, D=128)
+    wide = table.repeat(1, 800 // table.shape[1] + 1)     # > 4636 keys at G = 8
+    with pytest.raises(ValueError, match="shared memory"):
+        DA.fused_paged_decode_attention(q, k, v, pos, wide.contiguous(), q_pos)
+    with pytest.raises(ValueError, match="int32"):
+        DA.fused_paged_decode_attention(q, k, v, pos, table.long(), q_pos)
+    with pytest.raises(ValueError, match="paged GQA decode"):
+        DA.fused_paged_decode_attention(q, k, v[:-1].contiguous(), pos, table, q_pos)
+
+
+def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    rng = np.random.default_rng(0)
+    common = rng.integers(0, cfg.vocab, 16)
+    stream = [(np.concatenate([common, rng.integers(0, cfg.vocab, s)]), g)
+              for s, g in zip((5, 9, 14, 3, 11, 7), (8, 6, 12, 9, 5, 10))]
+
+    def run(**kw):
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=48, fused_decode=True, **kw)
+        for p, g in stream:
+            eng.submit(p, g)
+        ones = []
+        fn = eng._fns[1]
+        eng._fns[1] = lambda *a, **k: ones.append(1) or fn(*a, **k)
+        before = DA.PAGED_LAUNCHES
+        done = eng.run()
+        return {c.rid: c.tokens for c in done}, eng, DA.PAGED_LAUNCHES - before, len(ones)
+
+    for chunk in (1, 4):
+        want, _, launched, _ = run(prefill_chunk=chunk)
+        assert launched == 0
+        got, eng, launched, single = run(prefill_chunk=chunk, paged=True, page_size=4,
+                                         n_pages=20)
+        assert eng.stats.preemptions >= 1 and eng.stats.prefix_hits >= 1
+        assert launched == cfg.n_layers * single
+        for rid in want:
+            assert np.array_equal(got[rid], want[rid]), (chunk, rid)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import registry as R
 from repro_torch.serve.decode import generate
 from repro_torch.serve.engine import Engine
+from repro_torch.train.step import make_serve_step
 
 NEAREST = get_policy("bf16_standard")
 LOGIT_TOL = 0.125
@@ -159,10 +160,10 @@ def test_entry_points_need_cuda_unless_told_cpu():
 def test_later_slice_features_raise():
     cfg = _cfg()
     params = R.init(cfg, 0, NEAREST.param_dtype, device="cpu")
-    with pytest.raises(ValueError, match="paged"):
-        Engine(params, cfg, NEAREST, paged=True, device="cpu")
-    with pytest.raises(ValueError, match="chunked prefill"):
-        Engine(params, cfg, NEAREST, prefill_chunk=4, device="cpu")
+    paged = Engine(params, cfg, NEAREST, paged=True, prefill_chunk=4, device="cpu")
+    assert paged.paged and paged.prefill_chunk == 4 and paged.prefix_cache
+    with pytest.raises(ValueError, match="sampling"):
+        make_serve_step(cfg, NEAREST, return_logits=True)
     eng = Engine(params, cfg, NEAREST, n_slots=1, max_len=16, device="cpu")
     with pytest.raises(ValueError, match="sampling"):
         eng.submit(np.arange(3), 2, temperature=0.7)
