@@ -6,10 +6,10 @@
 Phases, each printing its lines (a failed check exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: the four CUDA sources (decode attention — contiguous and paged
-   entry points — ``sr_cast``, ``fused_adamw``, ``fused_sgd``), built from
-   this checkout with one ``nvcc`` per source at once; nvcc time,
-   registers and spills;
+2. build: the five CUDA sources (decode attention — contiguous and paged
+   entry points — ``sr_cast``, ``fused_adamw``, ``fused_sgd``,
+   ``qmatmul``), built from this checkout with one ``nvcc`` per source at
+   once; nvcc time, registers and spills;
 3. kernel: the decode kernel against its plain PyTorch version at the
    serving path's shapes (B=8 lanes, 16/2 heads, D=128, bf16, Sc 256 and
    2048): mixed depths, two parked lanes (exact zeros), window 64 +
@@ -49,21 +49,39 @@ Phases, each printing its lines (a failed check exits non-zero):
    output ``torch.equal``; device time at the embedding size beside the
    bytes bound and the plain version's time (no single PyTorch call
    computes these updates, so there is no library time);
-8. train (main path of training): full-width qwen2.5-3b trained through
+8. qmatmul (main path of the kernel op layer): ``ops.qmatmul_op``,
+   nearest and SR, at full-width qwen2.5-3b products — MLP gate/up and
+   down and one KV projection at the train phase's 2 × 2048 rows, one
+   serve step's 8 lanes — and at odd shapes that take every edge path
+   (N or K not a multiple of 8, x at a 2-byte offset); ``qmatmul``
+   launched once per op call; each output ``torch.equal`` to ``qmatmul``
+   on the generator's bits, within 1 bf16 ulp plus the f32 accumulation
+   bound of the plain version on at most 0.5% of the outputs, and within
+   that bound of the exact (f64) product; ±inf, NaN, overflow and
+   near-max lanes ``torch.equal`` to the plain version (bits 0xFFFF carry
+   bf16 max into inf); 1024 products of 0.01² within 1%; the plain
+   version's f32 product without TF32; device time at the two MLP shapes
+   and the 8-row shape, nearest and SR, beside the bound, the plain
+   version's time and ``torch.matmul``'s (nearest: no single call rounds
+   by SR; the port never calls it); then ``sr_cast_op``,
+   ``adamw_update_op`` and ``sgd_update_op`` once each at a ragged n,
+   ``torch.equal`` to the plain version on the generator's bits and to
+   themselves under a re-seeded generator;
+9. train (main path of training): full-width qwen2.5-3b trained through
    the launcher's own functions, ``--policy bf16_sr_kahan --fused-update
    --batch 2 --seq 2048``, 8 steps at lr 3e-3: every loss finite, the
    last below step 0's, ``fused_adamw`` launched once per parameter leaf
    per step; ms per step, tokens per second, the optimizer's ms per step
    (CUDA events) beside its bound, peak device memory; then one more step
    under the profiler (device time, idle share, top kernels);
-9. update parity (main path of the non-fused optimizer and of fused
-   SGD): from the trained state and one fresh gradient, one step of
-   ``adamw`` against ``fused_adamw_optimizer`` and of ``sgd`` against
-   ``fused_sgd_optimizer`` with the same per-leaf bits, leaf by leaf:
-   params, moments and Kahan buffers bitwise equal on every leaf, and
-   ``sr_cast`` launched by the non-fused path; then whether the card's
-   embedding backward (``index_put_`` with accumulation, bf16) equals the
-   CPU's bf16 scatter-add.
+10. update parity (main path of the non-fused optimizer and of fused
+    SGD): from the trained state and one fresh gradient, one step of
+    ``adamw`` against ``fused_adamw_optimizer`` and of ``sgd`` against
+    ``fused_sgd_optimizer`` with the same per-leaf bits, leaf by leaf:
+    params, moments and Kahan buffers bitwise equal on every leaf, and
+    ``sr_cast`` launched by the non-fused path; then whether the card's
+    embedding backward (``index_put_`` with accumulation, bf16) equals the
+    CPU's bf16 scatter-add.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -95,18 +113,46 @@ PAGED_N_PAGES = 64          # below byte parity (8 x 64 = 512), so the run preem
 # model's logit for its own token exceeds the chunked token's by at most
 # this (the bf16 products of a chunk step run at 8*32 rows, ROADMAP C10)
 CHUNK_LOGIT_TOL = 0.125
-SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd")
+SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd", "qmatmul")
 KERNELS = ("decode_attention", "paged_decode_attention", "sr_cast", "fused_adamw",
-           "fused_sgd")
+           "fused_sgd", "qmatmul")
+# (M, N, K) of the qmatmul phase: full-width qwen2.5-3b products (d_model
+# 2048, d_ff 11008, 2 KV heads x 128) at the train phase's 2 x 2048 rows and
+# at one serve step's 8 lanes, then odd shapes that take every edge path
+QMATMUL_SHAPES = {
+    "mlp gate/up": (4096, 11008, 2048),
+    "mlp down": (4096, 2048, 11008),
+    "kv proj": (4096, 256, 2048),
+    "serve 8 lanes": (8, 11008, 2048),
+    "odd, N=77": (129, 77, 200),           # y takes the scalar path
+    "odd, K=77": (129, 200, 77),           # x takes the scalar path
+    "odd, x unaligned": (64, 64, 64),      # x at a 2-byte offset: scalar path
+}
+QMATMUL_TIMED = ("mlp gate/up", "mlp down", "serve 8 lanes")
+# kernel vs plain: at most 1 bf16 ulp plus the f32 accumulation bound on at
+# most this fraction of the outputs (tests/test_kernels.py::assert_bf16_close)
+QMATMUL_MAX_FRAC = 0.005
 EMBED_N = 151936 * 2048     # the embedding leaf of qwen2.5-3b
 # bytes per element each update kernel must move in its main-path variant
 # (SR + Kahan): every bf16 input read once, bits read once, outputs written
 UPDATE_BYTES = {"sr_cast": 4 + 4 + 2,                       # x f32, bits; out bf16
                 "fused_adamw": 5 * 2 + 4 + 4 * 2,           # w m v g c, bits; w m v c
                 "fused_sgd": 4 * 2 + 4 + 3 * 2}             # w m g c, bits; w m c
+# hyperparameters of the update-kernel checks (f32-exact betas)
+HP_ADAMW = dict(lr=1e-3, b1=0.8984375, b2=0.99609375, eps=1e-8, wd=0.01,
+                c1=0.8984375, c2=0.99609375)
+HP_SGD = dict(lr=0.1, momentum=0.9, wd=1e-4)
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
               "--batch", "2", "--seq", "2048", "--steps", "8", "--lr", "3e-3",
               "--seed", "0", "--device", "cuda"]
+
+
+def kernel_module(name: str):
+    """A kernel's module: its wrapper, plain version and ``LAUNCHES`` count
+    (the ``repro_torch.kernels`` attribute of the same name is the wrapper
+    function, as in the reference's package)."""
+    import importlib
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def fail(msg: str):
@@ -788,13 +834,10 @@ def phase_update_kernels(card: str) -> dict:
     """Each update kernel ≡ its plain version (torch.equal, every variant,
     two sizes); device time at the embedding leaf's size."""
     import torch
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import fused_sgd as FS
-    from repro_torch.kernels import sr_cast as SC
+    FA = kernel_module("fused_adamw")
+    FS = kernel_module("fused_sgd")
+    SC = kernel_module("sr_cast")
 
-    hp_adam = dict(lr=1e-3, b1=0.8984375, b2=0.99609375, eps=1e-8, wd=0.01,
-                   c1=0.8984375, c2=0.99609375)
-    hp_sgd = dict(lr=0.1, momentum=0.9, wd=1e-4)
     variants = [(False, False), (True, False), (False, True), (True, True)]
     rows = {}
     for n in (1_000_003, EMBED_N):
@@ -811,19 +854,19 @@ def phase_update_kernels(card: str) -> dict:
             bits = x["bits"] if stochastic else None
             want = FA.fused_adamw_ref(x["w"], x["m"], x["v"], x["g"],
                                       c=x["c"] if kahan else None, bits=bits,
-                                      stochastic=stochastic, **hp_adam)
+                                      stochastic=stochastic, **HP_ADAMW)
             got = [t.clone() for t in (x["w"], x["m"], x["v"], x["c"])]
             FA.fused_adamw(got[0], got[1], got[2], x["g"], c=got[3] if kahan else None,
-                           bits=bits, stochastic=stochastic, **hp_adam)
+                           bits=bits, stochastic=stochastic, **HP_ADAMW)
             for name, a, b in zip("wmvc", got, want):
                 if b is not None:
                     check(torch.equal(a, b), f"fused_adamw {tag} n={n}: {name} kernel != plain")
             del want, got
             want = FS.fused_sgd_ref(x["w"], x["m"], x["g"], c=x["c"] if kahan else None,
-                                    bits=bits, stochastic=stochastic, **hp_sgd)
+                                    bits=bits, stochastic=stochastic, **HP_SGD)
             got = [t.clone() for t in (x["w"], x["m"], x["c"])]
             FS.fused_sgd(got[0], got[1], x["g"], c=got[2] if kahan else None, bits=bits,
-                         stochastic=stochastic, **hp_sgd)
+                         stochastic=stochastic, **HP_SGD)
             for name, a, b in zip("wmc", got, want):
                 if b is not None:
                     check(torch.equal(a, b), f"fused_sgd {tag} n={n}: {name} kernel != plain")
@@ -838,12 +881,12 @@ def phase_update_kernels(card: str) -> dict:
             "sr_cast": (lambda: SC.sr_cast(xs, x["bits"]),
                         lambda: SC.sr_cast_ref(xs, x["bits"])),
             "fused_adamw": (lambda: FA.fused_adamw(w, m, v, x["g"], c=c, bits=x["bits"],
-                                                   **hp_adam),
+                                                   **HP_ADAMW),
                             lambda: FA.fused_adamw_ref(x["w"], x["m"], x["v"], x["g"],
-                                                       c=x["c"], bits=x["bits"], **hp_adam)),
-            "fused_sgd": (lambda: FS.fused_sgd(w, m, x["g"], c=c, bits=x["bits"], **hp_sgd),
+                                                       c=x["c"], bits=x["bits"], **HP_ADAMW)),
+            "fused_sgd": (lambda: FS.fused_sgd(w, m, x["g"], c=c, bits=x["bits"], **HP_SGD),
                           lambda: FS.fused_sgd_ref(x["w"], x["m"], x["g"], c=x["c"],
-                                                   bits=x["bits"], **hp_sgd)),
+                                                   bits=x["bits"], **HP_SGD)),
         }
         for name, (kernel, plain) in calls.items():
             ms = event_ms(kernel)
@@ -859,13 +902,221 @@ def phase_update_kernels(card: str) -> dict:
     return rows
 
 
+def _accumulation_bound(x, y):
+    """``K·2⁻²³·(|x|@|y|)`` in f64: how far an f32 accumulation of the bf16
+    products may lie from the exact sum, and so from another such sum."""
+    return x.shape[1] * 2.0 ** -23 * (x.double().abs() @ y.double().abs())
+
+
+def _qmatmul_close(got, want, e) -> tuple[float, float]:
+    """The fraction of outputs that differ and the largest share of its
+    bound (1 bf16 ulp + ``e``) a difference uses; fails past the bound or
+    past QMATMUL_MAX_FRAC."""
+    import torch
+    g, w = got.double(), want.double()
+    nan = torch.isnan(w)
+    check(torch.equal(torch.isnan(g), nan), "NaN lanes differ")
+    neq = (g != w) & ~nan
+    frac = float(neq.double().mean())
+    bound = 2.0 ** -7 * w.abs().clamp_min(2.0 ** -126) + e
+    used = float((torch.where(neq, (g - w).abs(), 0.0) / bound).max())
+    check(used <= 1.0, f"an output differs by {used:.3f}x its bound (1 ulp + f32 bound)")
+    check(frac <= QMATMUL_MAX_FRAC, f"{frac:.4%} of outputs differ")
+    return frac, used
+
+
+def _within_exact(got, exact, e) -> float:
+    """``|out − exact| ≤ ulp_bf16(|exact| + e) + e``; the largest share of
+    that bound used."""
+    import torch
+    mag = (exact.abs() + e).clamp_min(2.0 ** -126)
+    bound = torch.exp2(torch.floor(torch.log2(mag)) - 7) + e
+    used = float(((got.double() - exact).abs() / bound).max())
+    check(used <= 1.0, f"an output lies {used:.3f}x its bound from the exact product")
+    return used
+
+
+def _gen(seed: int):
+    """A CUDA generator seeded with ``seed``."""
+    import torch
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def _qmatmul_edge_inputs():
+    """x rows whose dot with a column of ones is exact in any order: ±inf,
+    NaN, inf − inf, bf16 max + 2¹¹⁰ (SR with 0xFFFF carries it into inf),
+    2·bf16 max (overflows f32), bf16 max, 1 + 2⁻⁹, 0."""
+    import torch
+    big = float(torch.finfo(torch.bfloat16).max)
+    inf, nan = float("inf"), float("nan")
+    rows = [[inf], [-inf], [nan], [inf, -inf], [big, 2.0 ** 110], [-big, -2.0 ** 110],
+            [big, big], [big], [1.0, 2.0 ** -9], [0.0]]
+    x = torch.zeros((len(rows), 40), dtype=torch.float32)
+    for i, r in enumerate(rows):
+        x[i, :len(r)] = torch.tensor(r)
+    return (x.to(torch.bfloat16).cuda(),
+            torch.ones((40, 24), dtype=torch.bfloat16, device="cuda"))
+
+
+def phase_qmatmul(card: str) -> tuple[dict, int]:
+    """The op layer's qmatmul at full-width shapes (main path: launches
+    counted), held against its plain version and the exact product; edge
+    lanes bitwise; device time beside its bound, the plain version's and
+    torch.matmul's."""
+    import torch
+    from repro_torch.core.formats import random_bits
+    from repro_torch.kernels import ops
+    QM = kernel_module("qmatmul")
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+          "the plain version's f32 product must not run in TF32, nor bf16 GEMMs reduce "
+          "in reduced precision")
+
+    inputs = {}
+    for i, (name, (M, N, K)) in enumerate(QMATMUL_SHAPES.items()):
+        g = _gen(100 + i)
+        off = 1 if "unaligned" in name else 0
+        x = torch.randn(M * K + off, generator=g, device="cuda").to(torch.bfloat16)
+        x = x[off:].view(M, K)
+        check(x.data_ptr() % 16 == 2 * off, "the unaligned case must start 2 bytes off")
+        inputs[name] = (x, torch.randn((K, N), generator=g, device="cuda").to(torch.bfloat16))
+
+    # the main path: the op layer, every shape, nearest and SR
+    outs = {}
+    torch.cuda.synchronize()
+    QM.LAUNCHES = 0
+    for i, (name, (x, y)) in enumerate(inputs.items()):
+        for sr in (False, True):
+            outs[name, sr] = ops.qmatmul_op(x, y, _gen(200 + i), stochastic=sr)
+    torch.cuda.synchronize()
+    launches = QM.LAUNCHES
+    check(launches == 2 * len(inputs), f"qmatmul launched {launches} times for "
+          f"{2 * len(inputs)} qmatmul_op calls")
+    max_err = 0.0
+    for i, (name, (x, y)) in enumerate(inputs.items()):
+        (M, N, K), e = QMATMUL_SHAPES[name], _accumulation_bound(x, y)
+        exact = x.double() @ y.double()
+        for sr in (False, True):
+            got = outs.pop((name, sr))
+            check(got.dtype == torch.bfloat16 and got.shape == (M, N),
+                  f"{name}: output {got.dtype} {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+            bits = random_bits((M, N), generator=_gen(200 + i)) if sr else None
+            check(torch.equal(got, QM.qmatmul(x, y, bits=bits)),
+                  f"{name}: qmatmul_op != qmatmul on the generator's bits")
+            plain = QM.qmatmul_ref(x, y, bits=bits)
+            frac, share = _qmatmul_close(got, plain, e)
+            max_err = max(max_err, float((got.float() - plain.float()).abs().max()))
+            used = _within_exact(got, exact, e)
+            print(f"[qmatmul] {name} ({M}x{K} @ {K}x{N}) {'SR' if sr else 'nearest'}: "
+                  f"{frac:.4%} of outputs differ from the plain version, using at most "
+                  f"{share:.3f} of their bound (1 ulp + f32 bound, on <= "
+                  f"{QMATMUL_MAX_FRAC:.1%}); at most {used:.3f} of the bound to the exact "
+                  f"product")
+        del exact, e
+    del outs
+
+    x, y = _qmatmul_edge_inputs()
+    for b in (None, 0, 0xFFFF, 0x8000):
+        bits = None if b is None else torch.full((x.shape[0], y.shape[1]), b,
+                                                 dtype=torch.int32, device="cuda")
+        got, want = QM.qmatmul(x, y, bits=bits), QM.qmatmul_ref(x, y, bits=bits)
+        check(_equal(got, want), f"edge lanes, bits {b}: kernel != plain")
+        check(bool(torch.isposinf(got[6].float()).all()), "2 x bf16 max did not overflow")
+        carried = b == 0xFFFF
+        check(bool(torch.isinf(got[4:6].float()).all()) == carried,
+              f"bits {b}: bf16 max + 2^110 carried into inf: {not carried}")
+    print("[qmatmul] ±inf, NaN, inf - inf, f32 overflow and near-max lanes (bits none, 0, "
+          "0xFFFF, 0x8000): kernel == plain (torch.equal); 0xFFFF carries bf16 max into inf")
+    K = 1024
+    ones = torch.full((128, K), 0.01, dtype=torch.bfloat16, device="cuda")
+    out = QM.qmatmul(ones, ones.T.contiguous()).float()
+    expect = K * float(torch.tensor(0.01, dtype=torch.bfloat16)) ** 2
+    check(abs(float(out[0, 0]) / expect - 1) < 0.01 and bool((out == out[0, 0]).all()),
+          f"K accumulation: {float(out[0, 0])} for {expect}")
+    print(f"[qmatmul] K accumulation: {K} products of 0.01^2 give {float(out[0, 0]):.6g} "
+          f"(exact {expect:.6g}; within 1%)")
+
+    row = None
+    for name in QMATMUL_TIMED:
+        (M, N, K), (x, y) = QMATMUL_SHAPES[name], inputs[name]
+        n_in = (M * K + K * N) * 2 + M * N * 4
+        copies = [(x, y, random_bits((M, N), generator=_gen(1)))]
+        copies += [tuple(t.clone() for t in copies[0]) for _ in range(-(-100 * 2**20 // n_in) - 1)]
+        library_ms = time_ms([lambda c=c: torch.matmul(c[0], c[1]) for c in copies])
+        for sr in (False, True):
+            args = [(c[0], c[1], c[2] if sr else None) for c in copies]
+            ms = time_ms([lambda a=a: QM.qmatmul(a[0], a[1], bits=a[2]) for a in args])
+            plain_ms = time_ms([lambda a=a: QM.qmatmul_ref(a[0], a[1], bits=a[2])
+                                for a in args], calls=16)
+            nbytes = (M * K + K * N + M * N) * 2 + (M * N * 4 if sr else 0)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / BF16_FLOP_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            tflops = 2 * M * N * K / ms / 1e9
+            lib = "nearest; no single call rounds by SR" if sr else "nearest"
+            print(f"[qmatmul] {name} ({M}x{K} @ {K}x{N}) {'SR' if sr else 'nearest'} on "
+                  f"{card}: kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), bound {bound_ms:.4f} "
+                  f"ms ({bound_by}; {bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, "
+                  f"torch.matmul {library_ms:.4f} ms ({lib}) (device time, {len(copies)} "
+                  f"input copies rotated)")
+            if name == QMATMUL_TIMED[0] and not sr:
+                row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms}
+        del copies, args
+    del inputs
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err
+    return row, launches
+
+
+def phase_update_ops():
+    """The op layer's update entry points once each at a ragged n: each the
+    kernel on the generator's bits (torch.equal to the plain version), and
+    the same again under a re-seeded generator."""
+    import torch
+    from repro_torch.core.formats import random_bits
+    from repro_torch.kernels import ops
+    FA, FS, SC = (kernel_module(k) for k in ("fused_adamw", "fused_sgd", "sr_cast"))
+    n = 1_000_003
+    x = _update_inputs(n, 3)
+    xs = torch.randn(n, device="cuda") * 7
+    before = (SC.LAUNCHES, FA.LAUNCHES, FS.LAUNCHES)
+    runs = [ops.sr_cast_op(xs, _gen(s)) for s in (1, 1)]
+    check(_equal(runs[0], runs[1]), "sr_cast_op differs under a re-seeded generator")
+    check(_equal(runs[0], SC.sr_cast_ref(xs, random_bits((n,), generator=_gen(1)))),
+          "sr_cast_op != the plain version on the generator's bits")
+    for _ in range(2):
+        got = [t.clone() for t in (x["w"], x["m"], x["v"], x["c"])]
+        ops.adamw_update_op(*got[:3], x["g"], got[3], _gen(2), HP_ADAMW, kahan=True)
+        runs.append(got)
+    want = FA.fused_adamw_ref(x["w"], x["m"], x["v"], x["g"], c=x["c"],
+                              bits=random_bits((n,), generator=_gen(2)), **HP_ADAMW)
+    for a, b, c in zip(runs[2], runs[3], want):
+        check(torch.equal(a, b) and torch.equal(a, c), "adamw_update_op: re-seeded or plain")
+    for _ in range(2):
+        got = [t.clone() for t in (x["w"], x["m"], x["c"])]
+        ops.sgd_update_op(got[0], got[1], x["g"], got[2], _gen(3), HP_SGD, kahan=True)
+        runs.append(got)
+    want = FS.fused_sgd_ref(x["w"], x["m"], x["g"], c=x["c"],
+                            bits=random_bits((n,), generator=_gen(3)), **HP_SGD)
+    for a, b, c in zip(runs[4], runs[5], want):
+        check(torch.equal(a, b) and torch.equal(a, c), "sgd_update_op: re-seeded or plain")
+    after = (SC.LAUNCHES, FA.LAUNCHES, FS.LAUNCHES)
+    check(all(a - b == 2 for a, b in zip(after, before)), f"op launches {before} -> {after}")
+    print(f"[ops] at n={n}: sr_cast_op, adamw_update_op and sgd_update_op "
+          f"(SR + Kahan) each launched their kernel, equal the plain version on the "
+          f"generator's bits and themselves under a re-seeded generator (torch.equal)")
+
+
 def phase_train(card: str):
     """Full-width training through the launcher's functions."""
     import numpy as np
     import torch
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import fused_sgd as FS
-    from repro_torch.kernels import sr_cast as SC
+    FA = kernel_module("fused_adamw")
+    FS = kernel_module("fused_sgd")
+    SC = kernel_module("sr_cast")
     from repro_torch.core.policy import get_policy
     from repro_torch.launch import train as LT
     from repro_torch.tree import tree_leaves
@@ -965,9 +1216,9 @@ def phase_parity(run, state, card: str) -> dict:
     """Non-fused ≡ fused AdamW and SGD at full width, leaf by leaf."""
     import torch
     from repro_torch.core.qarith import QArith
-    from repro_torch.kernels import fused_adamw as FA
-    from repro_torch.kernels import fused_sgd as FS
-    from repro_torch.kernels import sr_cast as SC
+    FA = kernel_module("fused_adamw")
+    FS = kernel_module("fused_sgd")
+    SC = kernel_module("sr_cast")
     from repro_torch.models import registry as R
     from repro_torch.optim import (AdamWState, SGDState, StepKey, adamw,
                                    fused_adamw_optimizer, fused_sgd_optimizer, sgd)
@@ -1090,6 +1341,8 @@ def main():
     del model, engines, eng
     torch.cuda.empty_cache()
     rows.update(phase_update_kernels(card))
+    rows["qmatmul"], launches["qmatmul"] = phase_qmatmul(card)
+    phase_update_ops()
     run, state, launches["fused_adamw"] = phase_train(card)
     state = phase_train_profile(run, state, card)
     parity = phase_parity(run, state, card)
@@ -1102,6 +1355,7 @@ def main():
         "sr_cast": ("sr_cast", "src/repro/kernels/sr_cast.py:26"),
         "fused_adamw": ("fused_adamw", "src/repro/kernels/fused_adamw.py:36"),
         "fused_sgd": ("fused_sgd", "src/repro/kernels/fused_sgd.py:18"),
+        "qmatmul": ("qmatmul", "src/repro/kernels/qmatmul.py:22"),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

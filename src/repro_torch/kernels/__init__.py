@@ -1,1 +1,27 @@
-"""Hand-written CUDA kernels for Hopper, their plain PyTorch versions and dispatch."""
+"""Hand-written CUDA kernels for Hopper, their plain PyTorch versions and dispatch.
+
+- sr_cast          — stochastic-rounding cast f32 → bf16 from explicit bits
+- fused_adamw      — Algorithms 4/5 in one pass over memory (SR / Kahan), in place
+- fused_sgd        — Algorithms 2/3 in one pass, in place
+- qmatmul          — bf16-in / f32-accumulate / round-once FMAC matmul (Table 1)
+- fused_decode_attention — single-token attention over the slotted KV pool
+- dispatch         — routing of layer code onto the fused decode kernel
+- ops              — entry points that draw the SR bits from a torch.Generator
+- ref              — the plain versions under the reference's oracle names
+
+The names are those of ``repro.kernels``. Importing builds nothing: each
+kernel is compiled at its first launch. The package attributes
+``fused_adamw``, ``fused_sgd``, ``qmatmul`` and ``sr_cast`` are the
+functions; their modules (with each kernel's ``LAUNCHES`` count) are
+``sys.modules["repro_torch.kernels.<name>"]``, e.g. through
+``importlib.import_module``.
+"""
+from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels.decode_attention import fused_decode_attention
+from repro_torch.kernels.fused_adamw import fused_adamw
+from repro_torch.kernels.fused_sgd import fused_sgd
+from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.sr_cast import sr_cast
+
+__all__ = ["dispatch", "ops", "ref", "fused_adamw", "fused_decode_attention",
+           "fused_sgd", "qmatmul", "sr_cast"]

@@ -1,0 +1,110 @@
+"""bf16 FMAC matmul: bf16 inputs, f32 accumulation, one output rounding to
+bf16 — nearest, or stochastic from caller bits (the paper's Table-1 unit).
+
+Replaces the Pallas kernel ``repro/kernels/qmatmul.py:22``
+(``qmatmul_kernel``) and its wrapper ``:46`` (``qmatmul``) with a CUDA
+kernel written for Hopper, ``csrc/qmatmul.cu``: ``mma.sync`` tensor-core
+tiles, the f32 accumulators in registers across the whole K loop, each
+32-deep K tile's dot added with one rounded f32 add (as the TPU kernel adds
+each K tile's dot into its VMEM accumulator), then one rounding per output.
+Operations bound it at the training shapes, bytes at the 8-row serving
+shape (see the note atop the CUDA source).
+
+The TPU wrapper's block sizes ``bm/bn/bk`` are the TPU's tiling, not part of
+the function, so :func:`qmatmul` has none. Unlike the TPU kernel it takes
+every shape: the CUDA kernel masks the ragged edge of M, N and K itself.
+Bits are u32 carried in an int32 tensor, as in :mod:`.sr_cast`.
+
+CUDA tensors launch the kernel (or raise); only CPU tensors take the plain
+PyTorch version :func:`qmatmul_ref`, which the tests and ``chip_smoke.py``
+hold the kernel against. The tensor cores sum a group of exact products in
+a wide fixed-point alignment, not by a chain of rounded f32 adds, so kernel
+and plain version agree to within an f32 ulp of the accumulator, not bit
+for bit: after the rounding, at most 1 bf16 ulp on a small fraction of the
+outputs.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.sr_cast import sr_to_bf16
+
+__all__ = ["LAUNCHES", "qmatmul", "qmatmul_ref"]
+
+MAX_M = 65535 * 128        # grid rows (blockIdx.y) x the kernel's 128-row tile
+
+# Kernel launches made by qmatmul (incremented per launch).
+LAUNCHES = 0
+
+
+def qmatmul_ref(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Plain PyTorch version: the bf16 operands' product in full f32, then
+    the nearest cast, or SR with ``bits`` (a non-finite accumulator takes the
+    nearest cast). ``repro/kernels/ref.py::qmatmul_ref``."""
+    acc = x.to(torch.bfloat16).float() @ y.to(torch.bfloat16).float()
+    return acc.to(torch.bfloat16) if bits is None else sr_to_bf16(acc, bits)
+
+
+def qmatmul(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """``x`` (M,K) bf16 @ ``y`` (K,N) bf16 → (M,N) bf16 with f32
+    accumulation and one rounding: nearest, or stochastic with ``bits``
+    (int32 carrying u32, shape (M,N)). CPU tensors take the plain version."""
+    _check(x, y, bits)
+    if x.device.type == "cpu":
+        return qmatmul_ref(x, y, bits=bits)
+    return _launch(x, y, bits)
+
+
+def _check(x, y, bits):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qmatmul runs on CUDA or CPU, not {x.device}")
+    named = {"x": x, "y": y} if bits is None else {"x": x, "y": y, "bits": bits}
+    for name, t in named.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, expected {x.device}")
+        if t.dim() != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16:
+        raise ValueError(f"qmatmul takes bf16 x and y, got {x.dtype}/{y.dtype}")
+    if x.shape[1] != y.shape[0]:
+        raise ValueError(f"inner dimensions differ: x {tuple(x.shape)}, y {tuple(y.shape)}")
+    if bits is not None:
+        if bits.dtype != torch.int32:
+            raise ValueError(f"bits must be int32 carrying u32, got {bits.dtype}")
+        if bits.shape != (x.shape[0], y.shape[1]):
+            raise ValueError(f"bits has shape {tuple(bits.shape)}, expected "
+                             f"{(x.shape[0], y.shape[1])}")
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("qmatmul").repro_qmatmul
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    return fn
+
+
+def _launch(x, y, bits):
+    global LAUNCHES
+    for name, t in {"x": x, "y": y, "bits": bits}.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major)")
+    (M, K), N = x.shape, y.shape[1]
+    if M > MAX_M:
+        raise ValueError(f"qmatmul takes at most {MAX_M} rows, got {M}")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = _kernel()(x.data_ptr(), y.data_ptr(), None if bits is None else bits.data_ptr(),
+                       out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out

@@ -13,7 +13,14 @@ contiguous kernel on the gathered view ``pages[block_table]`` bit for bit. The u
 (``sr_cast``, ``fused_adamw``, ``fused_sgd``) must equal their plain
 versions bit for bit in every variant at ragged sizes (NaN lanes: NaN on
 both sides): every op rounds once, and none is contracted into an FMA.
+The qmatmul kernel sums on the tensor cores, not by a chain of rounded
+f32 adds, so it is held to its plain version within 1 bf16 ulp plus the
+f32 accumulation bound on at most 0.5% of the outputs, and to the exact
+product within that bound; where every sum is exact (edge lanes) bit for
+bit.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,14 +28,18 @@ import torch
 from repro_torch.core.policy import get_policy
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import dispatch
-from repro_torch.kernels import fused_adamw as FA
-from repro_torch.kernels import fused_sgd as FS
-from repro_torch.kernels import sr_cast as SC
 from repro_torch.launch import train as launch_train
 from repro_torch.models import registry as R
 from repro_torch.serve.decode import generate
 from repro_torch.serve.engine import Engine
 from repro_torch.tree import tree_leaves
+
+# the package attributes of these names are the wrapper functions; the
+# modules hold each kernel's plain version and LAUNCHES count
+FA = importlib.import_module("repro_torch.kernels.fused_adamw")
+FS = importlib.import_module("repro_torch.kernels.fused_sgd")
+QM = importlib.import_module("repro_torch.kernels.qmatmul")
+SC = importlib.import_module("repro_torch.kernels.sr_cast")
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
@@ -296,3 +307,111 @@ def test_reduced_launcher_trains_on_the_card(cuda, fused):
     assert state.step == 3
     assert launched == ([3 * n_leaves, 0] if fused else [0, 3 * n_leaves])
     assert all(np.isfinite(row["loss"]) for row in info["history"])
+
+
+# ---------------------------------------------------------------------------
+# qmatmul
+# ---------------------------------------------------------------------------
+
+def _qm_inputs(dev, M, N, K, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    y = torch.randn((K, N), generator=g, device=dev).to(torch.bfloat16)
+    bits = torch.randint(-2**31, 2**31 - 1, (M, N), generator=g, device=dev,
+                         dtype=torch.int32)
+    return x, y, bits
+
+
+def _qm_close(got, x, y, bits):
+    """Within 1 bf16 ulp + e of the plain version on at most 0.5% of the
+    outputs, and within ulp_bf16(|exact| + e) + e of the exact product,
+    e = K·2⁻²³·(|x|@|y|)."""
+    want = QM.qmatmul_ref(x, y, bits=bits).double()
+    e = x.shape[1] * 2.0 ** -23 * (x.double().abs() @ y.double().abs())
+    g = got.double()
+    neq = g != want
+    assert float(neq.double().mean()) <= 0.005
+    assert bool(((g - want).abs() <= 2.0 ** -7 * want.abs().clamp_min(2.0 ** -126) + e).all())
+    exact = x.double() @ y.double()
+    mag = (exact.abs() + e).clamp_min(2.0 ** -126)
+    assert bool(((g - exact).abs() <= torch.exp2(torch.floor(torch.log2(mag)) - 7) + e).all())
+
+
+# (M, N, K): aligned, ragged in each dimension (N or K not a multiple of 8
+# takes the scalar path), one row, K = 0
+@pytest.mark.parametrize("mnk", [(128, 128, 128), (256, 384, 2048), (129, 77, 200),
+                                 (129, 200, 77), (8, 1000, 512), (1, 1, 1), (300, 264, 1000),
+                                 (4, 5, 0)])
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_qmatmul_kernel_matches_plain(cuda, mnk, stochastic):
+    M, N, K = mnk
+    x, y, bits = _qm_inputs(cuda, M, N, K, M + N + K)
+    bits = bits if stochastic else None
+    before = QM.LAUNCHES
+    got = QM.qmatmul(x, y, bits=bits)
+    torch.cuda.synchronize()
+    assert QM.LAUNCHES == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    _qm_close(got, x, y, bits)
+
+
+def test_qmatmul_kernel_takes_an_unaligned_x(cuda):
+    M, N, K = 64, 64, 64
+    x, y, bits = _qm_inputs(cuda, M, N, K, 3)
+    buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device=cuda)
+    buf[1:] = x.reshape(-1)
+    xu = buf[1:].view(M, K)
+    assert xu.data_ptr() % 16 == 2
+    for b in (None, bits):
+        assert torch.equal(QM.qmatmul(xu, y, bits=b), QM.qmatmul(x, y, bits=b))
+
+
+@pytest.mark.parametrize("bits_value", [None, 0, 0xFFFF, 0x8000])
+def test_qmatmul_kernel_edge_lanes_bitwise(cuda, bits_value):
+    big = float(torch.finfo(torch.bfloat16).max)
+    inf = float("inf")
+    rows = [[inf], [-inf], [float("nan")], [inf, -inf], [big, 2.0 ** 110],
+            [-big, -2.0 ** 110], [big, big], [big], [1.0, 2.0 ** -9], [0.0]]
+    x = torch.zeros((len(rows), 40))
+    for i, r in enumerate(rows):
+        x[i, :len(r)] = torch.tensor(r)
+    x = x.to(torch.bfloat16).to(cuda)
+    y = torch.ones((40, 24), dtype=torch.bfloat16, device=cuda)
+    bits = None if bits_value is None else torch.full((len(rows), 24), bits_value,
+                                                      dtype=torch.int32, device=cuda)
+    got = QM.qmatmul(x, y, bits=bits)
+    _same(got, QM.qmatmul_ref(x, y, bits=bits))
+    assert bool(torch.isposinf(got[6].float()).all())
+    assert bool(torch.isinf(got[4:6].float()).all()) == (bits_value == 0xFFFF)
+
+
+def test_qmatmul_k_accumulation_in_f32_on_the_card(cuda):
+    K = 1024
+    x = torch.full((128, K), 0.01, dtype=torch.bfloat16, device=cuda)
+    out = QM.qmatmul(x, x.T.contiguous()).float()
+    expect = K * float(torch.tensor(0.01, dtype=torch.bfloat16)) ** 2
+    assert abs(float(out[0, 0]) / expect - 1) < 0.01
+
+
+def test_qmatmul_op_on_the_card_is_the_kernel_on_the_generators_bits(cuda):
+    from repro_torch.core.formats import random_bits
+    from repro_torch.kernels import ops
+    x, y, _ = _qm_inputs(cuda, 129, 77, 200, 4)
+    before = QM.LAUNCHES
+    got = ops.qmatmul_op(x, y, torch.Generator(device=cuda).manual_seed(9), stochastic=True)
+    assert QM.LAUNCHES == before + 1
+    bits = random_bits((129, 77), generator=torch.Generator(device=cuda).manual_seed(9))
+    assert torch.equal(got, QM.qmatmul(x, y, bits=bits))
+    assert torch.equal(ops.qmatmul_op(x, y), QM.qmatmul(x, y))
+
+
+def test_qmatmul_rejects_what_the_kernel_cannot_take(cuda):
+    x, y, bits = _qm_inputs(cuda, 16, 24, 32, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        QM.qmatmul(x, y.T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        QM.qmatmul(x, y, bits=bits.T.contiguous().T)
+    with pytest.raises(ValueError, match="on cpu"):
+        QM.qmatmul(x, y.cpu())
+    with pytest.raises(ValueError, match="bf16"):
+        QM.qmatmul(x.half(), y.half())
