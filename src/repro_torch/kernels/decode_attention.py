@@ -14,18 +14,34 @@ scores ``q.k / sqrt(D)``, optional softcap tanh, the mask
 probabilities cast to ``p_dtype``, PV accumulated in f32, an unrounded f32
 output (the caller rounds once). A parked lane (``q_pos < 0``) gives zeros.
 
-What bounds it on an H100 is the bytes of K, V and ``k_pos`` it reads, not
-its flops. The kernel reads each K/V row once for the G query heads of its
-kv-head (one block per lane and kv-head) and skips the K/V rows of masked
-cells, so empty pool cells cost nothing; the score rows stay in shared
-memory. See the note at the top of the CUDA source.
+Each (lane, kv head) runs on a thread-block cluster of :data:`CLUSTER`
+blocks that meet through distributed shared memory. The cluster finds the
+lane's visible key range from the positions (the contiguous pool is a
+ring, so view index is not position) and splits it evenly, so keys outside
+it cost no loop trips; each thread stages its slice of its keys' K and V
+rows through its own ``cp.async`` ring in shared memory, reading each row
+once for the G query heads of the group and no bytes of masked rows; the
+blocks exchange the row's max and then its sum before any block rounds p.
+The probabilities are rounded to ``p_dtype`` only after the global
+normalisation, as the reference does: a flash-decoding merge of
+unnormalised partial sums would never round the normalised p, and so
+computes another function. Every sum runs in a fixed order, so repeated
+calls are bitwise equal. A block holds only its share of the score row,
+so views of up to :func:`max_keys` keys fit (35072 at G = 8, D = 128).
+
+By its bytes the kernel would be bound by HBM, far below the tensor cores'
+ridge; it does its arithmetic on CUDA cores, and on the card that
+arithmetic and the staging around it, not the bytes, set its pace
+(PERF.md). See the note at the top of the CUDA source.
 
 :func:`fused_decode_attention` and :func:`fused_paged_decode_attention`
 launch the kernel for CUDA tensors and raise if they cannot; only for CPU
 tensors do they run the plain PyTorch versions :func:`decode_attention_ref`
 and :func:`paged_decode_attention_ref`, which the tests and
-``chip_smoke.py`` hold the kernel against. Sharing the body makes the
-paged kernel on a pool bitwise equal to the contiguous kernel on the
+``chip_smoke.py`` hold the kernel against. The launch (grid, shared
+memory: :func:`smem_bytes`) depends only on the view length, G and D, and
+the body only on the key → row map, so
+the paged kernel on a pool is bitwise equal to the contiguous kernel on the
 gathered view ``pages[block_table]``.
 """
 from __future__ import annotations
@@ -38,14 +54,19 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "PAGED_LAUNCHES", "decode_attention_ref",
-           "fused_decode_attention", "paged_decode_attention_ref",
-           "fused_paged_decode_attention"]
+__all__ = ["LAUNCHES", "PAGED_LAUNCHES", "decode_attention_ref", "fused_decode_attention",
+           "paged_decode_attention_ref", "fused_paged_decode_attention", "smem_bytes",
+           "max_keys"]
 
 NEG_INF = -1e30
-THREADS = 1024         # kThreads in csrc/decode_attention.cu
-MAX_GROUP = 8          # kMaxGroup
-MAX_SMEM = 232448      # the 227 KB of shared memory a block may opt into
+# mirrors of the constants of csrc/decode_attention.cu
+THREADS = 256          # kThreads: threads per block
+CLUSTER = 8            # kCluster: blocks per (lane, kv head), one cluster
+MAX_GROUP = 8          # kRows: query heads per kv head, at most; the layouts' rows
+HEAD_DIMS = (32, 64, 128, 256)   # the D the kernel is built for
+STAT_WORDS = 4 + 2 * CLUSTER * MAX_GROUP + (THREADS // 32) * MAX_GROUP + MAX_GROUP   # kStatWords
+RING_BYTES = 65536     # kRingBytes: K or V bytes in flight per block
+MAX_SMEM = 232448      # kMaxSmem: the 227 KB of shared memory a block may opt into
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # Kernel launches made by fused_decode_attention and by
@@ -179,9 +200,34 @@ def _scalars(D, window, softcap, p_dtype, dtype):
             _DTYPES[dtype])
 
 
+def _fixed_bytes(G: int, D: int) -> int:
+    """Shared memory that does not grow with the view: the threads' K/V
+    staging rings (which later hold the warps' PV partials), the q rows and
+    the PV sums (f32), the stats words."""
+    ring = max(RING_BYTES, (THREADS // 32) * MAX_GROUP * D * 4)
+    return ring + 4 * (2 * G * D + STAT_WORDS)
+
+
+def smem_bytes(n_keys: int, G: int, D: int) -> int:
+    """Dynamic shared memory of one block for a view of ``n_keys`` keys
+    (``smem_bytes`` of ``csrc/decode_attention.cu``): beside
+    :func:`_fixed_bytes`, the block's share of the score row — ceil(n_keys
+    / CLUSTER) keys rounded up to 4, each with MAX_GROUP f32 scores and
+    its row index. It depends on the view length, G and D only, never on
+    the data or on the layout of the pool."""
+    share = (-(-n_keys // CLUSTER) + 3) // 4 * 4
+    return _fixed_bytes(G, D) + 4 * (MAX_GROUP + 1) * share
+
+
+def max_keys(G: int, D: int) -> int:
+    """The longest view the kernel takes at this G and D."""
+    share = (MAX_SMEM - _fixed_bytes(G, D)) // (4 * (MAX_GROUP + 1)) // 4 * 4
+    return CLUSTER * share
+
+
 def _check(q, q_pos, p_dtype, Hkv, n_keys, tensors):
     """Checks both kernels share: device, layout, dtypes, the group shape
-    and the shared memory the (G, n_keys) score rows need."""
+    and the shared memory a view of ``n_keys`` keys needs."""
     B, S, Hq, D = q.shape
     for name, t in {"q": q, "q_pos": q_pos, **tensors}.items():
         if t.device != q.device:
@@ -189,8 +235,6 @@ def _check(q, q_pos, p_dtype, Hkv, n_keys, tensors):
         if not t.is_contiguous() or (t.is_floating_point() and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous (and 16-byte aligned if "
                              "floating)")
-    if q.device.type != "cuda":
-        raise ValueError(f"decode attention runs on CUDA or CPU, not {q.device}")
     if S != 1 or q_pos.shape != (B,) or Hq % Hkv:
         raise ValueError(f"q {tuple(q.shape)} with q_pos {tuple(q_pos.shape)} and "
                          f"{Hkv} kv heads is not a single-token GQA decode")
@@ -198,17 +242,17 @@ def _check(q, q_pos, p_dtype, Hkv, n_keys, tensors):
         raise ValueError(f"q and p_dtype must be one of {list(_DTYPES)}, got "
                          f"{q.dtype} and {p_dtype}")
     G = Hq // Hkv
-    if G > MAX_GROUP or D % 32 or (2 * THREADS) % D:
+    if G > MAX_GROUP or D not in HEAD_DIMS:
         raise ValueError(f"the kernel takes G <= {MAX_GROUP} query heads per kv "
-                         f"head and D a multiple of 32 dividing {2 * THREADS}; "
-                         f"got G={G}, D={D}")
-    fixed = G * D + (2 * THREADS - D) * G          # q rows + PV partial sums
-    if 4 * (fixed + (G + 1) * n_keys) > MAX_SMEM:
+                         f"head and D in {HEAD_DIMS}; got G={G}, D={D}")
+    if smem_bytes(n_keys, G, D) > MAX_SMEM:
         raise ValueError(
-            f"{n_keys} keys per lane need {4 * (fixed + (G + 1) * n_keys)} bytes of "
-            f"shared memory for the (G={G}, keys) score rows, above the {MAX_SMEM} a "
-            f"block can use; the kernel holds full score rows (at most "
-            f"{(MAX_SMEM // 4 - fixed) // (G + 1)} keys here)")
+            f"{n_keys} keys per lane need {smem_bytes(n_keys, G, D)} bytes of shared "
+            f"memory per block (each of the {CLUSTER} blocks of a cluster holds its "
+            f"share of the (G={G}, keys) score rows), above the {MAX_SMEM} a block "
+            f"can use (at most {max_keys(G, D)} keys here)")
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention runs on CUDA or CPU, not {q.device}")
 
 
 def _launch(q, k_cache, v_cache, k_pos, q_pos, *, window, softcap, p_dtype):
