@@ -36,24 +36,31 @@ Phases, each printing its lines (a failed check exits non-zero):
 5. serve (main path of contiguous serving): full-width qwen2.5-3b (36
    layers, random weights from a seed) served by the continuous-batching
    engine with the fused decode kernel — 12 requests from the synthetic
-   stream; every request must finish, the kernel must have launched 36
-   times per serve-step call, and the tokens must equal the port's
-   ``generate`` (same kernel, batched to the engine's 8 rows) bit for bit;
+   stream, first with the eager step (timed, its tokens kept), then with
+   the engine's CUDA graphs (the first step of a width eager, every later
+   one a replay); every request must finish, the kernel must have
+   launched 36 times per serve step (the launches of the eager first step
+   plus 36 per replay, the count the graph took at capture), and the
+   tokens must equal the eager step's and the port's ``generate`` (same
+   kernel, batched to the engine's 8 rows) bit for bit;
 6. serve-paged (main path of paged serving): the same model served by
    the paged engine (8 slots, max_len 1024, pages of 16, 64 pages — below
    the 512 of byte parity, so it preempts — prefix cache on, fused paged
    kernel) on 16 requests whose prompts (32–256 tokens, 3 in 4 behind one
    128-token prefix) come from the synthetic stream; every request
-   finishes with the tokens of a contiguous fused engine on the same
-   stream, at least one preemption and one prefix hit, pool invariants at
-   drain and no live page after ``clear_prefix``, 36 paged-kernel launches
-   per serve step; then the same stream with ``prefill_chunk=32`` in fewer
-   steps, its tokens held to the chunk-1 run token for token or, where
-   they part, at the logit level (ROADMAP C10); then a profile of
+   finishes with the tokens and steps of the eager step and the tokens of
+   a contiguous fused engine on the same stream, at least one preemption
+   and one prefix hit, pool invariants at drain and no live page after
+   ``clear_prefix``, 36 paged-kernel launches per serve step; then the
+   same stream with ``prefill_chunk=32`` (graphs of widths 1 and 32) in
+   fewer steps, its tokens held to the chunk-1 run token for token or,
+   where they part, at the logit level (ROADMAP C10); then a profile of
    steady-state serve steps of each engine, contiguous and paged, with
-   the host wall time per step before, under and after the profiler and
-   the decode kernel's device time per step (the profiles come last: the
-   profiler may slow the launches of later work);
+   the host wall time per step before, under and after the profiler, the
+   device time and idle share per step, graph launches and the kernels
+   inside them, and the decode kernel's device time and launches per step
+   as the profiler counts them (the profiles come last: the profiler may
+   slow the launches of later work);
 7. update kernels: ``sr_cast`` (with ±inf, NaN and near-max lanes),
    ``fused_adamw`` and ``fused_sgd`` (nearest or SR × Kahan off or on)
    against their plain versions on one int32 bits tensor, at a ragged
@@ -64,28 +71,36 @@ Phases, each printing its lines (a failed check exits non-zero):
 8. qmatmul (main path of the kernel op layer): ``ops.qmatmul_op``,
    nearest and SR, at full-width qwen2.5-3b products — MLP gate/up and
    down and one KV projection at the train phase's 2 × 2048 rows, one
-   serve step's 8 lanes — and at odd shapes that take every edge path
-   (N or K not a multiple of 8, x at a 2-byte offset); ``qmatmul``
-   launched once per op call; each output ``torch.equal`` to ``qmatmul``
-   on the generator's bits, within 1 bf16 ulp plus the f32 accumulation
-   bound of the plain version on at most 0.5% of the outputs, and within
-   that bound of the exact (f64) product; ±inf, NaN, overflow and
-   near-max lanes ``torch.equal`` to the plain version (bits 0xFFFF carry
-   bf16 max into inf); 1024 products of 0.01² within 1%; the plain
-   version's f32 product without TF32; device time at the two MLP shapes
-   and the 8-row shape, nearest and SR, beside the bound, the plain
-   version's time and ``torch.matmul``'s (nearest: no single call rounds
-   by SR; the port never calls it); then ``sr_cast_op``,
-   ``adamw_update_op`` and ``sgd_update_op`` once each at a ragged n,
-   ``torch.equal`` to the plain version on the generator's bits and to
-   themselves under a re-seeded generator;
+   serve step's 8 lanes (all on the ``wgmma`` path) — and at odd shapes
+   that take the ``mma.sync`` path and its scalar loads (N or K not a
+   multiple of 8, x at a 2-byte offset); ``qmatmul`` launched once per op
+   call; each output ``torch.equal`` to ``qmatmul`` on the generator's
+   bits, within 1 bf16 ulp plus the f32 accumulation bound of the plain
+   version on at most 0.5% of the outputs, and within that bound of the
+   exact (f64) product; ±inf, NaN, overflow and near-max lanes
+   ``torch.equal`` to the plain version (bits 0xFFFF carry bf16 max into
+   inf); 1024 products of 0.01² within 1%; the plain version's f32
+   product without TF32; each shape's path (the Python plan ≡ the
+   library's); rows bitwise equal at 1, 8, 256 and 4096 rows (gate/up,
+   down) and at 1, 8 and 129 rows (N = 77); device time at every shape,
+   nearest, and SR at the model's shapes, beside TFLOP/s, the bound, the
+   ``mma.sync`` kernel's time on the same inputs, the plain version's and
+   ``torch.matmul``'s (nearest: no single call rounds by SR; the port
+   never calls it); then ``sr_cast_op``, ``adamw_update_op`` and
+   ``sgd_update_op`` once each at a ragged n, ``torch.equal`` to the
+   plain version on the generator's bits and to themselves under a
+   re-seeded generator;
 9. train (main path of training): full-width qwen2.5-3b trained through
    the launcher's own functions, ``--policy bf16_sr_kahan --fused-update
    --batch 2 --seq 2048``, 8 steps at lr 3e-3: every loss finite, the
    last below step 0's, ``fused_adamw`` launched once per parameter leaf
    per step; ms per step, tokens per second, the optimizer's ms per step
    (CUDA events) beside its bound, peak device memory; then one more step
-   under the profiler (device time, idle share, top kernels);
+   under the profiler (device time, idle share, top kernels, the f32 SIMT
+   GEMMs left: the logits backward's two, on the f32 cotangent); then
+   the products the reference takes as 16-bit dots with an f32 result, at
+   the train shapes, as upcast f32 GEMMs and on the tensor cores (CUDA
+   events), each held within the f32 accumulation bound, summed per step;
 10. update parity (main path of the non-fused optimizer and of fused
     SGD): from the trained state and one fresh gradient, one step of
     ``adamw`` against ``fused_adamw_optimizer`` and of ``sgd`` against
@@ -145,7 +160,9 @@ QMATMUL_SHAPES = {
     "odd, K=77": (129, 200, 77),           # x takes the scalar path
     "odd, x unaligned": (64, 64, 64),      # x at a 2-byte offset: scalar path
 }
-QMATMUL_TIMED = ("mlp gate/up", "mlp down", "serve 8 lanes")
+QMATMUL_MODEL = ("mlp gate/up", "mlp down", "kv proj", "serve 8 lanes")
+# row counts at which every row of a product must be the same bits
+QMATMUL_ROWS = (1, 8, 256, 4096)
 # kernel vs plain: at most 1 bf16 ulp plus the f32 accumulation bound on at
 # most this fraction of the outputs (tests/test_kernels.py::assert_bf16_close)
 QMATMUL_MAX_FRAC = 0.005
@@ -422,6 +439,27 @@ def phase_kernel(card: str) -> dict:
     return row
 
 
+def run_launches(eng, name: str, counted: int) -> int:
+    """Launches of kernel ``name`` that a serve run really made: its
+    wrapper's count over the run (each width's eager first step and its
+    capture) less the captures, plus each graph's replays times the
+    launches it holds."""
+    per = {w: g.kernels.get(name, 0) for w, g in eng.graphs.items()}
+    return counted - sum(per.values()) + sum(g.replays * per[w] for w, g in eng.graphs.items())
+
+
+def width_steps(eng, width: int) -> int:
+    """Serve steps of one token width: the eager first step, then replays."""
+    g = eng.graphs.get(width)
+    return 0 if g is None else 1 + g.replays
+
+
+def graph_summary(eng) -> str:
+    return "; ".join(f"width {w}: 1 eager step + {g.replays} graph replays, "
+                     f"{sum(g.kernels.values())} hand-written kernel launches per replay "
+                     f"{dict(g.kernels)}" for w, g in sorted(eng.graphs.items()))
+
+
 def serve_model():
     """Full-width qwen2.5-3b with random weights from seed 0, on the card,
     under ``bf16_standard``: what both serving phases serve."""
@@ -466,25 +504,45 @@ def phase_main_path(card: str, params, cfg, policy) -> int:
     stream = synthetic_stream(np.random.default_rng(0), 12, rate=1.0,
                               prompt_lens=(16, 64), gen_lens=(16, 48),
                               vocab=cfg.vocab)
+    # the eager step (no graphs) first: its time, and its tokens
+    eager = engine()
+    eager._use_graphs = False
+    res = serve_stream(eager, stream)
+    eager_tokens = {c.rid: c.tokens for c in res.completions}
+    print(f"[main] eager step (no CUDA graph) on {card}: {res.calls} serve-step calls, "
+          f"{eager.stats.tokens_generated} tokens in {res.seconds:.3f}s -> "
+          f"{eager.stats.tokens_generated / res.seconds:.1f} tok/s, "
+          f"{1e3 * res.seconds / res.calls:.2f} ms per serve step")
+    del eager
     eng = engine()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     DA.LAUNCHES = 0
     res = serve_stream(eng, stream)
-    launches = DA.LAUNCHES
+    launches = run_launches(eng, "decode_attention", DA.LAUNCHES)
     st = eng.stats
     check(st.finished == len(stream) == len(res.completions),
           f"{st.finished}/{len(stream)} requests finished")
+    check(set(eng.graphs) == {1} and width_steps(eng, 1) == res.calls,
+          f"serve steps {res.calls}, graphs {eng.graphs}")
+    check(eng.graphs[1].kernels == {"decode_attention": cfg.n_layers},
+          f"the step's graph holds {eng.graphs[1].kernels}")
     check(launches == cfg.n_layers * res.calls,
           f"kernel launches {launches} != {cfg.n_layers} x {res.calls} serve-step calls")
     check(all(c.tokens.size == gen for c, (_, _, gen) in zip(
         sorted(res.completions, key=lambda c: c.rid), stream)),
           "a request stopped short of its max_new_tokens")
+    for c in res.completions:
+        check(np.array_equal(c.tokens, eager_tokens[c.rid]),
+              f"rid {c.rid}: graph {c.tokens.tolist()} != eager step "
+              f"{eager_tokens[c.rid].tolist()}")
     print(f"[main] on {card}: {len(stream)} requests, {st.steps} engine steps, "
           f"{res.calls} serve-step calls, {st.tokens_generated} tokens in "
           f"{res.seconds:.3f}s -> {st.tokens_generated / res.seconds:.1f} tok/s, "
           f"{1e3 * res.seconds / res.calls:.2f} ms per serve step, "
-          f"{launches} kernel launches ({launches // res.calls} per step)")
+          f"{launches} kernel launches ({launches // res.calls} per step); "
+          f"{graph_summary(eng)}; tokens == the eager step's for all "
+          f"{len(res.completions)} requests")
 
     # the reference: lock-step generate through the same kernel, each batch
     # padded with dummy prompts to the engine's row count (cuBLAS picks its
@@ -714,13 +772,6 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
         return Engine(params, cfg, policy, n_slots=n_slots, max_len=PAGED_MAX_LEN,
                       fused_decode=True, device="cuda", **kw)
 
-    def counted(eng):
-        """Count the engine's single-token serve-step calls."""
-        calls = []
-        fn = eng._fns[1]
-        eng._fns[1] = lambda *a, **kw: calls.append(1) or fn(*a, **kw)
-        return calls
-
     def report(tag, eng, res):
         st = eng.stats
         print(f"[serve-paged] {tag} on {card}: {st.finished}/{len(stream)} finished, "
@@ -729,7 +780,8 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
               f"{1e3 * res.seconds / res.calls:.2f} ms per serve step; pool "
               f"{eng.pool.nbytes() / 2**20:.1f} MiB, {st.kv_pages_live} pages live at drain, "
               f"{st.preemptions} preemptions, {st.prefix_hits} prefix hits, "
-              f"{st.prefix_tokens_reused} prefix tokens skipped")
+              f"{st.prefix_tokens_reused} prefix tokens skipped"
+              + (f"; {graph_summary(eng)}" if eng.graphs else ""))
 
     def tokens(res):
         check(len(res.completions) == len(stream), f"{len(res.completions)} completions")
@@ -743,17 +795,29 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
     warm.submit(np.arange(4, dtype=np.int32), 2)
     warm.run()
     del warm
+    eager = engine(**paged_kw)
+    eager._use_graphs = False
+    res = serve_stream(eager, stream)
+    report("paged, eager step (no CUDA graph)", eager, res)
+    eager_tok = tokens(res)
+    eager_steps = eager.stats.steps
+    del eager
     eng = engine(**paged_kw)
-    single = counted(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     DA.PAGED_LAUNCHES = 0
     res = serve_stream(eng, stream)
-    launches = DA.PAGED_LAUNCHES
+    launches = run_launches(eng, "paged_decode_attention", DA.PAGED_LAUNCHES)
     report(f"paged (page {PAGE}, {PAGED_N_PAGES} pages, prefix cache, chunk 1)", eng, res)
     paged_tok = tokens(res)
     st = eng.stats
-    check(launches == cfg.n_layers * len(single) == cfg.n_layers * res.calls,
+    check(st.steps == eager_steps, f"{st.steps} steps, the eager step took {eager_steps}")
+    for rid in paged_tok:
+        check(np.array_equal(paged_tok[rid], eager_tok[rid]),
+              f"rid {rid}: graph {paged_tok[rid].tolist()} != eager {eager_tok[rid].tolist()}")
+    check(set(eng.graphs) == {1} and width_steps(eng, 1) == res.calls,
+          f"serve steps {res.calls}, graphs {eng.graphs}")
+    check(launches == cfg.n_layers * res.calls,
           f"paged kernel launches {launches} != {cfg.n_layers} x {res.calls} serve steps")
     check(st.preemptions >= 1, "the paged run never preempted")
     check(st.prefix_hits >= 1, "the paged run had no prefix hit")
@@ -766,15 +830,17 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
     eng.pool.check_invariants()
     print(f"[serve-paged] pool invariants hold at drain; {cached} index-held pages, none "
           f"live after clear_prefix; {launches} paged kernel launches ({cfg.n_layers} per "
-          f"serve step); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB on {card}")
+          f"serve step); graph tokens and steps == the eager step's for all "
+          f"{len(paged_tok)} requests; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     del eng
 
     contiguous = engine()
     DA.LAUNCHES = 0
     res = serve_stream(contiguous, stream)
     report("contiguous reference (max_len 1024, chunk 1)", contiguous, res)
-    check(DA.LAUNCHES == cfg.n_layers * res.calls, "contiguous reference launches")
+    check(run_launches(contiguous, "decode_attention", DA.LAUNCHES) == cfg.n_layers * res.calls,
+          "contiguous reference launches")
     want = tokens(res)
     for rid in want:
         check(np.array_equal(paged_tok[rid], want[rid]),
@@ -783,11 +849,14 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
     del contiguous
 
     chunked = engine(prefill_chunk=32, **paged_kw)
-    single = counted(chunked)
     DA.PAGED_LAUNCHES = 0
     res = serve_stream(chunked, stream)
     report("paged + chunked prefill 32", chunked, res)
-    check(DA.PAGED_LAUNCHES == cfg.n_layers * len(single), "chunked run paged launches")
+    check(set(chunked.graphs) == {1, 32}
+          and width_steps(chunked, 1) + width_steps(chunked, 32) == res.calls,
+          f"chunked run: {res.calls} serve steps, graphs {chunked.graphs}")
+    check(run_launches(chunked, "paged_decode_attention", DA.PAGED_LAUNCHES)
+          == cfg.n_layers * width_steps(chunked, 1), "chunked run paged launches")
     check(chunked.stats.steps < st.steps,
           f"chunked prefill took {chunked.stats.steps} steps, chunk 1 took {st.steps}")
     got = tokens(res)
@@ -880,18 +949,27 @@ def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     kernels = [e for e in avgs if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    n_kernels = sum(e.count for e in kernels if not e.key.startswith(("Memcpy", "Memset")))
     device_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
                                                       "cudaLaunchKernelExC")) / steps
+    graph_launches = sum(e.count for e in avgs if e.key.startswith("cudaGraphLaunch")) / steps
     print(f"[profile] {tag} on {card}: steady-state host wall per serve step {before_ms:.2f} "
           f"ms before the profiler, {host_ms:.2f} ms under it, {after_ms:.2f} ms after it; "
           f"{device_ms:.2f} ms device kernel time per step (device idle "
-          f"{max(0.0, 1 - device_ms / host_ms):.1%} under the profiler), {launches:.0f} "
-          f"kernel launches per step")
+          f"{max(0.0, 1 - device_ms / host_ms):.1%} under the profiler, "
+          f"{max(0.0, 1 - device_ms / before_ms):.1%} of the wall before it); "
+          f"{graph_launches:.0f} graph launches per step holding "
+          f"{n_kernels / steps:.0f} kernels; {launches:.0f} kernel "
+          f"launches per step outside graphs")
     decode = [e for e in kernels if "decode_attention_kernel" in e.key]
+    per_step = sum(e.count for e in decode) / steps
     print(f"[profile] {tag} on {card}: decode attention kernel "
           f"{sum(dev_us(e) for e in decode) / 1e3 / steps:.3f} ms device time per step, "
-          f"{sum(e.count for e in decode) / steps:.0f} launches per step")
+          f"{per_step:.0f} launches per step (the profiler's count; the graph holds "
+          f"{sum(eng.graphs[1].kernels.values())})")
+    check(per_step == sum(eng.graphs[1].kernels.values()) == cfg.n_layers,
+          f"the profiler counts {per_step} decode kernels per step")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:7.3f} ms/step  {e.count / steps:6.0f} "
               f"calls/step  {e.key[:90]}")
@@ -1142,30 +1220,65 @@ def phase_qmatmul(card: str) -> tuple[dict, int]:
     print(f"[qmatmul] K accumulation: {K} products of 0.01^2 give {float(out[0, 0]):.6g} "
           f"(exact {expect:.6g}; within 1%)")
 
+    # the path each shape takes, as the Python plan says and as the library does
+    for name, (x, y) in inputs.items():
+        for sr in (False, True):
+            bits = torch.empty((x.shape[0], y.shape[1]), dtype=torch.int32,
+                               device="cuda") if sr else None
+            check(QM.plan(x, y, bits).path == QM.kernel_path(x, y, bits),
+                  f"{name}: plan {QM.plan(x, y, bits)} != the library's path")
+    print("[qmatmul] paths: " + "; ".join(f"{n} {QM.plan(x, y).path}"
+                                           for n, (x, y) in inputs.items()))
+
+    # rows do not depend on the row count M (bitwise), on both paths
+    for name, Ms in (("mlp gate/up", QMATMUL_ROWS), ("mlp down", QMATMUL_ROWS),
+                     ("odd, N=77", (1, 8, 129))):
+        x, y = inputs[name]
+        M_full = max(Ms)
+        xs = x if x.shape[0] == M_full else torch.randn(
+            (M_full, x.shape[1]), generator=_gen(7), device="cuda").to(torch.bfloat16)
+        for sr in (False, True):
+            bits = random_bits((M_full, y.shape[1]), generator=_gen(8)) if sr else None
+            full = QM.qmatmul(xs, y, bits=bits)
+            for M in Ms:
+                got = QM.qmatmul(xs[:M], y, bits=None if bits is None else bits[:M])
+                check(torch.equal(got, full[:M]), f"{name}: rows at M={M} != rows at "
+                      f"M={M_full} ({'SR' if sr else 'nearest'})")
+        print(f"[qmatmul] {name} ({QM.plan(xs, y).path}): rows bitwise equal at M in {Ms}, "
+              f"nearest and SR")
+    torch.cuda.empty_cache()
+
     row = None
-    for name in QMATMUL_TIMED:
-        (M, N, K), (x, y) = QMATMUL_SHAPES[name], inputs[name]
+    for name, (M, N, K) in QMATMUL_SHAPES.items():
+        x, y = inputs[name]
         n_in = (M * K + K * N) * 2 + M * N * 4
         copies = [(x, y, random_bits((M, N), generator=_gen(1)))]
         copies += [tuple(t.clone() for t in copies[0]) for _ in range(-(-100 * 2**20 // n_in) - 1)]
+        if x.data_ptr() % 16:     # keep the unaligned case unaligned in every copy
+            copies = [(x,) + c[1:] for c in copies]
         library_ms = time_ms([lambda c=c: torch.matmul(c[0], c[1]) for c in copies])
-        for sr in (False, True):
+        flop = 2 * M * N * K
+        for sr in (False, True) if name in QMATMUL_MODEL else (False,):
             args = [(c[0], c[1], c[2] if sr else None) for c in copies]
             ms = time_ms([lambda a=a: QM.qmatmul(a[0], a[1], bits=a[2]) for a in args])
+            sync_ms = time_ms([lambda a=a: QM._launch(a[0], a[1], a[2],
+                                                      entry="repro_qmatmul_sync")
+                               for a in args])
             plain_ms = time_ms([lambda a=a: QM.qmatmul_ref(a[0], a[1], bits=a[2])
                                 for a in args], calls=16)
             nbytes = (M * K + K * N + M * N) * 2 + (M * N * 4 if sr else 0)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * N * K / BF16_FLOP_PER_S
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flop / BF16_FLOP_PER_S
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            tflops = 2 * M * N * K / ms / 1e9
             lib = "nearest; no single call rounds by SR" if sr else "nearest"
             print(f"[qmatmul] {name} ({M}x{K} @ {K}x{N}) {'SR' if sr else 'nearest'} on "
-                  f"{card}: kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s), bound {bound_ms:.4f} "
-                  f"ms ({bound_by}; {bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, "
-                  f"torch.matmul {library_ms:.4f} ms ({lib}) (device time, {len(copies)} "
-                  f"input copies rotated)")
-            if name == QMATMUL_TIMED[0] and not sr:
+                  f"{card}: {QM.plan(x, y).path} kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} "
+                  f"TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / ms:.1%} of "
+                  f"it), the mma.sync kernel {sync_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.matmul {library_ms:.4f} ms ({flop / library_ms / 1e9:.1f} TFLOP/s, "
+                  f"{lib}; kernel / torch.matmul {ms / library_ms:.2f}) (device time, "
+                  f"{len(copies)} input copies rotated)")
+            if name == "mlp gate/up" and not sr:
                 row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": library_ms}
         del copies, args
@@ -1313,7 +1426,71 @@ def phase_train_profile(run, state, card: str):
           f"{max(0.0, 1 - device_ms / host_ms):.1%}), {n_kernels} kernels")
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"[profile-train]   {dev_us(e) / 1e3:8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    simt = [e for e in kernels if any(t in e.key for t in ("ffma", "sgemm", "f32f32_f32f32"))]
+    print(f"[profile-train] f32 SIMT GEMM kernels (cuBLAS ffma/sgemm): "
+          f"{sum(e.count for e in simt)} calls, {sum(dev_us(e) for e in simt) / 1e3:.2f} ms "
+          f"(the logits backward's two GEMMs take the f32 cotangent): "
+          + "; ".join(f"{e.count} x {e.key[:60]}" for e in simt))
+    check(sum(e.count for e in simt) == 2, "a product of 16-bit operands with an f32 "
+          "result ran as an f32 SIMT GEMM (only the logits backward's two may)")
     return state
+
+
+def phase_f32_products(cfg, emb, card: str):
+    """The products whose f32 result the reference asks of 16-bit operands
+    (ROADMAP C12), at the train phase's shapes: device time per call of
+    the upcast f32 GEMM the port ran before and of the tensor-core GEMM
+    with an f32 result (``f32_product``) it runs now, and both summed over
+    one train step (36 layers: flash attention's chunks forward, again
+    under remat, and backward; the logits forward)."""
+    import torch
+    from repro_torch.core.qarith import f32_product
+    Bt, S, H, Dh, C = 2, 2048, cfg.n_heads, cfg.head_dim, 1024
+    g = _gen(11)
+
+    def bhsd(s):          # (B,S,H,D) storage viewed as (B,H,S,D), as flash attention holds it
+        return torch.randn((Bt, s, H, Dh), generator=g, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    def wide(r, c):       # a (B,H,r,c) bf16 tensor (p, ds)
+        return torch.randn((Bt, H, r, c), generator=g, device="cuda").to(torch.bfloat16)
+
+    q, kc, vc, dout = bhsd(S), bhsd(C), bhsd(C), bhsd(S)
+    p = wide(S, C)
+    # (name, a, b, calls per layer per step)
+    products = [("scores q @ k^T", q, kc.transpose(-1, -2), 6),
+                ("p @ v", p, vc, 4),
+                ("dv = p^T @ dout", p.transpose(-1, -2), dout, 2),
+                ("dp = dout @ v^T", dout, vc.transpose(-1, -2), 2),
+                ("dq = ds @ k", p, kc, 2),
+                ("dk = ds^T @ q", p.transpose(-1, -2), q, 2)]
+    total_before = total_after = 0.0
+    for name, a, b, calls in products:
+        before = event_ms(lambda: torch.matmul(a.float(), b.float()))
+        after = event_ms(lambda: f32_product(a, b))
+        check(torch.allclose(f32_product(a, b), torch.matmul(a.float(), b.float()),
+                             rtol=0, atol=float(a.shape[-1] * 2.0 ** -23 * (
+                                 a.float().abs() @ b.float().abs()).max())),
+              f"{name}: the tensor-core product is off the f32 product")
+        n = calls * cfg.n_layers
+        total_before += n * before
+        total_after += n * after
+        print(f"[f32-products] {name} {tuple(a.shape)} @ {tuple(b.shape)} on {card}: upcast "
+              f"f32 GEMM {before:.4f} ms, tensor cores with an f32 result {after:.4f} ms; "
+              f"{n} calls per train step")
+    del q, kc, vc, dout, p
+    h = torch.randn((Bt * S, cfg.d_model), generator=g, device="cuda").to(torch.bfloat16)
+    before = event_ms(lambda: torch.matmul(h.float(), emb.T.float()), reps=3)
+    after = event_ms(lambda: f32_product(h, emb.T), reps=3)
+    total_before += before
+    total_after += after
+    print(f"[f32-products] logits {tuple(h.shape)} @ {tuple(emb.T.shape)} on {card}: upcast "
+          f"f32 GEMM {before:.3f} ms, tensor cores with an f32 result {after:.3f} ms; once "
+          f"per train step (its backward's two GEMMs take the f32 cotangent and stay f32)")
+    print(f"[f32-products] per train step on {card}: {total_before:.1f} ms as upcast f32 GEMMs, "
+          f"{total_after:.1f} ms on the tensor cores (device time, CUDA events)")
+    del h
+    torch.cuda.empty_cache()
 
 
 def phase_parity(run, state, card: str) -> dict:
@@ -1449,6 +1626,7 @@ def main():
     phase_update_ops()
     run, state, launches["fused_adamw"] = phase_train(card)
     state = phase_train_profile(run, state, card)
+    phase_f32_products(run.cfg, state.params["embed"]["embedding"], card)
     parity = phase_parity(run, state, card)
     launches["sr_cast"], launches["fused_sgd"] = parity["sr_cast"], parity["fused_sgd"]
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s on {card}")

@@ -16,6 +16,8 @@ functions; their modules (with each kernel's ``LAUNCHES`` count) are
 ``sys.modules["repro_torch.kernels.<name>"]``, e.g. through
 ``importlib.import_module``.
 """
+import sys
+
 from repro_torch.kernels import dispatch, ops, ref
 from repro_torch.kernels.decode_attention import fused_decode_attention
 from repro_torch.kernels.fused_adamw import fused_adamw
@@ -25,3 +27,13 @@ from repro_torch.kernels.sr_cast import sr_cast
 
 __all__ = ["dispatch", "ops", "ref", "fused_adamw", "fused_decode_attention",
            "fused_sgd", "qmatmul", "sr_cast"]
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel name (beside the
+    reference's exports, so not in ``__all__``)."""
+    mod = {name: sys.modules[f"{__name__}.{name}"] for name in
+           ("decode_attention", "fused_adamw", "fused_sgd", "qmatmul", "sr_cast")}
+    counts = {name: m.LAUNCHES for name, m in mod.items()}
+    counts["paged_decode_attention"] = mod["decode_attention"].PAGED_LAUNCHES
+    return counts

@@ -3,12 +3,19 @@ bf16 — nearest, or stochastic from caller bits (the paper's Table-1 unit).
 
 Replaces the Pallas kernel ``repro/kernels/qmatmul.py:22``
 (``qmatmul_kernel``) and its wrapper ``:46`` (``qmatmul``) with a CUDA
-kernel written for Hopper, ``csrc/qmatmul.cu``: ``mma.sync`` tensor-core
-tiles, the f32 accumulators in registers across the whole K loop, each
-32-deep K tile's dot added with one rounded f32 add (as the TPU kernel adds
-each K tile's dot into its VMEM accumulator), then one rounding per output.
-Operations bound it at the training shapes, bytes at the 8-row serving
-shape (see the note atop the CUDA source).
+kernel written for Hopper, ``csrc/qmatmul.cu``, the f32 accumulators in
+registers across the whole K loop and each K stage's dot added with one
+rounded f32 add (as the TPU kernel adds each K tile's dot into its VMEM
+accumulator), then one rounding per output. Two paths (:func:`plan`):
+``"wgmma"`` — a persistent grid, TMA loads into an mbarrier ring, one
+producer warp and two consumer warpgroups running ``wgmma`` from shared
+memory, promotion every 128 of K — for every shape TMA can describe (K and
+N multiples of 8, x, y and bits 16-byte aligned), and
+``"mma.sync"`` (``mma.sync`` tiles from a ``cp.async`` ring, promotion every
+32 of K) for the rest. The path and every tile choice depend on N, K and
+alignment only, never on M, so a row's result is the same bits for every
+row count. Operations bound it at the training shapes, bytes at the 8-row
+serving shape (see the note atop the CUDA source).
 
 The TPU wrapper's block sizes ``bm/bn/bk`` are the TPU's tiling, not part of
 the function, so :func:`qmatmul` has none. Unlike the TPU kernel it takes
@@ -26,6 +33,7 @@ outputs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -33,9 +41,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sr_cast import sr_to_bf16
 
-__all__ = ["LAUNCHES", "qmatmul", "qmatmul_ref"]
+__all__ = ["LAUNCHES", "Plan", "plan", "qmatmul", "qmatmul_ref"]
 
-MAX_M = 65535 * 128        # grid rows (blockIdx.y) x the kernel's 128-row tile
+MAX_M = 65535 * 128        # grid rows (blockIdx.y) x the mma.sync path's 128-row tile
+MAX_NK = 2**31 - 1         # N and K are int32 inside the kernels
 
 # Kernel launches made by qmatmul (incremented per launch).
 LAUNCHES = 0
@@ -48,6 +57,25 @@ def qmatmul_ref(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None =
     nearest cast). ``repro/kernels/ref.py::qmatmul_ref``."""
     acc = x.to(torch.bfloat16).float() @ y.to(torch.bfloat16).float()
     return acc.to(torch.bfloat16) if bits is None else sr_to_bf16(acc, bits)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``csrc/qmatmul.cu`` computes a product: its path, output tile
+    (rows x columns) and the K depth of each promotion into the f32
+    accumulator."""
+    path: str              # "wgmma" or "mma.sync"
+    tile: tuple[int, int]
+    promote: int
+
+
+def plan(x: torch.Tensor, y: torch.Tensor, bits: torch.Tensor | None = None) -> Plan:
+    """The kernel's choice for these operands (``choose_path`` in the CUDA
+    source): a function of N, K and the base alignments only, never of M."""
+    K, N = y.shape
+    wgmma = (K > 0 and K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0
+             and y.data_ptr() % 16 == 0 and (bits is None or bits.data_ptr() % 16 == 0))
+    return Plan("wgmma", (128, 128), 128) if wgmma else Plan("mma.sync", (128, 128), 32)
 
 
 def qmatmul(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = None
@@ -83,26 +111,47 @@ def _check(x, y, bits):
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("qmatmul").repro_qmatmul
+def _kernel(entry: str = "repro_qmatmul"):
+    fn = getattr(_build.load("qmatmul"), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     return fn
 
 
-def _launch(x, y, bits):
+@functools.cache
+def _path_fn():
+    fn = _build.load("qmatmul").repro_qmatmul_path
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+    return fn
+
+
+def kernel_path(x: torch.Tensor, y: torch.Tensor, bits: torch.Tensor | None = None) -> str:
+    """The path the built CUDA library takes for these operands (it builds
+    the library): what :func:`plan` must agree with."""
+    (M, K), N = x.shape, y.shape[1]
+    wgmma = _path_fn()(x.data_ptr(), y.data_ptr(), None if bits is None else bits.data_ptr(),
+                       M, N, K)
+    return "wgmma" if wgmma else "mma.sync"
+
+
+def _launch(x, y, bits, *, entry: str = "repro_qmatmul"):
+    """One launch. ``entry="repro_qmatmul_sync"`` forces the mma.sync path,
+    which ``chip_smoke.py`` times beside the chosen path on the same
+    inputs."""
     global LAUNCHES
     for name, t in {"x": x, "y": y, "bits": bits}.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (row-major)")
     (M, K), N = x.shape, y.shape[1]
-    if M > MAX_M:
-        raise ValueError(f"qmatmul takes at most {MAX_M} rows, got {M}")
+    if M > MAX_M or max(N, K) > MAX_NK:
+        raise ValueError(f"qmatmul takes at most {MAX_M} rows and N, K up to {MAX_NK}, "
+                         f"got {(M, N, K)}")
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        rc = _kernel()(x.data_ptr(), y.data_ptr(), None if bits is None else bits.data_ptr(),
+        rc = _kernel(entry)(x.data_ptr(), y.data_ptr(), None if bits is None else bits.data_ptr(),
                        out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")

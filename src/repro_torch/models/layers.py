@@ -17,7 +17,7 @@ import math
 
 import torch
 
-from repro_torch.core.qarith import QArith
+from repro_torch.core.qarith import QArith, f32_product, on_tensor_cores
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   fused_decode_attention,
@@ -37,22 +37,27 @@ def copy_page_rows(pages, dst, src, pdim: int = 0):
     remaps that block to a private page and the serve step copies the row
     here — K rows, never the whole pool. All sources are read before any
     destination is written, as in the reference. ``dst``/``src`` are (K,)
-    integer tensors holding exactly the real copies (the reference pads a
-    static K with out-of-range rows it drops; PyTorch runs eagerly, so the
-    port passes no padding). ``pdim`` is the page-row dim: 0 for a bare
-    paged leaf, 1 under the stacked layer dim.
+    integer tensors of a static width, as the reference's: entries with
+    ``dst`` ≥ the number of rows R are padding. The reference's scatter
+    drops them; a torch scatter would fault on them, so they are remapped
+    on the device (no host sync) to a self-copy of the null row R−1, which
+    no real copy writes. ``pdim`` is the page-row dim: 0 for a bare paged
+    leaf, 1 under the stacked layer dim.
 
     Applies identically to ``k_pages``/``v_pages`` *and* ``pos_pages``:
     the private copy must carry the source positions, or the copied KV
     cells would mask away as empty.
     """
-    dst, src = dst.long(), src.long()
+    if pdim not in (0, 1):
+        raise ValueError(f"page dim {pdim}: pools carry pages at dim 0 or 1")
+    rows = pages.shape[pdim]
+    real = dst < rows
+    dst = torch.where(real, dst, rows - 1).long()
+    src = torch.where(real, src, rows - 1).long()
     if pdim == 0:
         pages[dst] = pages[src]
-    elif pdim == 1:
-        pages[:, dst] = pages[:, src]
     else:
-        raise ValueError(f"page dim {pdim}: pools carry pages at dim 0 or 1")
+        pages[:, dst] = pages[:, src]
     return pages
 
 
@@ -149,21 +154,22 @@ def _expand_kv(k, n_heads: int):
     return torch.repeat_interleave(k, n_heads // Hkv, dim=2)
 
 
-def _f32_product(a, b):
-    """``a @ b`` with an f32 result: compute-dtype operands upcast (exact)
-    and summed in f32 — the reference's ``preferred_element_type=f32``."""
-    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
-
-
 def _scores(q, kc, q_pos, k_pos, *, causal, window, softcap):
-    """Masked f32 scores (B,H,Sq,C) of f32 q (B,H,Sq,D) against a chunk kc
-    (B,H,C,D), and the softcap's tanh term. Divisors are tensors: CUDA
-    divides by a Python scalar through its reciprocal."""
+    """Masked f32 scores (B,H,Sq,C) of q (B,H,Sq,D) against a chunk kc
+    (B,H,C,D), both in the compute dtype, and the softcap's tanh term.
+    The product has an f32 result: one tensor-core GEMM for 16-bit
+    operands on CUDA (:func:`f32_product`), else kc upcast before the
+    transpose and an f32 product. Divisors are tensors: CUDA divides by a
+    Python scalar through its reciprocal."""
     D = q.shape[-1]
-    s = torch.matmul(q, kc.transpose(-1, -2)) / q.new_tensor(math.sqrt(D))
+    if on_tensor_cores(q, kc):
+        s = f32_product(q, kc.transpose(-1, -2))
+    else:
+        s = torch.matmul(q.to(torch.float32), kc.to(torch.float32).transpose(-1, -2))
+    s = s / s.new_tensor(math.sqrt(D))
     tanh_term = None
     if softcap:
-        tanh_term = torch.tanh(s / q.new_tensor(softcap))
+        tanh_term = torch.tanh(s / s.new_tensor(softcap))
         s = softcap * tanh_term
     ok = _mask(q_pos, k_pos, causal=causal, window=window)
     return torch.where(ok, s, NEG_INF), tanh_term
@@ -185,7 +191,7 @@ class _FlashCore(torch.autograd.Function):
         B, Sq, H, D = q.shape
         Sk = k.shape[1]
         kw = dict(causal=causal, window=window, softcap=softcap)
-        qh = q.transpose(1, 2).to(torch.float32)
+        qh = q.transpose(1, 2)
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)      # (B,H,Sk,D)
         q_pos = torch.arange(Sq, device=q.device)
         m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
@@ -194,12 +200,12 @@ class _FlashCore(torch.autograd.Function):
         for j in range(Sk // chunk):
             sl = slice(j * chunk, (j + 1) * chunk)
             k_pos = torch.arange(sl.start, sl.stop, device=q.device)
-            s, _ = _scores(qh, kh[:, :, sl].to(torch.float32), q_pos, k_pos, **kw)
+            s, _ = _scores(qh, kh[:, :, sl], q_pos, k_pos, **kw)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + _f32_product(p.to(dtype), vh[:, :, sl])
+            acc = acc * corr[..., None] + f32_product(p.to(dtype), vh[:, :, sl])
             m = m_new
         l_safe = torch.clamp(l, min=1e-30)
         out = (acc / l_safe[..., None]).to(dtype)
@@ -218,26 +224,25 @@ class _FlashCore(torch.autograd.Function):
         dout = dout.to(dtype)
         qh = q.transpose(1, 2)
         kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-        q32 = qh.to(torch.float32)
         q_pos = torch.arange(q.shape[1], device=q.device)
         # row term: D_i = Σ_d dout·out
         Drow = (dout.to(torch.float32) * out.to(torch.float32)).sum(dim=-1)
-        dq = torch.zeros(q32.shape, dtype=torch.float32, device=q.device)
+        dq = torch.zeros(qh.shape, dtype=torch.float32, device=q.device)
         dks, dvs = [], []
         for j in range(Sk // chunk):
             sl = slice(j * chunk, (j + 1) * chunk)
             k_pos = torch.arange(sl.start, sl.stop, device=q.device)
             kc = kh[:, :, sl]
-            s, tanh_term = _scores(q32, kc.to(torch.float32), q_pos, k_pos, **kw)
+            s, tanh_term = _scores(qh, kc, q_pos, k_pos, **kw)
             p = torch.exp(s - lse[..., None])                # (B,H,Sq,C)
-            dvs.append(_f32_product(p.to(dtype).transpose(-1, -2), dout).to(dtype))
-            dp = _f32_product(dout, vh[:, :, sl].transpose(-1, -2))
+            dvs.append(f32_product(p.to(dtype).transpose(-1, -2), dout).to(dtype))
+            dp = f32_product(dout, vh[:, :, sl].transpose(-1, -2))
             ds = p * (dp - Drow[..., None])
             if kw["softcap"]:
                 ds = ds * (1.0 - torch.square(tanh_term))
             ds = (ds / ds.new_tensor(math.sqrt(D))).to(dtype)
-            dq = dq + _f32_product(ds, kc)
-            dks.append(_f32_product(ds.transpose(-1, -2), qh).to(dtype))
+            dq = dq + f32_product(ds, kc)
+            dks.append(f32_product(ds.transpose(-1, -2), qh).to(dtype))
         dk = torch.cat(dks, dim=2).transpose(1, 2)
         dv = torch.cat(dvs, dim=2).transpose(1, 2)
         return dq.transpose(1, 2).to(q.dtype), dk, dv, None, None, None, None
@@ -289,9 +294,17 @@ def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
         return qa.cast(out)
     Hq, D = q.shape[2:]
     Hkv = k_cache.shape[2]
-    qg = q.reshape(B, S, Hkv, Hq // Hkv, D).to(torch.float32)
-    s = torch.einsum("bshgd,bkhd->bshgk", qg, k_cache.to(torch.float32)) \
-        * (1.0 / math.sqrt(D))
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, D)
+    tensor_cores = on_tensor_cores(q, k_cache)
+    if tensor_cores:    # per (lane, kv head): (S·G, D) @ (D, Sc), an f32 result
+        s = f32_product(qg.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, D),
+                        k_cache.permute(0, 2, 3, 1))
+        s = s.reshape(B, Hkv, S, G, -1).permute(0, 2, 1, 3, 4)
+    else:
+        s = torch.einsum("bshgd,bkhd->bshgk", qg.to(torch.float32),
+                         k_cache.to(torch.float32))
+    s = s * (1.0 / math.sqrt(D))
     if softcap:
         s = softcap * torch.tanh(s / softcap)
     qp = q_pos.reshape(B, S)[:, :, None, None, None]
@@ -301,9 +314,14 @@ def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
         ok &= qp - kp < window
     s = torch.where(ok, s, NEG_INF)
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bshgk,bkhd->bshgd", p.to(qa.dtype).to(torch.float32),
-                       v_cache.to(torch.float32))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(qa.dtype)
+    if tensor_cores:    # per (lane, kv head): (S·G, Sc) @ (Sc, D), an f32 result
+        out = f32_product(p.permute(0, 2, 1, 3, 4).reshape(B, Hkv, S * G, -1),
+                          v_cache.permute(0, 2, 1, 3))
+        out = out.reshape(B, Hkv, S, G, D).permute(0, 2, 1, 3, 4)
+    else:
+        out = torch.einsum("bshgk,bkhd->bshgd", p.to(torch.float32),
+                           v_cache.to(torch.float32))
     return qa.cast(out.reshape(B, S, Hq, D))
 
 

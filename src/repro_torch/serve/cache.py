@@ -96,7 +96,8 @@ def copy_pages(cache: PyTree, dst: torch.Tensor, src: torch.Tensor) -> PyTree:
     the model's KV writes, so a lane whose first write lands in a block it
     shares writes into a private copy that already carries the shared
     content, positions included. ``dst``/``src`` are (K,) integer tensors
-    of exactly the real copies (:func:`repro_torch.models.layers
+    of a static width; entries with ``dst`` ≥ the pool's row count are
+    padding and copy nothing (:func:`repro_torch.models.layers
     .copy_page_rows`). Contiguous leaves pass through."""
     for leaf, pdim in _attention_leaves(cache):
         if isinstance(leaf, dict):

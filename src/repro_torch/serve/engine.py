@@ -26,7 +26,12 @@ KV memory is allocated page by page as sequences grow. Every
    identically), and a lane that still cannot be covered parks;
 3. **decode** — one call of :func:`repro_torch.train.step.make_serve_step`
    (width 1, or the prefill chunk when some lane feeds more than one
-   token) advances every scheduled lane;
+   token) advances every scheduled lane. Its numpy inputs are staged
+   into static buffers of that width (one packed host-to-device copy);
+   on CUDA the step is a CUDA graph, captured lazily per width the way
+   the reference compiles one executable per width, and replayed; the
+   read of the sampled tokens is the step's only sync. On the CPU the
+   step function runs eagerly on the same buffers;
 4. **evict** — lanes whose token completed a sequence (EOS or
    ``max_new_tokens``) release their slot (and one reference per mapped
    page), which the next iteration's admission refills mid-flight. Lanes
@@ -56,11 +61,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.kernels import launch_counts
 from repro_torch.serve.cache import CachePool
 from repro_torch.serve.paged import PagedCachePool
 from repro_torch.train.step import make_serve_step
 
-__all__ = ["Request", "Completion", "EngineStats", "Engine"]
+__all__ = ["Request", "Completion", "EngineStats", "Engine", "GraphStats"]
 
 
 def _not_full_context_attention(cfg, max_len: int) -> Optional[str]:
@@ -156,6 +162,52 @@ class EngineStats:
 
 
 @dataclasses.dataclass
+class GraphStats:
+    """One token width's CUDA graph: how often it was replayed, and the
+    hand-written kernels it launches per replay (their wrappers' counts
+    while it was captured)."""
+    replays: int = 0
+    kernels: dict = dataclasses.field(default_factory=dict)
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(np.bool_): torch.bool}
+
+
+class _Staging:
+    """Static input buffers of one step width on the engine's device, and
+    a host mirror they are loaded from in one copy.
+
+    Every input lives in one byte buffer (each at a 4-byte-aligned
+    offset, viewed as its dtype and shape), so a step's inputs cross to
+    the card in one asynchronous copy from pinned memory; the step's
+    output read, after the copy and the step on the same stream, is what
+    waits for it."""
+
+    def __init__(self, arrays: dict, device: torch.device):
+        spans, total = {}, 0
+        for name, a in arrays.items():
+            spans[name] = slice(total, total + a.nbytes)
+            total += -(-a.nbytes // 4) * 4
+        pin = device.type == "cuda"
+        self.host = torch.empty((total,), dtype=torch.uint8, pin_memory=pin)
+        self.device = torch.empty((total,), dtype=torch.uint8, device=device)
+        host = self.host.numpy()
+        self._mirror = {n: host[spans[n]].view(a.dtype).reshape(a.shape)
+                        for n, a in arrays.items()}
+        self.inputs = {n: self.device[spans[n]].view(_TORCH_DTYPES[a.dtype]).reshape(a.shape)
+                       for n, a in arrays.items()}
+
+    def load(self, arrays: dict) -> dict:
+        """Copy ``arrays`` into the static buffers; returns them."""
+        if arrays.keys() != self._mirror.keys():
+            raise ValueError(f"step inputs {sorted(arrays)} != {sorted(self._mirror)}")
+        for name, a in arrays.items():
+            self._mirror[name][...] = a
+        self.device.copy_(self.host, non_blocking=True)
+        return self.inputs
+
+
+@dataclasses.dataclass
 class _Slot:
     rid: int
     prompt: np.ndarray
@@ -232,10 +284,20 @@ class Engine:
         else:
             self.pool = CachePool(params, cfg, policy, n_slots=n_slots,
                                   max_len=max_len)
-        # one step function per token width: 1, and the chunk when C > 1
+        # one step function per token width: 1, and the chunk when C > 1;
+        # on CUDA each is captured as a graph at its first step
         self._fns = {w: make_serve_step(cfg, policy, fused_decode=fused_decode,
                                         paged=self.paged, chunk=w)
                      for w in {1, self.prefill_chunk}}
+        self._staging: dict[int, _Staging] = {}
+        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, torch.Tensor]] = {}
+        self._use_graphs = self.device.type == "cuda"
+        self.graphs: dict[int, GraphStats] = {}
+        # static width of the per-step copy-on-write list (the reference's
+        # _max_copies): each scheduled lane's write range spans at most
+        # (C-1)//P + 2 blocks
+        self._max_copies = (n_slots * ((self.prefill_chunk - 1) // self.pool.page_size + 2)
+                            if paged else 0)
         self._slots: list[Optional[_Slot]] = [None] * n_slots
         self._pending: deque[Request] = deque()
         self._next_rid = 0
@@ -415,24 +477,23 @@ class Engine:
             else:
                 token[i, 0] = s.last_token
         # 4. one serve step for every lane
-        dev = self.device
-
-        def put(a):
-            return torch.from_numpy(a).to(dev)
-
-        kw = {}
+        args = {"token": token, "pos": pos, "active": active, "reset": reset}
         if self.paged:
-            kw["block_table"] = put(self.pool.block_table.copy())
-            kw["page_reset"] = put(page_reset)
-            if copies:
-                dst, src = np.asarray(copies, np.int32).T
-                kw["copy_dst"], kw["copy_src"] = put(dst.copy()), put(src.copy())
+            args["block_table"] = self.pool.block_table
+            args["page_reset"] = page_reset
+            # static-width CoW row lists; padding dst = n_rows copies nothing
+            K = self._max_copies
+            if len(copies) > K:
+                raise RuntimeError(f"{len(copies)} copy-on-write rows exceed the "
+                                   f"static width {K}")
+            dst = np.full((K,), self.pool.n_rows, np.int32)
+            src = np.zeros((K,), np.int32)
+            for j, (d, sp) in enumerate(copies):
+                dst[j], src[j] = d, sp
+            args["copy_dst"], args["copy_src"] = dst, src
         if width > 1:
-            kw["n_tok"] = put(feeds)
-        out, self.pool.cache = self._fns[width](
-            self.params, self.pool.cache, put(token), put(pos), put(active),
-            put(reset), **kw)
-        sampled = out.reshape(n).cpu().numpy()
+            args["n_tok"] = feeds
+        sampled = self._serve(width, args).reshape(n)
         # 5. account, publish prefixes, evict
         self.stats.steps += 1
         self.stats.slot_steps += n
@@ -473,6 +534,48 @@ class Engine:
         self.stats.kv_pages_live = (self.pool.n_live_pages
                                     if self.paged else 0)
         return done
+
+    def _serve(self, width: int, args: dict) -> np.ndarray:
+        """Run the width's serve step on ``args`` (numpy); its tokens.
+
+        The inputs are staged into the width's static buffers. On the
+        CPU the step function runs on them eagerly. On CUDA the width's
+        first step runs eagerly on a side stream (it loads the kernels'
+        libraries and sets their attributes, cuBLAS's handles and
+        workspaces) and its tokens are that step's; the step is then
+        captured as a graph over the same buffers, the params and the KV
+        pool (both updated in place, never reallocated), and every later
+        step of the width is a replay. A failed capture raises."""
+        staging = self._staging.get(width)
+        if staging is None:
+            staging = self._staging[width] = _Staging(args, self.device)
+        inputs = staging.load(args)
+        fn = self._fns[width]
+        if not self._use_graphs:
+            with torch.no_grad():
+                out, self.pool.cache = fn(self.params, self.pool.cache, **inputs)
+            return out.cpu().numpy()
+        with torch.cuda.device(self.device):
+            graph = self._graphs.get(width)
+            if graph is not None:
+                graph[0].replay()
+                self.graphs[width].replays += 1
+                return graph[1].cpu().numpy()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.no_grad(), torch.cuda.stream(side):
+                out, _ = fn(self.params, self.pool.cache, **inputs)
+                tokens = out.cpu().numpy()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = launch_counts()
+            with torch.no_grad(), torch.cuda.graph(graph):
+                captured, _ = fn(self.params, self.pool.cache, **inputs)
+            after = launch_counts()
+        self._graphs[width] = (graph, captured)
+        self.graphs[width] = GraphStats(kernels={
+            k: after[k] - before[k] for k in after if after[k] != before[k]})
+        return tokens
 
     def run(self, max_steps: Optional[int] = None) -> list[Completion]:
         """Step until drained (or ``max_steps`` *further* iterations —

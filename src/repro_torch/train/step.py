@@ -166,9 +166,10 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     ``block_table`` ((N, n_blocks) i32, logical block → physical page row)
     and ``page_reset`` ((R,) bool, physical pages recycled *this* step —
     their position rows go to −1, the page analogue of ``reset``), and
-    optionally ``copy_dst``/``copy_src`` ((K,) i32, exactly the real
-    copy-on-write row copies, applied after ``page_reset`` and before the
-    model's KV writes; see :func:`repro_torch.serve.cache.copy_pages`).
+    optionally ``copy_dst``/``copy_src`` ((K,) i32, the copy-on-write row
+    copies at a static width K, padded with ``dst`` = R rows that copy
+    nothing, applied after ``page_reset`` and before the model's KV
+    writes; see :func:`repro_torch.serve.cache.copy_pages`).
 
     ``chunk=C > 1`` is the *chunked-prefill* variant: ``token`` is (N, C)
     and ``n_tok`` ((N,) i32) says how many of each lane's C tokens are real

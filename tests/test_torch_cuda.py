@@ -43,6 +43,9 @@ SC = importlib.import_module("repro_torch.kernels.sr_cast")
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
+# a chunked-prefill token may part from the chunk-1 token only where the
+# chunk-1 model prefers its own token by at most this in logit (ROADMAP C10)
+CHUNK_LOGIT_TOL = 0.125
 # on long views an output is ~sqrt(e/keys), about TOL itself, so there the
 # kernel is also held, lane by lane, to REL_RMS of the RMS of the plain
 # version's output in that lane
@@ -96,6 +99,19 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         DA.fused_decode_attention(q.half(), k.half(), v.half(), k_pos, q_pos)
 
 
+def _run_launches(eng, name, counted):
+    """Launches of kernel ``name`` a serve run really made: the wrapper's
+    count (each width's eager first step and its capture) less the
+    captures, plus each graph's replays times the launches it holds."""
+    per = {w: g.kernels.get(name, 0) for w, g in eng.graphs.items()}
+    return counted - sum(per.values()) + sum(g.replays * per[w] for w, g in eng.graphs.items())
+
+
+def _width_steps(eng, width):
+    g = eng.graphs.get(width)
+    return 0 if g is None else 1 + g.replays
+
+
 def test_engine_matches_generate_on_the_card(cuda):
     policy = get_policy("bf16_standard")
     cfg = R.get_config("qwen2.5-3b").reduced()
@@ -106,7 +122,10 @@ def test_engine_matches_generate_on_the_card(cuda):
         eng.submit(rng.integers(0, cfg.vocab, size=s), g)
     before = DA.LAUNCHES
     done = eng.run()
-    assert DA.LAUNCHES - before == cfg.n_layers * eng.stats.steps
+    assert eng.graphs[1].replays == eng.stats.steps - 1       # the first step is eager
+    assert eng.graphs[1].kernels == {"decode_attention": cfg.n_layers}
+    assert _run_launches(eng, "decode_attention", DA.LAUNCHES - before) \
+        == cfg.n_layers * eng.stats.steps
     groups = {}
     for c in done:
         groups.setdefault((c.prompt.size, c.tokens.size), []).append(c)
@@ -236,12 +255,10 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
         eng = Engine(params, cfg, policy, n_slots=3, max_len=48, fused_decode=True, **kw)
         for p, g in stream:
             eng.submit(p, g)
-        ones = []
-        fn = eng._fns[1]
-        eng._fns[1] = lambda *a, **k: ones.append(1) or fn(*a, **k)
         before = DA.PAGED_LAUNCHES
         done = eng.run()
-        return {c.rid: c.tokens for c in done}, eng, DA.PAGED_LAUNCHES - before, len(ones)
+        launched = _run_launches(eng, "paged_decode_attention", DA.PAGED_LAUNCHES - before)
+        return {c.rid: c.tokens for c in done}, eng, launched, _width_steps(eng, 1)
 
     for chunk in (1, 4):
         want, _, launched, _ = run(prefill_chunk=chunk)
@@ -252,6 +269,140 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
         assert launched == cfg.n_layers * single
         for rid in want:
             assert np.array_equal(got[rid], want[rid]), (chunk, rid)
+
+
+ENGINES = {"contiguous": {},
+           "paged, prefix hits and preemption": dict(paged=True, page_size=4, n_pages=20),
+           "paged, chunk 4": dict(paged=True, page_size=4, n_pages=20, prefill_chunk=4),
+           "paged, chunk 32": dict(paged=True, page_size=4, n_pages=40, prefill_chunk=32)}
+
+
+@pytest.mark.parametrize("config", sorted(ENGINES))
+def test_graph_engine_equals_the_eager_step(cuda, config):
+    """The serve step as CUDA graphs (one per token width, captured at its
+    first step, replayed after) ≡ the same engine stepping eagerly: the
+    same schedule, the same tokens bit for bit."""
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    rng = np.random.default_rng(1)
+    common = rng.integers(0, cfg.vocab, 16)
+    stream = [(np.concatenate([common, rng.integers(0, cfg.vocab, s)]), g)
+              for s, g in zip((5, 9, 14, 3, 11, 7), (8, 6, 12, 9, 5, 10))]
+
+    def run(graphs):
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=48, fused_decode=True,
+                     **ENGINES[config])
+        eng._use_graphs = graphs
+        for p, g in stream:
+            eng.submit(p, g)
+        done = eng.run()
+        return {c.rid: c.tokens for c in done}, eng
+
+    got, eng = run(True)
+    want, eager = run(False)
+    assert eager.graphs == {} and eng.stats == eager.stats
+    widths = {1, ENGINES[config].get("prefill_chunk", 1)}
+    assert set(eng.graphs) == widths
+    assert sum(_width_steps(eng, w) for w in widths) == eng.stats.steps
+    assert all(g.replays > 0 for g in eng.graphs.values())
+    for rid in want:
+        assert np.array_equal(got[rid], want[rid]), rid
+
+
+def test_chunk_32_graph_engine_is_held_to_chunk_1_at_the_logit_level(cuda):
+    """ROADMAP C10 on the card: the paged graph engine with
+    ``prefill_chunk=32`` gives the chunk-1 engine's tokens, or parts from
+    them only where the chunk-1 model's top choice beats the chunked
+    run's token by at most CHUNK_LOGIT_TOL (the teacher-forced logits at
+    the engine's lane count reproduce the chunk-1 tokens first)."""
+    from repro_torch.core.qarith import QArith
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    rng = np.random.default_rng(2)
+    stream = [(rng.integers(0, cfg.vocab, s).astype(np.int32), g)
+              for s, g in zip((40, 25, 33, 12, 37, 21), (6, 9, 5, 8, 7, 6))]
+    n_slots, max_len = 3, 64
+
+    def run(chunk):
+        eng = Engine(params, cfg, policy, n_slots=n_slots, max_len=max_len,
+                     fused_decode=True, paged=True, page_size=4, n_pages=64,
+                     prefill_chunk=chunk)
+        for p, g in stream:
+            eng.submit(p, g)
+        done = {c.rid: c.tokens for c in eng.run()}
+        assert set(eng.graphs) == {1, chunk}
+        return done
+
+    want, got = run(1), run(32)
+    qa = QArith(policy)
+    for rid, (prompt, _) in enumerate(stream):
+        if np.array_equal(got[rid], want[rid]):
+            continue
+        t = int(np.argmax(got[rid] != want[rid]))
+        seq = np.concatenate([prompt, want[rid][:t]])
+        rows = np.zeros((n_slots, seq.size), np.int32)
+        rows[0] = seq
+        tokens = torch.from_numpy(rows).to(cuda)
+        cache = R.make_cache(params, cfg, batch_size=n_slots, max_len=max_len,
+                             dtype=policy.compute_dtype)
+        with dispatch.fused_decode():
+            for i in range(seq.size):
+                pos = torch.full((n_slots,), i, dtype=torch.int32, device=cuda)
+                logits, cache = R.decode(qa, params, cfg, tokens[:, i:i + 1], cache, pos)
+                if i >= prompt.size - 1:
+                    assert int(logits[0, 0].argmax()) == int(want[rid][i - prompt.size + 1])
+        last = logits[0, 0].float()
+        margin = float(last[int(want[rid][t])] - last[int(got[rid][t])])
+        assert 0 <= margin <= CHUNK_LOGIT_TOL, (rid, t, margin)
+
+
+# ---------------------------------------------------------------------------
+# products with an f32 result (ROADMAP C12)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("sa,sb,transpose_b", [
+    ((64, 256), (256, 96), False),                       # 2-D
+    ((2, 24, 128), (300, 128), True),                    # rows folded; b = embedding.T
+    ((2, 4, 80, 128), (2, 4, 128, 96), False),           # attention's chunks
+    ((2, 4, 80, 128), (2, 4, 96, 128), True)])           # q @ k^T
+def test_tensor_core_products_match_the_upcast_products(cuda, sa, sb, transpose_b, dtype):
+    from repro_torch.core.qarith import f32_product, on_tensor_cores
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn(sa, generator=g, device=cuda).to(dtype)
+    b = torch.randn(sb, generator=g, device=cuda).to(dtype)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    assert on_tensor_cores(a, b)
+    got = f32_product(a, b)
+    want = torch.matmul(a.float(), b.float())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    bound = a.shape[-1] * 2.0 ** -23 * torch.matmul(a.double().abs(), b.double().abs())
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+def test_logits_gradients_are_the_upcast_products_on_the_card(cuda):
+    """matmul_f32out's tensor-core forward is within the f32 bound of the
+    upcast product, and its backward (f32 cotangent, f32 GEMMs) gives the
+    upcast product's gradients bit for bit."""
+    from repro_torch.core.qarith import QArith
+    qa = QArith(get_policy("bf16_standard"))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    h0 = torch.randn((2, 48, 256), generator=g, device=cuda).to(torch.bfloat16)
+    e0 = torch.randn((1000, 256), generator=g, device=cuda).to(torch.bfloat16)
+    cot = torch.randn((2, 48, 1000), generator=g, device=cuda)
+    outs, grads = [], []
+    for fn in (qa.matmul_f32out, lambda a, b: torch.matmul(a.float(), b.float())):
+        h, e = h0.clone().requires_grad_(True), e0.clone().requires_grad_(True)
+        out = fn(h, e.T)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, (h, e), cot))
+    bound = 256 * 2.0 ** -23 * (h0.double().abs() @ e0.double().abs().T)
+    assert bool(((outs[0].double() - outs[1].double()).abs() <= bound).all())
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -412,14 +563,19 @@ def test_qmatmul_kernel_matches_plain(cuda, mnk, stochastic):
 
 
 def test_qmatmul_kernel_takes_an_unaligned_x(cuda):
+    """An x that TMA cannot describe takes the mma.sync path, which meets
+    the criterion too (the aligned x takes the wgmma path; the two promote
+    at different K depths, so they need not agree bit for bit)."""
     M, N, K = 64, 64, 64
     x, y, bits = _qm_inputs(cuda, M, N, K, 3)
     buf = torch.empty(M * K + 1, dtype=torch.bfloat16, device=cuda)
     buf[1:] = x.reshape(-1)
     xu = buf[1:].view(M, K)
     assert xu.data_ptr() % 16 == 2
+    assert QM.kernel_path(xu, y) == QM.plan(xu, y).path == "mma.sync"
+    assert QM.kernel_path(x, y) == QM.plan(x, y).path == "wgmma"
     for b in (None, bits):
-        assert torch.equal(QM.qmatmul(xu, y, bits=b), QM.qmatmul(x, y, bits=b))
+        _qm_close(QM.qmatmul(xu, y, bits=b), x, y, b)
 
 
 @pytest.mark.parametrize("bits_value", [None, 0, 0xFFFF, 0x8000])
@@ -471,3 +627,36 @@ def test_qmatmul_rejects_what_the_kernel_cannot_take(cuda):
         QM.qmatmul(x, y.cpu())
     with pytest.raises(ValueError, match="bf16"):
         QM.qmatmul(x.half(), y.half())
+
+
+@pytest.mark.parametrize("nk", [(11008, 2048), (2048, 11008)])     # MLP gate/up, down
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_qmatmul_rows_do_not_depend_on_the_row_count(cuda, nk, stochastic):
+    """Row i of (M,K) @ (K,N) is the same bits for M in {1, 8, 256, 4096}
+    at the model's products (the path and tiles depend on N, K and
+    alignment only), and the full product meets the criterion."""
+    N, K = nk
+    x, y, bits = _qm_inputs(cuda, 4096, N, K, 17)
+    bits = bits if stochastic else None
+    full = QM.qmatmul(x, y, bits=bits)
+    for M in (1, 8, 256):
+        got = QM.qmatmul(x[:M], y, bits=None if bits is None else bits[:M])
+        assert torch.equal(got, full[:M]), M
+    _qm_close(full[:256], x[:256], y, None if bits is None else bits[:256])
+
+
+@pytest.mark.parametrize("mnk,offset,path", [((64, 64, 64), 0, "wgmma"),
+                                             ((64, 64, 64), 1, "mma.sync"),
+                                             ((9, 77, 64), 0, "mma.sync"),
+                                             ((9, 64, 77), 0, "mma.sync"),
+                                             ((9, 64, 8), 0, "wgmma")])
+def test_qmatmul_plan_is_the_librarys_path(cuda, mnk, offset, path):
+    M, N, K = mnk
+    buf = torch.zeros(M * K + offset, dtype=torch.bfloat16, device=cuda)
+    x = buf[offset:].view(M, K)
+    y = torch.zeros((K, N), dtype=torch.bfloat16, device=cuda)
+    bits = torch.zeros(M * N + 2, dtype=torch.int32, device=cuda)
+    for b in (None, bits[:M * N].view(M, N), bits[2:].view(M, N)):   # the last 8 bytes off
+        assert QM.plan(x, y, b).path == QM.kernel_path(x, y, b)
+    assert QM.plan(x, y).path == path
+    assert QM.plan(x, y, bits[2:].view(M, N)).path == "mma.sync"

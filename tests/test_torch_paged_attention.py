@@ -15,8 +15,10 @@ Same numpy inputs (bf16-valued) through ``repro.*`` and ``repro_torch.*``:
 * the multi-token ``decode_attention`` against the reference's S>1 branch:
   within one bf16 ulp.
 * ``copy_page_rows``, ``reset_pages`` and ``copy_pages`` against the
-  reference's: bitwise (the reference pads its copy list with dropped
-  rows; the port takes exactly the real rows).
+  reference's: bitwise, on exact copy lists and on lists padded to a
+  static width with ``dst`` = R rows (the reference's scatter drops them;
+  the port remaps them to a self-copy of the null row), which must equal
+  the exact list's result, including a list that is all padding.
 * the paged ``attention_apply`` (projections, RoPE, the scatter through
   the block table, attention) against the reference's on the same
   weights: the pages it writes and its output agree within one bf16 ulp
@@ -220,6 +222,29 @@ def test_page_primitives_match_reference():
     d, s = np.asarray(real, np.int32).T
     got = TSC.copy_pages(t, torch.from_numpy(d.copy()), torch.from_numpy(s.copy()))
     _same(want, got)
+
+
+@pytest.mark.parametrize("real,pad", [([(2, 5), (6, 2), (0, 3)], 4), ([(4, 1)], 1),
+                                      ([], 3), ([], 1)])
+def test_padded_copy_list_equals_exact_list(real, pad):
+    """copy_pages on the static-width list (``pad`` rows of dst = R, src 0)
+    ≡ copy_pages on the exact list ≡ the reference on the padded list, on
+    k_pages, v_pages and pos_pages; an all-padding list changes nothing."""
+    n_rows = 9
+    dst = np.asarray([d for d, _ in real] + [n_rows] * pad, np.int32)
+    src = np.asarray([s for _, s in real] + [0] * pad, np.int32)
+    j, padded = _stacked_caches(1, n_rows=n_rows)
+    _, exact = _stacked_caches(1, n_rows=n_rows)
+    _, before = _stacked_caches(1, n_rows=n_rows)
+    got = TSC.copy_pages(padded, torch.from_numpy(dst), torch.from_numpy(src))
+    if real:
+        d, sp = np.asarray(real, np.int32).T
+        exact = TSC.copy_pages(exact, torch.from_numpy(d.copy()), torch.from_numpy(sp.copy()))
+    for name in TSC.PAGED_KEYS:
+        assert torch.equal(got["layers"]["b0"][name], exact["layers"]["b0"][name]), name
+        if not real:
+            assert torch.equal(got["layers"]["b0"][name], before["layers"]["b0"][name]), name
+    _same(JSC.copy_pages(j, jnp.asarray(dst), jnp.asarray(src)), got)
 
 
 @pytest.mark.parametrize("pdim", [0, 1])

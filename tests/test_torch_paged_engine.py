@@ -4,9 +4,10 @@
   the schedule does not depend on token values), step by step: token
   width, lane positions, ``active``/``reset`` masks, block tables,
   ``page_reset``, copy-on-write rows, chunk ``n_tok``, the prompt tokens
-  fed, and the final ``EngineStats`` and completion accounting. The
-  reference pads its copy list to a static width with dropped rows; the
-  port passes exactly the real rows, so the comparison drops the padding.
+  fed, and the final ``EngineStats`` and completion accounting. Both
+  pass the copy-on-write list at the reference's static width, padded
+  with ``dst`` = R rows, and the comparison holds it entry for entry,
+  padding included.
 * Tokens against the reference at the logit level, as
   tests/test_torch_serve.py does: both models are teacher-forced on the
   reference's streams, their logits agree within ``LOGIT_TOL`` (XLA:CPU
@@ -74,24 +75,19 @@ def models():
 
 
 def _recorder(eng, log):
-    """Wrap a step function of ``eng`` so that each call logs its inputs:
-    masks, positions, tables, copies (padding dropped), the token width
-    and the tokens of prefilling lanes."""
+    """Wrap a step function of ``eng`` so that each call logs a copy of
+    its inputs (the port's are static buffers that every step reloads):
+    masks, positions, tables, the copy-on-write list, the token width and
+    the tokens of prefilling lanes."""
     def wrap(fn):
         def step(params, cache, token, pos, active=None, reset=None, **kw):
-            tok = np.asarray(token)
-            rows = {k: np.asarray(v) for k, v in
+            tok = np.array(token)
+            rows = {k: np.array(v) for k, v in
                     dict(pos=pos, active=active, reset=reset, **kw).items() if v is not None}
             rows["width"] = tok.shape[1]
             rows["prefill_tokens"] = {
                 i: tok[i].tolist() for i, s in enumerate(eng._slots)
                 if s is not None and rows["active"][i] and s.fed < s.prompt.size}
-            dst, src = rows.pop("copy_dst", None), rows.pop("copy_src", None)
-            if dst is not None:
-                keep = dst < eng.pool.n_rows
-                copies = list(zip(dst[keep].tolist(), src[keep].tolist()))
-                if copies:
-                    rows["copies"] = copies
             log.append(rows)
             return fn(params, cache, token, pos, active, reset, **kw)
         return step
@@ -120,9 +116,19 @@ def _run_both(models, kw):
     return jeng, teng, jlog, tlog, jeng.run(), teng.run()
 
 
+_RUNS: dict = {}
+
+
+def _cached_run(models, config):
+    """``_run_both`` once per config for the tests that read its logs."""
+    if config not in _RUNS:
+        _RUNS[config] = _run_both(models, CONFIGS[config])
+    return _RUNS[config]
+
+
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_schedule_matches_reference_step_by_step(models, config):
-    jeng, teng, jlog, tlog, jdone, tdone = _run_both(models, CONFIGS[config])
+    jeng, teng, jlog, tlog, jdone, tdone = _cached_run(models, config)
     assert len(tlog) == len(jlog) == teng.stats.steps
     for step, (want, got) in enumerate(zip(jlog, tlog)):
         assert sorted(got) == sorted(want), (step, sorted(got), sorted(want))
@@ -133,13 +139,36 @@ def test_schedule_matches_reference_step_by_step(models, config):
                 assert got[name] == value, (step, name)
     assert dataclasses.asdict(teng.stats) == dataclasses.asdict(jeng.stats)
     assert teng.stats.preemptions >= 1 and teng.stats.prefix_hits >= 1
-    assert any("copies" in rows for rows in tlog)            # copy-on-write ran
+    n_rows = teng.pool.n_rows
+    assert all(rows["copy_dst"].shape == (teng._max_copies,) for rows in tlog)
+    assert any((rows["copy_dst"] < n_rows).any() for rows in tlog)     # copy-on-write ran
+    assert any((rows["copy_dst"] == n_rows).sum() > 1 for rows in tlog)  # padding passed
     acct = lambda c: (c.rid, c.slot, c.admitted_step, c.finished_step,  # noqa: E731
                       c.first_token_step, c.finish_reason, c.tokens.size)
     assert [acct(c) for c in tdone] == [acct(c) for c in jdone]
     teng.pool.check_invariants()
     _tokens_at_logit_level(models, {c.rid: c.tokens for c in jdone},
                            {c.rid: c.tokens for c in tdone})
+
+
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_copy_list_has_the_reference_static_width(models, config):
+    """Every paged step passes the copy-on-write list at the reference's
+    static width K = n_slots · ((prefill_chunk − 1) // page_size + 2): the
+    real rows first, then padding rows dst = R (the pool's row count),
+    src = 0 — entry for entry the JAX engine's list."""
+    jeng, teng, jlog, tlog, _, _ = _cached_run(models, config)
+    kw = CONFIGS[config]
+    K = N_SLOTS * ((kw.get("prefill_chunk", 1) - 1) // kw["page_size"] + 2)
+    assert teng._max_copies == jeng._max_copies == K
+    n_rows = teng.pool.n_rows
+    for want, got in zip(jlog, tlog):
+        dst, src = got["copy_dst"], got["copy_src"]
+        assert dst.shape == src.shape == (K,) and dst.dtype == src.dtype == np.int32
+        n_real = int((dst < n_rows).sum())
+        assert (dst[:n_real] < n_rows).all()
+        assert (dst[n_real:] == n_rows).all() and (src[n_real:] == 0).all()
+        assert np.array_equal(dst, want["copy_dst"]) and np.array_equal(src, want["copy_src"])
 
 
 def _tokens_at_logit_level(models, j_tok, t_tok):

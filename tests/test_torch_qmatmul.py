@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ref as JREF
 from repro.kernels.qmatmul import qmatmul as pallas_qmatmul
@@ -200,3 +201,33 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         assert torch.equal(got.view(torch.int16),
                            qmatmul_ref(_t(x), _t(y), bits=b).view(torch.int16))
     assert QM.LAUNCHES == before
+
+
+# The kernel's path and tiles are a function of N, K and the operands'
+# alignment only (``plan`` mirrors ``choose_path`` of csrc/qmatmul.cu; on
+# the card tests/test_torch_cuda.py holds the library to it): then row i of
+# (M,K) @ (K,N) is the same bits for every M, which chunked prefill needs
+# (ROADMAP C10).
+_BUF = torch.empty(4096 * 96 + 16, dtype=torch.bfloat16)
+_BITS = torch.empty(4096 * 96 + 8, dtype=torch.int32)
+
+
+@settings(max_examples=80, deadline=None)
+@given(N=st.integers(1, 96), K=st.integers(0, 96),
+       Ms=st.lists(st.integers(1, 4096), min_size=2, max_size=4),
+       x_off=st.integers(0, 8), y_off=st.integers(0, 8), bits_off=st.integers(0, 4),
+       sr=st.booleans())
+def test_plan_does_not_depend_on_the_row_count(N, K, Ms, x_off, y_off, bits_off, sr):
+    assert _BUF.data_ptr() % 16 == 0 and _BITS.data_ptr() % 16 == 0
+    y = _BUF[y_off:y_off + K * N].view(K, N)
+    plans = set()
+    for M in Ms:
+        x = _BUF[x_off:x_off + M * K].view(M, K)
+        bits = _BITS[bits_off:bits_off + M * N].view(M, N) if sr else None
+        plans.add(QM.plan(x, y, bits))
+    assert len(plans) == 1
+    (got,) = plans
+    aligned = x_off % 8 == 0 and y_off % 8 == 0 and (not sr or bits_off % 4 == 0)
+    tma = K > 0 and K % 8 == 0 and N % 8 == 0 and aligned
+    assert got.path == ("wgmma" if tma else "mma.sync")
+    assert got.tile == (128, 128) and got.promote <= 512     # the reference's K tile
