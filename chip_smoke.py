@@ -6,10 +6,10 @@
 Phases, each printing its lines (a failed check exits non-zero):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: the five CUDA sources (decode attention — contiguous and paged
+2. build: the seven CUDA sources (decode attention — contiguous and paged
    entry points — ``sr_cast``, ``fused_adamw``, ``fused_sgd``,
-   ``qmatmul``), built from this checkout with one ``nvcc`` per source at
-   once; nvcc time, registers and spills;
+   ``qmatmul``, ``philox``, ``row_mean_sq``), built from this checkout
+   with one ``nvcc`` per source at once; nvcc time, registers and spills;
 3. kernel: the decode kernel against its plain PyTorch version (atol =
    rtol = 1e-2 and, lane by lane, 1% of the RMS of its output) at the
    serving path's shapes (B=8 lanes, 16/2 heads, D=128, bf16, Sc 256 and
@@ -33,17 +33,31 @@ Phases, each printing its lines (a failed check exits non-zero):
    parked lanes exactly zero; its time beside its bound,
    the plain version's and ``scaled_dot_product_attention``'s on the
    pre-gathered view;
-5. serve (main path of contiguous serving): full-width qwen2.5-3b (36
+5. row probe (ROADMAP C10): each op of one full-width serve-step layer at
+   8 rows and at 256 rows, ``torch.equal`` on the leading 8 rows — the
+   row reduction ``row_mean_sq`` under RMSNorm, RoPE, silu·mul, the bias
+   and residual adds, ``qmatmul`` and the dense layer on the kernel route,
+   the decode and paged kernels with the rows of a 32-token chunk as
+   lanes (each row also ``torch.equal`` to a single-token call at its
+   position) — beside ``torch.mean``'s RMSNorm and cuBLAS's product,
+   reported only; ``row_mean_sq`` ``torch.equal`` to its plain version,
+   and its time;
+6. serve (main path of contiguous serving): full-width qwen2.5-3b (36
    layers, random weights from a seed) served by the continuous-batching
-   engine with the fused decode kernel — 12 requests from the synthetic
-   stream, first with the eager step (timed, its tokens kept), then with
-   the engine's CUDA graphs (the first step of a width eager, every later
-   one a replay); every request must finish, the kernel must have
-   launched 36 times per serve step (the launches of the eager first step
-   plus 36 per replay, the count the graph took at capture), and the
-   tokens must equal the eager step's and the port's ``generate`` (same
-   kernel, batched to the engine's 8 rows) bit for bit;
-6. serve-paged (main path of paged serving): the same model served by
+   engine with the serve step's kernels (decode attention, ``qmatmul``
+   for every dense product, ``row_mean_sq``) — 12 requests from the
+   synthetic stream, first with the eager step (timed, its tokens kept),
+   then with the engine's CUDA graphs (the first step of a width eager,
+   every later one a replay); every request must finish, the graph must
+   hold 36 decode, 252 ``qmatmul`` and 73 ``row_mean_sq`` launches and the
+   run must have made that many per serve step (the launches of the eager
+   first step plus the graph's per replay), and the tokens must equal the
+   eager step's and the port's ``generate`` (same kernels, batched to the
+   engine's 8 rows) bit for bit; then the same stream with
+   ``prefill_chunk=32`` (graphs of widths 1 and 32): tokens equal to the
+   chunk-1 run's on every request, 36 decode launches per step at both
+   widths, ms per step of each width;
+7. serve-paged (main path of paged serving): the same model served by
    the paged engine (8 slots, max_len 1024, pages of 16, 64 pages — below
    the 512 of byte parity, so it preempts — prefix cache on, fused paged
    kernel) on 16 requests whose prompts (32–256 tokens, 3 in 4 behind one
@@ -53,22 +67,30 @@ Phases, each printing its lines (a failed check exits non-zero):
    and one prefix hit, pool invariants at drain and no live page after
    ``clear_prefix``, 36 paged-kernel launches per serve step; then the
    same stream with ``prefill_chunk=32`` (graphs of widths 1 and 32) in
-   fewer steps, its tokens held to the chunk-1 run token for token or,
-   where they part, at the logit level (ROADMAP C10); then a profile of
-   steady-state serve steps of each engine, contiguous and paged, with
+   fewer steps, its tokens equal to the chunk-1 run's on every request,
+   36 paged launches per step at both widths, ms per step of each width;
+   then the chunk probe (ROADMAP C10): one 32-token chunk step against 32
+   single-token steps from an empty cache, 8 lanes, K, V and positions of
+   all 36 layers and the last-row logits ``torch.equal``; then a profile
+   of steady-state serve steps of each engine, contiguous and paged, with
    the host wall time per step before, under and after the profiler, the
    device time and idle share per step, graph launches and the kernels
-   inside them, and the decode kernel's device time and launches per step
-   as the profiler counts them (the profiles come last: the profiler may
-   slow the launches of later work);
-7. update kernels: ``sr_cast`` (with ±inf, NaN and near-max lanes),
-   ``fused_adamw`` and ``fused_sgd`` (nearest or SR × Kahan off or on)
-   against their plain versions on one int32 bits tensor, at a ragged
-   n = 1,000,003 and at the embedding leaf's 151936×2048 elements: every
-   output ``torch.equal``; device time at the embedding size beside the
-   bytes bound and the plain version's time (no single PyTorch call
-   computes these updates, so there is no library time);
-8. qmatmul (main path of the kernel op layer): ``ops.qmatmul_op``,
+   inside them, the decode kernel's and ``qmatmul``'s device time and
+   launches per step as the profiler counts them (the profiles come last:
+   the profiler may slow the launches of later work);
+8. update kernels: the Philox fill against its plain version, and
+   ``fused_adamw`` with in-kernel Philox bits against its plain version
+   on the same seed (SR × Kahan off or on), at a ragged n = 1,000,003
+   (also at an element offset of 3: the scalar head and a misaligned
+   Philox block) and at the embedding leaf's 151936×2048 elements;
+   ``sr_cast`` (with ±inf, NaN and near-max lanes), ``fused_adamw`` and
+   ``fused_sgd`` (nearest or SR × Kahan off or on) against their plain
+   versions on one int32 bits tensor: every output ``torch.equal``;
+   device time at the embedding size beside the bytes bound and the plain
+   version's time (no single PyTorch call computes these updates, so
+   there is no library time), and the time of ``fused_adamw``'s loads
+   alone and loads and stores alone, which says what bounds it;
+9. qmatmul (main path of the kernel op layer): ``ops.qmatmul_op``,
    nearest and SR, at full-width qwen2.5-3b products — MLP gate/up and
    down and one KV projection at the train phase's 2 × 2048 rows, one
    serve step's 8 lanes (all on the ``wgmma`` path) — and at odd shapes
@@ -90,7 +112,7 @@ Phases, each printing its lines (a failed check exits non-zero):
    ``sgd_update_op`` once each at a ragged n, ``torch.equal`` to the
    plain version on the generator's bits and to themselves under a
    re-seeded generator;
-9. train (main path of training): full-width qwen2.5-3b trained through
+10. train (main path of training): full-width qwen2.5-3b trained through
    the launcher's own functions, ``--policy bf16_sr_kahan --fused-update
    --batch 2 --seq 2048``, 8 steps at lr 3e-3: every loss finite, the
    last below step 0's, ``fused_adamw`` launched once per parameter leaf
@@ -101,12 +123,14 @@ Phases, each printing its lines (a failed check exits non-zero):
    the products the reference takes as 16-bit dots with an f32 result, at
    the train shapes, as upcast f32 GEMMs and on the tensor cores (CUDA
    events), each held within the f32 accumulation bound, summed per step;
-10. update parity (main path of the non-fused optimizer and of fused
-    SGD): from the trained state and one fresh gradient, one step of
-    ``adamw`` against ``fused_adamw_optimizer`` and of ``sgd`` against
-    ``fused_sgd_optimizer`` with the same per-leaf bits, leaf by leaf:
-    params, moments and Kahan buffers bitwise equal on every leaf, and
-    ``sr_cast`` launched by the non-fused path; then whether the card's
+11. update parity (main path of the non-fused optimizer, of fused SGD
+    and of the Philox fill): from the trained state and one fresh
+    gradient, one step of ``adamw`` against ``fused_adamw_optimizer`` and
+    of ``sgd`` against ``fused_sgd_optimizer`` with the same ``StepKey``
+    (the fill's bits against the bits fused AdamW draws itself), leaf by
+    leaf: params, moments and Kahan buffers bitwise equal on every leaf,
+    ``sr_cast`` launched by the non-fused path and ``philox`` once per leaf
+    by each optimizer but fused AdamW; then whether the card's
     embedding backward (``index_put_`` with accumulation, bf16) equals the
     CPU's bf16 scatter-add.
 
@@ -141,13 +165,11 @@ PAGE = 16                   # the paged engine's page size
 PAGED_MAX_LEN = 1024        # the paged engine's max_len: its views are 64 pages
 PAGED_N_PAGES = 64          # below byte parity (8 x 64 = 512), so the run preempts
 LONG_VIEW = 32768           # qwen2.5-3b's max_position_embeddings: the longest view timed
-# a chunked token may part from the chunk-1 token only where the chunk-1
-# model's logit for its own token exceeds the chunked token's by at most
-# this (the bf16 products of a chunk step run at 8*32 rows, ROADMAP C10)
-CHUNK_LOGIT_TOL = 0.125
-SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd", "qmatmul")
+CHUNK = 32                  # the chunked reruns' prefill chunk
+SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd", "qmatmul", "philox",
+           "row_mean_sq")
 KERNELS = ("decode_attention", "paged_decode_attention", "sr_cast", "fused_adamw",
-           "fused_sgd", "qmatmul")
+           "fused_sgd", "qmatmul", "philox", "row_mean_sq")
 # (M, N, K) of the qmatmul phase: full-width qwen2.5-3b products (d_model
 # 2048, d_ff 11008, 2 KV heads x 128) at the train phase's 2 x 2048 rows and
 # at one serve step's 8 lanes, then odd shapes that take every edge path
@@ -168,10 +190,14 @@ QMATMUL_ROWS = (1, 8, 256, 4096)
 QMATMUL_MAX_FRAC = 0.005
 EMBED_N = 151936 * 2048     # the embedding leaf of qwen2.5-3b
 # bytes per element each update kernel must move in its main-path variant
-# (SR + Kahan): every bf16 input read once, bits read once, outputs written
+# (SR + Kahan): every bf16 input read once, bits read once, outputs written;
+# fused AdamW draws its bits in the kernel (Philox) and reads none
 UPDATE_BYTES = {"sr_cast": 4 + 4 + 2,                       # x f32, bits; out bf16
-                "fused_adamw": 5 * 2 + 4 + 4 * 2,           # w m v g c, bits; w m v c
-                "fused_sgd": 4 * 2 + 4 + 3 * 2}             # w m g c, bits; w m c
+                "fused_adamw": 5 * 2 + 4 * 2,               # w m v g c; w m v c
+                "fused_sgd": 4 * 2 + 4 + 3 * 2,             # w m g c, bits; w m c
+                "philox": 4}                                # bits written
+# fused AdamW's probe variants (seeded SR + Kahan): bytes per element moved
+ADAMW_PROBE_BYTES = {"loads": 5 * 2, "loads+stores": 5 * 2 + 4 * 2}
 # hyperparameters of the update-kernel checks (f32-exact betas)
 HP_ADAMW = dict(lr=1e-3, b1=0.8984375, b2=0.99609375, eps=1e-8, wd=0.01,
                 c1=0.8984375, c2=0.99609375)
@@ -454,6 +480,43 @@ def width_steps(eng, width: int) -> int:
     return 0 if g is None else 1 + g.replays
 
 
+def step_times(eng) -> dict:
+    """Record the host wall of each serve-step call of ``eng`` by token
+    width (the call ends in the read of its tokens, a sync): {width:
+    [seconds, ...]}, the width's eager first step first. The wrapper holds
+    the engine weakly, so dropping the engine frees it (its pool, graphs
+    and the weights it holds) without waiting for the cycle collector."""
+    import weakref
+    times, ref, serve = {}, weakref.ref(eng), type(eng)._serve
+
+    def timed(width, args):
+        t0 = time.perf_counter()
+        out = serve(ref(), width, args)
+        times.setdefault(width, []).append(time.perf_counter() - t0)
+        return out
+    eng._serve = timed
+    return times
+
+
+def width_ms(times: dict) -> str:
+    """Mean ms per replayed step of each width (the eager first step and
+    the capture left out)."""
+    return ", ".join(f"width {w}: {1e3 * sum(t[1:]) / max(len(t) - 1, 1):.2f} ms per "
+                     f"replayed step over {len(t) - 1}" for w, t in sorted(times.items()))
+
+
+SERVE_KERNELS = {"qmatmul": 7, "row_mean_sq": 2}   # per layer; one more row_mean_sq: the final norm
+
+
+def step_kernels(cfg, decode: str) -> dict:
+    """The hand-written kernel launches of one serve step: the decode (or
+    paged) kernel once per layer, ``qmatmul`` for the seven products of a
+    layer (q, k, v, o, gate, up, down), ``row_mean_sq`` under each of its
+    two norms and the final one."""
+    return {decode: cfg.n_layers, "qmatmul": SERVE_KERNELS["qmatmul"] * cfg.n_layers,
+            "row_mean_sq": SERVE_KERNELS["row_mean_sq"] * cfg.n_layers + 1}
+
+
 def graph_summary(eng) -> str:
     return "; ".join(f"width {w}: 1 eager step + {g.replays} graph replays, "
                      f"{sum(g.kernels.values())} hand-written kernel launches per replay "
@@ -481,7 +544,143 @@ def serve_model():
     return params, cfg, policy
 
 
-def phase_main_path(card: str, params, cfg, policy) -> int:
+def _lanes_case(seed: int, rows: int):
+    """A 32-token chunk of 8 lanes at full width as the serve step holds it:
+    a contiguous cache of MAIN_SC cells per lane holding positions 0 ..
+    depth+31 (the chunk's own K/V written), chunk row i of lane b at
+    position depth_b + i; only the first ``rows`` chunk rows (all 256, or
+    lane 0's first 8) as queries."""
+    import torch
+    g = _gen(seed)
+    dev = torch.device("cuda")
+    q = torch.randn((8, CHUNK, HQ, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((8, MAIN_SC, HKV, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((8, MAIN_SC, HKV, D), generator=g, device=dev).to(torch.bfloat16)
+    depth = torch.tensor([0, 5, 17, 40, 77, 100, 150, 200], dtype=torch.int32, device=dev)
+    q_pos = depth[:, None] + torch.arange(CHUNK, dtype=torch.int32, device=dev)[None]
+    q_pos[7, 20:] = -1                                  # chunk padding: zeros
+    cells = torch.arange(MAIN_SC, dtype=torch.int32, device=dev)[None]
+    k_pos = torch.where(cells <= q_pos.amax(1, keepdim=True), cells, -1).contiguous()
+    if rows < 8 * CHUNK:
+        q, q_pos = q[:1, :rows], q_pos[:1, :rows]
+    return q.contiguous(), k, v, k_pos, q_pos.contiguous()
+
+
+def phase_row_probe(card: str, params, cfg, policy) -> dict:
+    """ROADMAP C10: every op of one serve-step layer on the kernel route at
+    8 rows and at 256 rows (a chunk-32 step of 8 lanes), torch.equal on the
+    leading 8 rows; ``torch.mean``'s RMSNorm and cuBLAS's product beside
+    them, reported only. ``row_mean_sq`` against its plain version and its
+    time."""
+    import torch
+    from repro_torch.core.qarith import QArith
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MO
+    from repro_torch.models import transformer as T
+    DA, QM, RM = (kernel_module(k) for k in ("decode_attention", "qmatmul", "row_mean_sq"))
+    qa = QArith(policy)
+    p = T._layer(params["layers"]["b0"], 0)
+    Mx, dm, dff = 8 * CHUNK, cfg.d_model, cfg.d_ff
+    g = _gen(20)
+
+    def bf(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+    x, y, gate, up = bf(Mx, dm), bf(Mx, dm), bf(Mx, dff, scale=3.0), bf(Mx, dff)
+    h = bf(Mx, dff)
+    pos = torch.arange(Mx, dtype=torch.int32, device="cuda")[None] * 3
+    qh = bf(1, Mx, HQ, D)
+    scale = p["ln1"]["scale"]
+    bias = p["mixer"]["wq"]["bias"]
+
+    def rows(fn, *args):
+        """fn on the leading 8 rows alone == fn on all rows, cut to 8."""
+        return torch.equal(fn(*(a[:8] for a in args)), fn(*args)[:8])
+
+    with dispatch.fused_decode():
+        checked = {
+            "rmsnorm (row_mean_sq)": rows(lambda t: L.norm_apply(qa, "rms", p["ln1"], t), x),
+            "rope": torch.equal(L.rope(qh[:, :8], pos[:, :8], cfg.rope_theta),
+                                L.rope(qh, pos, cfg.rope_theta)[:, :8]),
+            "silu * mul": rows(lambda a, b: qa.mul(qa.silu(a), b), gate, up),
+            "bias add": rows(lambda t: qa.add(t, bias), y),
+            "residual add": rows(lambda a, b: qa.add(a, b), x, y),
+            "qmatmul (wq, gate, down)": all(
+                rows(lambda t, w=w: QM.qmatmul(t, w), t) for t, w in
+                ((x, p["mixer"]["wq"]["kernel"]), (x, p["ffn"]["w_gate"]),
+                 (h, p["ffn"]["w_down"]))),
+            "dense layer (wq, bias)": rows(lambda t: L.dense(qa, p["mixer"]["wq"], t), x),
+            "mlp": rows(lambda t: MO.mlp_apply(qa, p["ffn"], t), x),
+        }
+        # the decode kernels with the chunk's rows as lanes
+        full = _lanes_case(30, 8 * CHUNK)
+        part = _lanes_case(30, 8)
+        out_full = L.attention_as_lanes(*full, p_dtype=torch.bfloat16)
+        out_part = L.attention_as_lanes(*part, p_dtype=torch.bfloat16)
+        checked["decode kernel, rows as lanes"] = torch.equal(out_part[0], out_full[0, :8])
+        q, k, v, k_pos, q_pos = full
+        single = True
+        for i in range(CHUNK):          # lane 0's rows == single-token calls at their depth
+            kp_i = torch.where(k_pos[:1] <= q_pos[0, i], k_pos[:1], -1).contiguous()
+            one = DA.fused_decode_attention(q[:1, i:i + 1].contiguous(), k[:1].contiguous(),
+                                            v[:1].contiguous(), kp_i, q_pos[:1, i])
+            single &= torch.equal(one[0, 0], out_full[0, i])
+        checked["decode kernel rows == single-token calls"] = single
+        checked["padding rows exactly zero"] = bool((out_full[7, 20:] == 0).all())
+        pool = _as_pages(dict(q=q, k=k, v=v, k_pos=k_pos, q_pos=q_pos, window=None,
+                              softcap=None), 31)
+        paged = L.paged_attention_as_lanes(q, pool["k"], pool["v"], pool["pos"],
+                                           pool["table"], q_pos, p_dtype=torch.bfloat16)
+        checked["paged kernel, rows as lanes == contiguous"] = torch.equal(paged, out_full)
+    # off the kernel route: torch.mean's RMSNorm and cuBLAS's products at
+    # more row counts, each against the same rows of a 4096-row call
+    xl, hl = bf(4096, dm), bf(4096, dff)
+    counts = (1, 3, 8, 24, 64, 256, 1024)
+
+    def same_rows(fn, t):
+        full = fn(t)
+        return [M for M in counts if not torch.equal(fn(t[:M]), full[:M])]
+    reported = {"rmsnorm (torch.mean)": same_rows(lambda t: qa.rmsnorm(t, scale), xl)}
+    for name, w, t in (("wq", p["mixer"]["wq"]["kernel"], xl),
+                       ("wk", p["mixer"]["wk"]["kernel"], xl),
+                       ("gate", p["ffn"]["w_gate"], xl), ("down", p["ffn"]["w_down"], hl)):
+        reported[f"cuBLAS {name} (QArith.einsum)"] = same_rows(
+            lambda a, w=w: qa.einsum("...d,df->...f", a, w), t)
+    del xl, hl
+    print(f"[probe] row independence at 8 vs {Mx} rows on {card} (torch.equal on the leading "
+          f"8 rows): " + "; ".join(f"{k} {v}" for k, v in checked.items()))
+    print(f"[probe] off the kernel route, reported only: the row counts of {counts} at "
+          f"which the leading rows differ from a 4096-row call's: "
+          + "; ".join(f"{k} {v or 'none'}" for k, v in reported.items()))
+    bad = [k for k, v in checked.items() if not v]
+    check(not bad, f"ops whose rows depend on the row count: {bad}")
+
+    # row_mean_sq against its plain version, and its time
+    for shape, dtype in (((8, dm), torch.bfloat16), ((Mx, dm), torch.bfloat16),
+                         ((Mx, dm), torch.float32), ((5, 77), torch.bfloat16)):
+        t = (torch.randn(shape, generator=g, device="cuda") * 4).to(dtype)
+        check(torch.equal(RM.row_mean_sq(t), RM.row_mean_sq_ref(t)),
+              f"row_mean_sq {shape} {dtype}: kernel != plain")
+    print("[probe] row_mean_sq == plain (torch.equal) at 8 and 256 rows of 2048 (bf16, f32) "
+          "and 5 rows of 77")
+    row = None
+    for M in (8, Mx):
+        t = x[:M].contiguous()
+        ms = time_ms([lambda t=t: RM.row_mean_sq(t)])
+        plain_ms = time_ms([lambda t=t: RM.row_mean_sq_ref(t)], calls=16)
+        torch_ms = time_ms([lambda t=t: torch.mean(torch.square(t.float()), -1, keepdim=True)])
+        bound_ms = (t.numel() * 2 + M * 4) / HBM_BYTES_PER_S * 1e3
+        print(f"[probe] row_mean_sq {M}x{dm} bf16 on {card}: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms (bytes), plain {plain_ms:.4f} ms, torch.mean(square) "
+              f"{torch_ms:.4f} ms (two calls, reported only; no single call computes it)")
+        if M == 8:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                   "library_ms": None, "max_abs_err": 0.0}
+    return row
+
+
+def phase_main_path(card: str, params, cfg, policy) -> tuple:
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as DA
@@ -515,20 +714,26 @@ def phase_main_path(card: str, params, cfg, policy) -> int:
           f"{1e3 * res.seconds / res.calls:.2f} ms per serve step")
     del eager
     eng = engine()
+    QM, RM = kernel_module("qmatmul"), kernel_module("row_mean_sq")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    DA.LAUNCHES = 0
+    DA.LAUNCHES = QM.LAUNCHES = RM.LAUNCHES = 0
+    times = step_times(eng)
     res = serve_stream(eng, stream)
-    launches = run_launches(eng, "decode_attention", DA.LAUNCHES)
+    counted = {"decode_attention": DA.LAUNCHES, "qmatmul": QM.LAUNCHES,
+               "row_mean_sq": RM.LAUNCHES}
+    launches = {k: run_launches(eng, k, n) for k, n in counted.items()}
     st = eng.stats
     check(st.finished == len(stream) == len(res.completions),
           f"{st.finished}/{len(stream)} requests finished")
     check(set(eng.graphs) == {1} and width_steps(eng, 1) == res.calls,
           f"serve steps {res.calls}, graphs {eng.graphs}")
-    check(eng.graphs[1].kernels == {"decode_attention": cfg.n_layers},
-          f"the step's graph holds {eng.graphs[1].kernels}")
-    check(launches == cfg.n_layers * res.calls,
-          f"kernel launches {launches} != {cfg.n_layers} x {res.calls} serve-step calls")
+    per_step = step_kernels(cfg, "decode_attention")
+    check(eng.graphs[1].kernels == per_step,
+          f"the step's graph holds {eng.graphs[1].kernels}, expected {per_step}")
+    for k, n in per_step.items():
+        check(launches[k] == n * res.calls,
+              f"{k} launches {launches[k]} != {n} x {res.calls} serve-step calls")
     check(all(c.tokens.size == gen for c, (_, _, gen) in zip(
         sorted(res.completions, key=lambda c: c.rid), stream)),
           "a request stopped short of its max_new_tokens")
@@ -539,8 +744,9 @@ def phase_main_path(card: str, params, cfg, policy) -> int:
     print(f"[main] on {card}: {len(stream)} requests, {st.steps} engine steps, "
           f"{res.calls} serve-step calls, {st.tokens_generated} tokens in "
           f"{res.seconds:.3f}s -> {st.tokens_generated / res.seconds:.1f} tok/s, "
-          f"{1e3 * res.seconds / res.calls:.2f} ms per serve step, "
-          f"{launches} kernel launches ({launches // res.calls} per step); "
+          f"{1e3 * res.seconds / res.calls:.2f} ms per serve step ({width_ms(times)}), "
+          f"kernel launches "
+          f"{launches} ({ {k: n // res.calls for k, n in launches.items()} } per step); "
           f"{graph_summary(eng)}; tokens == the eager step's for all "
           f"{len(res.completions)} requests")
 
@@ -564,6 +770,33 @@ def phase_main_path(card: str, params, cfg, policy) -> int:
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
     print(f"[main] engine tokens == generate tokens for all {len(res.completions)} "
           f"requests ({len(groups)} reference batches of {n_slots} rows)")
+
+    # ROADMAP C10: the same stream with chunked prefill gives the same tokens
+    want = {c.rid: c.tokens for c in res.completions}
+    chunked = Engine(params, cfg, policy, n_slots=n_slots, max_len=max_len,
+                     fused_decode=True, prefill_chunk=CHUNK, device="cuda")
+    times = step_times(chunked)
+    DA.LAUNCHES = 0
+    res32 = serve_stream(chunked, stream)
+    check(set(chunked.graphs) == {1, CHUNK}
+          and width_steps(chunked, 1) + width_steps(chunked, CHUNK) == res32.calls,
+          f"chunked run: {res32.calls} serve steps, graphs {chunked.graphs}")
+    check(run_launches(chunked, "decode_attention", DA.LAUNCHES) == cfg.n_layers * res32.calls,
+          f"chunked run: decode launches != {cfg.n_layers} x {res32.calls} serve steps")
+    check(chunked.stats.steps < st.steps,
+          f"chunked prefill took {chunked.stats.steps} steps, chunk 1 took {st.steps}")
+    got = {c.rid: c.tokens for c in res32.completions}
+    check(got.keys() == want.keys(), f"chunked run finished {sorted(got)}")
+    for rid in want:
+        check(np.array_equal(got[rid], want[rid]),
+              f"rid {rid}: chunk {CHUNK} {got[rid].tolist()} != chunk 1 {want[rid].tolist()}")
+    print(f"[main] contiguous + chunked prefill {CHUNK} on {card}: {chunked.stats.steps} "
+          f"engine steps, {res32.calls} serve-step calls, {chunked.stats.tokens_generated} "
+          f"tokens in {res32.seconds:.3f}s -> {chunked.stats.tokens_generated / res32.seconds:.1f} "
+          f"tok/s, {1e3 * res32.seconds / res32.calls:.2f} ms per serve step "
+          f"({width_ms(times)}); {graph_summary(chunked)}; tokens == the chunk-1 run's for "
+          f"all {len(want)} requests")
+    del chunked
     print(f"[main] peak device memory while serving and checking "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     return launches, eng
@@ -718,42 +951,7 @@ def paged_stream(vocab: int):
             for i, (t, p, g) in enumerate(draws)]
 
 
-def lockstep_logits(params, cfg, policy, seqs, rows: int, cache_len: int, fused: bool):
-    """Teacher-force each sequence through single-token steps in batches of
-    ``rows`` lanes (the engine's row count, so every product has its
-    shapes). Returns, per sequence, the argmax after every token and the
-    full logits after its last token (on the host)."""
-    import numpy as np
-    import torch
-    from repro_torch.core.qarith import QArith
-    from repro_torch.kernels import dispatch
-    from repro_torch.models import registry as R
-    qa = QArith(policy)
-    out = []
-    for start in range(0, len(seqs), rows):
-        group = seqs[start:start + rows]
-        T = max(s.size for s in group)
-        batch = np.zeros((rows, T), np.int32)
-        for i, s in enumerate(group):
-            batch[i, :s.size] = s
-        tokens = torch.from_numpy(batch).to("cuda")
-        cache = R.make_cache(params, cfg, batch_size=rows, max_len=cache_len,
-                             dtype=policy.compute_dtype)
-        argmax, last = [], [None] * len(group)
-        with dispatch.fused_decode(fused):
-            for t in range(T):
-                pos = torch.full((rows,), t, dtype=torch.int32, device="cuda")
-                logits, cache = R.decode(qa, params, cfg, tokens[:, t:t + 1], cache, pos)
-                argmax.append(logits[:, 0].argmax(-1).cpu())
-                for i, s in enumerate(group):
-                    if t == s.size - 1:
-                        last[i] = logits[i, 0].float().cpu()
-        argmax = torch.stack(argmax, 1).numpy()
-        out.extend((argmax[i, :s.size], last[i]) for i, s in enumerate(group))
-    return out
-
-
-def phase_serve_paged(card: str, params, cfg, policy) -> int:
+def phase_serve_paged(card: str, params, cfg, policy) -> tuple:
     """The paged engine at full width: launches, prefix hits, preemption,
     pool invariants, tokens == the contiguous engine's; then chunked."""
     import numpy as np
@@ -848,59 +1046,51 @@ def phase_serve_paged(card: str, params, cfg, policy) -> int:
     print(f"[serve-paged] paged tokens == contiguous tokens for all {len(want)} requests")
     del contiguous
 
-    chunked = engine(prefill_chunk=32, **paged_kw)
+    chunked = engine(prefill_chunk=CHUNK, **paged_kw)
+    times = step_times(chunked)
     DA.PAGED_LAUNCHES = 0
     res = serve_stream(chunked, stream)
-    report("paged + chunked prefill 32", chunked, res)
-    check(set(chunked.graphs) == {1, 32}
-          and width_steps(chunked, 1) + width_steps(chunked, 32) == res.calls,
+    report(f"paged + chunked prefill {CHUNK}", chunked, res)
+    check(set(chunked.graphs) == {1, CHUNK}
+          and width_steps(chunked, 1) + width_steps(chunked, CHUNK) == res.calls,
           f"chunked run: {res.calls} serve steps, graphs {chunked.graphs}")
-    check(run_launches(chunked, "paged_decode_attention", DA.PAGED_LAUNCHES)
-          == cfg.n_layers * width_steps(chunked, 1), "chunked run paged launches")
+    chunk_launches = run_launches(chunked, "paged_decode_attention", DA.PAGED_LAUNCHES)
+    check(chunk_launches == cfg.n_layers * res.calls,
+          f"chunked run: {chunk_launches} paged launches != {cfg.n_layers} x {res.calls} "
+          f"serve steps (both widths)")
     check(chunked.stats.steps < st.steps,
           f"chunked prefill took {chunked.stats.steps} steps, chunk 1 took {st.steps}")
     got = tokens(res)
     chunked.pool.check_invariants()
     del chunked
-    parted = {rid: int(np.argmax(got[rid] != want[rid])) for rid in want
-              if not np.array_equal(got[rid], want[rid])}
-    print(f"[serve-paged] chunked tokens == chunk-1 tokens for {len(want) - len(parted)} of "
-          f"{len(want)} requests; parting at {parted}")
+    for rid in want:
+        check(np.array_equal(got[rid], want[rid]),
+              f"rid {rid}: chunk {CHUNK} {got[rid].tolist()} != chunk 1 {want[rid].tolist()}")
+    print(f"[serve-paged] chunked prefill {CHUNK} on {card}: {width_ms(times)}; "
+          f"{chunk_launches} paged launches ({cfg.n_layers} per step at both widths); tokens "
+          f"== the chunk-1 run's for all {len(want)} requests")
     chunk_probe(params, cfg, policy, stream)
-    if parted:
-        seqs = [np.concatenate([stream[rid][1], want[rid][:t]]) for rid, t in parted.items()]
-        held = lockstep_logits(params, cfg, policy, seqs, n_slots, PAGED_MAX_LEN, True)
-        for (rid, t), (argmax, last) in zip(parted.items(), held):
-            s0 = stream[rid][1].size
-            check(np.array_equal(argmax[s0 - 1:], want[rid][:t + 1]),
-                  f"rid {rid}: teacher-forced argmax does not reproduce the chunk-1 run")
-            margin = float(last[int(want[rid][t])] - last[int(got[rid][t])])
-            check(0 <= margin <= CHUNK_LOGIT_TOL,
-                  f"rid {rid} parts at token {t} with a logit margin {margin}")
-            print(f"[serve-paged] rid {rid} parts at token {t}: the chunk-1 model prefers "
-                  f"{int(want[rid][t])} over the chunked run's {int(got[rid][t])} by "
-                  f"{margin:.4g} (<= {CHUNK_LOGIT_TOL})")
     return launches, engine(**paged_kw)
 
 
 def chunk_probe(params, cfg, policy, stream):
     """ROADMAP C10: one 32-token chunk step against 32 single-token steps
-    from the same empty cache, 8 lanes of prompt prefixes; the last row's
-    logits and the written cache, bitwise or by how much."""
+    from the same empty cache, 8 lanes of prompt prefixes, inside
+    ``fused_decode``: K, V and positions of every layer and the last row's
+    logits must be the same bits."""
     import numpy as np
     import torch
     from repro_torch.core.qarith import QArith
     from repro_torch.kernels import dispatch
     from repro_torch.models import registry as R
     qa = QArith(policy)
-    C = 32
-    toks = torch.from_numpy(np.stack([p[:C] for _, p, _ in stream[:8]])).to("cuda")
+    toks = torch.from_numpy(np.stack([p[:CHUNK] for _, p, _ in stream[:8]])).to("cuda")
     caches, logits = [], []
     with dispatch.fused_decode():
-        for chunk in (1, C):
+        for chunk in (1, CHUNK):
             cache = R.make_cache(params, cfg, batch_size=8, max_len=PAGED_MAX_LEN,
                                  dtype=policy.compute_dtype)
-            for t in range(0, C, chunk):
+            for t in range(0, CHUNK, chunk):
                 pos = torch.arange(t, t + chunk, dtype=torch.int32, device="cuda")
                 pos = pos[None].expand(8, chunk).contiguous()
                 rows = torch.full((8,), chunk - 1, device="cuda")
@@ -908,13 +1098,18 @@ def chunk_probe(params, cfg, policy, stream):
                                       pos if chunk > 1 else pos[:, 0], out_rows=rows)
             logits.append(out[:, 0].float())
             caches.append(cache["layers"]["b0"])
-    diff = float((logits[0] - logits[1]).abs().max())
-    same_kv = all(torch.equal(a, b) for a, b in zip(*caches))
-    k_diff = float((caches[0][0].float() - caches[1][0].float()).abs().max())
-    print(f"[serve-paged] chunk probe (ROADMAP C10): a 32-token chunk step vs 32 single-token "
-          f"steps, 8 lanes, full width: last-row logits bitwise={diff == 0.0} (max |diff| "
-          f"{diff:.4g}), K/V cache bitwise={same_kv} (max |K diff| {k_diff:.4g}); argmax "
-          f"equal on {int((logits[0].argmax(-1) == logits[1].argmax(-1)).sum())}/8 lanes")
+    for name, one, chunked in zip(("K", "V", "positions"), *caches):
+        for layer in range(cfg.n_layers):
+            check(torch.equal(one[layer], chunked[layer]),
+                  f"chunk probe: layer {layer} {name} differs between a {CHUNK}-token chunk "
+                  f"step and {CHUNK} single-token steps (max |diff| "
+                  f"{float((one[layer].float() - chunked[layer].float()).abs().max()):.4g})")
+    check(torch.equal(logits[0], logits[1]),
+          f"chunk probe: last-row logits differ by up to "
+          f"{float((logits[0] - logits[1]).abs().max()):.4g}")
+    print(f"[serve-paged] chunk probe (ROADMAP C10): a {CHUNK}-token chunk step == {CHUNK} "
+          f"single-token steps, 8 lanes, full width: K, V and positions of all "
+          f"{cfg.n_layers} layers and the last-row logits torch.equal")
 
 
 def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3):
@@ -962,14 +1157,21 @@ def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3):
           f"{graph_launches:.0f} graph launches per step holding "
           f"{n_kernels / steps:.0f} kernels; {launches:.0f} kernel "
           f"launches per step outside graphs")
-    decode = [e for e in kernels if "decode_attention_kernel" in e.key]
-    per_step = sum(e.count for e in decode) / steps
-    print(f"[profile] {tag} on {card}: decode attention kernel "
-          f"{sum(dev_us(e) for e in decode) / 1e3 / steps:.3f} ms device time per step, "
-          f"{per_step:.0f} launches per step (the profiler's count; the graph holds "
-          f"{sum(eng.graphs[1].kernels.values())})")
-    check(per_step == sum(eng.graphs[1].kernels.values()) == cfg.n_layers,
-          f"the profiler counts {per_step} decode kernels per step")
+    held = eng.graphs[1].kernels
+    for name, key, graph_name in (("decode attention", "decode_attention_kernel",
+                                   "paged_decode_attention" if eng.paged else
+                                   "decode_attention"),
+                                  ("qmatmul", "qmatmul", "qmatmul"),
+                                  ("row_mean_sq", "row_mean_sq_kernel", "row_mean_sq")):
+        found = [e for e in kernels if key in e.key]
+        per_step = sum(e.count for e in found) / steps
+        ms = sum(dev_us(e) for e in found) / 1e3 / steps
+        print(f"[profile] {tag} on {card}: {name} kernel {ms:.3f} ms device time per step "
+              f"({ms / device_ms:.1%} of the step's device time), {per_step:.0f} launches "
+              f"per step (the profiler's count; the graph holds {held.get(graph_name)})")
+        check(per_step == held.get(graph_name),
+              f"the profiler counts {per_step} {name} kernels per step, the graph holds "
+              f"{held.get(graph_name)}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
         print(f"[profile]   {dev_us(e) / 1e3 / steps:7.3f} ms/step  {e.count / steps:6.0f} "
               f"calls/step  {e.key[:90]}")
@@ -1012,18 +1214,61 @@ def _update_inputs(n: int, seed: int) -> dict:
                                    dtype=torch.int32))
 
 
+SEED = 0x1234_5678_9ABC_DEF0     # a leaf seed of the update-kernel checks (both words set)
+
+
+def _offset_inputs(x: dict, off: int, g_off: int) -> dict:
+    """Copies of the update inputs as views ``off`` elements into their
+    storage (``g`` at ``g_off``): the kernel's scalar head, and with
+    another offset for g, tensors of unequal alignment."""
+    import torch
+
+    def at(t, o):
+        buf = torch.empty(t.numel() + o, dtype=t.dtype, device=t.device)
+        out = buf[o:]
+        out.copy_(t)
+        return out
+    return {k: at(t, g_off if k == "g" else off) for k, t in x.items() if k != "bits"}
+
+
 def phase_update_kernels(card: str) -> dict:
     """Each update kernel ≡ its plain version (torch.equal, every variant,
-    two sizes); device time at the embedding leaf's size."""
+    two sizes): the Philox fill and seeded fused AdamW on one seed, and
+    every kernel on given bits; device time at the embedding leaf's size,
+    and fused AdamW's loads and loads + stores alone."""
     import torch
     FA = kernel_module("fused_adamw")
     FS = kernel_module("fused_sgd")
     SC = kernel_module("sr_cast")
+    PH = kernel_module("philox")
 
     variants = [(False, False), (True, False), (False, True), (True, True)]
     rows = {}
     for n in (1_000_003, EMBED_N):
         x = _update_inputs(n, n % 1000)
+        check(torch.equal(PH.philox_bits(SEED, (n,), "cuda"), PH.philox_bits_ref(SEED, n, "cuda")),
+              f"philox_bits n={n}: kernel != plain")
+        print(f"[update] philox_bits n={n}: kernel == plain (torch.equal)")
+        cases = {"": x}
+        if n != EMBED_N:
+            cases[", offset 3"] = _offset_inputs(x, 3, 3)
+            cases[", g at another alignment"] = _offset_inputs(x, 3, 0)
+        for where, y in cases.items():
+            for kahan in (False, True):
+                tag = f"seeded SR{'+Kahan' if kahan else ''}{where}"
+                want = FA.fused_adamw_ref(y["w"], y["m"], y["v"], y["g"],
+                                          c=y["c"] if kahan else None, seed=SEED, **HP_ADAMW)
+                got = [t.clone() for t in (y["w"], y["m"], y["v"], y["c"])]
+                FA.fused_adamw(got[0], got[1], got[2], y["g"], c=got[3] if kahan else None,
+                               seed=SEED, **HP_ADAMW)
+                for name, a, b in zip("wmvc", got, want):
+                    if b is not None:
+                        check(torch.equal(a, b),
+                              f"fused_adamw {tag} n={n}: {name} kernel != plain")
+                del want, got
+            print(f"[update] fused_adamw seeded SR, Kahan off and on, n={n}{where}: kernel "
+                  f"(Philox in the kernel) == plain on the seed's bits (torch.equal)")
+        del cases
         # sr_cast: f32 input with ±inf, NaN and lanes near the top of the range
         xs = torch.randn(n, device="cuda") * 7
         xs[:6] = torch.tensor([float("inf"), float("-inf"), float("nan"), 3.3961e38,
@@ -1053,19 +1298,22 @@ def phase_update_kernels(card: str) -> dict:
                 if b is not None:
                     check(torch.equal(a, b), f"fused_sgd {tag} n={n}: {name} kernel != plain")
             del want, got
-            print(f"[update] fused_adamw, fused_sgd {tag} n={n}: kernel == plain on every "
-                  f"output (torch.equal)")
+            print(f"[update] fused_adamw, fused_sgd {tag} on given bits, n={n}: kernel == "
+                  f"plain on every output (torch.equal)")
         if n != EMBED_N:
             continue
-        # timing at the embedding leaf, SR + Kahan (the main path's variant)
+        # timing at the embedding leaf, SR + Kahan (the main path's variant:
+        # fused AdamW seeded, fused SGD and sr_cast on the fill's bits)
         w, m, v, c = (x[k].clone() for k in "wmvc")
         calls = {
+            "philox": (lambda: PH.philox_bits(SEED, (n,), "cuda"),
+                       lambda: PH.philox_bits_ref(SEED, n, "cuda")),
             "sr_cast": (lambda: SC.sr_cast(xs, x["bits"]),
                         lambda: SC.sr_cast_ref(xs, x["bits"])),
-            "fused_adamw": (lambda: FA.fused_adamw(w, m, v, x["g"], c=c, bits=x["bits"],
+            "fused_adamw": (lambda: FA.fused_adamw(w, m, v, x["g"], c=c, seed=SEED,
                                                    **HP_ADAMW),
                             lambda: FA.fused_adamw_ref(x["w"], x["m"], x["v"], x["g"],
-                                                       c=x["c"], bits=x["bits"], **HP_ADAMW)),
+                                                       c=x["c"], seed=SEED, **HP_ADAMW)),
             "fused_sgd": (lambda: FS.fused_sgd(w, m, x["g"], c=c, bits=x["bits"], **HP_SGD),
                           lambda: FS.fused_sgd_ref(x["w"], x["m"], x["g"], c=x["c"],
                                                    bits=x["bits"], **HP_SGD)),
@@ -1079,6 +1327,21 @@ def phase_update_kernels(card: str) -> dict:
             print(f"[update] {name} n={n} SR+Kahan on {card}: kernel {ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({UPDATE_BYTES[name]} B/element over 3.35 TB/s; "
                   f"{bound_ms / ms:.1%} of it), plain {plain_ms:.4f} ms, library: none")
+        # what bounds fused AdamW: the same kernel's loads alone, loads and
+        # stores alone, the update on given bits, and the update (seeded)
+        given_ms = event_ms(lambda: FA.fused_adamw(w, m, v, x["g"], c=c, bits=x["bits"],
+                                                   **HP_ADAMW))
+        parts = {variant: event_ms(lambda variant=variant: FA.probe(variant, w, m, v, x["g"], c))
+                 for variant in ADAMW_PROBE_BYTES}
+        parts_text = "; ".join(
+            f"{variant} {ms:.4f} ms ({n * ADAMW_PROBE_BYTES[variant] / ms / 1e6:.0f} GB/s)"
+            for variant, ms in parts.items())
+        full_ms = rows["fused_adamw"]["ms"]
+        print(f"[update] fused_adamw parts at n={n} on {card}: {parts_text}; full update "
+              f"(seeded) {full_ms:.4f} ms ({n * UPDATE_BYTES['fused_adamw'] / full_ms / 1e6:.0f} "
+              f"GB/s of its 18 B/element); on given bits (22 B/element) {given_ms:.4f} ms; the "
+              f"arithmetic adds {full_ms - parts['loads+stores']:.4f} ms over the memory traffic "
+              f"alone")
         del x, xs, w, m, v, c
         torch.cuda.empty_cache()
     return rows
@@ -1278,7 +1541,7 @@ def phase_qmatmul(card: str) -> tuple[dict, int]:
                   f"torch.matmul {library_ms:.4f} ms ({flop / library_ms / 1e9:.1f} TFLOP/s, "
                   f"{lib}; kernel / torch.matmul {ms / library_ms:.2f}) (device time, "
                   f"{len(copies)} input copies rotated)")
-            if name == "mlp gate/up" and not sr:
+            if name == "serve 8 lanes" and not sr:      # the serve step's shape
                 row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": library_ms}
         del copies, args
@@ -1372,10 +1635,13 @@ def phase_train(card: str):
         return out
 
     run = dataclasses.replace(run, step_fn=timed_step)
-    FA.LAUNCHES = SC.LAUNCHES = FS.LAUNCHES = 0
+    PH = kernel_module("philox")
+    FA.LAUNCHES = SC.LAUNCHES = FS.LAUNCHES = PH.LAUNCHES = 0
     state, info = LT.train(args, run, log=lambda line: print(f"[train] {line}"))
     launches = FA.LAUNCHES
-    check(SC.LAUNCHES == 0 and FS.LAUNCHES == 0, "the fused path launched sr_cast or fused_sgd")
+    check(SC.LAUNCHES == 0 and FS.LAUNCHES == 0 and PH.LAUNCHES == 0,
+          "the fused path launched sr_cast, fused_sgd or the Philox fill (fused AdamW "
+          "draws its bits itself)")
     losses = [row["loss"] for row in info["history"]]
     check(len(losses) == args.steps and all(np.isfinite(losses)), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -1392,7 +1658,8 @@ def phase_train(card: str):
           f"steady (steps 2-7) {ms_step:.1f} ms/step, {tokens / ms_step * 1e3:.0f} tokens/s; "
           f"optimizer update {sum(opt_ms[2:]) / len(opt_ms[2:]):.2f} ms/step (CUDA events, "
           f"bits drawn inside) against a bound of {bound_opt:.2f} ms "
-          f"({UPDATE_BYTES['fused_adamw']} B x {n_params} elements over 3.35 TB/s); "
+          f"({UPDATE_BYTES['fused_adamw']} B x {n_params} elements over 3.35 TB/s: the bits "
+          f"drawn in the kernel); "
           f"fused_adamw launched {launches} times ({n_leaves} per step); peak device memory "
           f"{peak:.2f} GiB")
     return run, state, launches
@@ -1500,6 +1767,7 @@ def phase_parity(run, state, card: str) -> dict:
     FA = kernel_module("fused_adamw")
     FS = kernel_module("fused_sgd")
     SC = kernel_module("sr_cast")
+    PH = kernel_module("philox")
     from repro_torch.models import registry as R
     from repro_torch.optim import (AdamWState, SGDState, StepKey, adamw,
                                    fused_adamw_optimizer, fused_sgd_optimizer, sgd)
@@ -1528,7 +1796,7 @@ def phase_parity(run, state, card: str) -> dict:
     def one(t):
         return {"w": t}
 
-    FA.LAUNCHES = SC.LAUNCHES = FS.LAUNCHES = 0
+    FA.LAUNCHES = SC.LAUNCHES = FS.LAUNCHES = PH.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -1561,10 +1829,12 @@ def phase_parity(run, state, card: str) -> dict:
             del cw, cm, cv, cc, pf, sf, pp, sp, g
     torch.cuda.synchronize()
     n = len(paths)
-    launches = {"sr_cast": SC.LAUNCHES, "fused_sgd": FS.LAUNCHES, "fused_adamw": FA.LAUNCHES}
-    check(launches == {"sr_cast": 2 * n, "fused_sgd": n, "fused_adamw": n},
+    launches = {"sr_cast": SC.LAUNCHES, "fused_sgd": FS.LAUNCHES, "fused_adamw": FA.LAUNCHES,
+                "philox": PH.LAUNCHES}
+    check(launches == {"sr_cast": 2 * n, "fused_sgd": n, "fused_adamw": n, "philox": 3 * n},
           f"parity launches {launches}, expected sr_cast {2 * n} (non-fused adamw and "
-          f"sgd, one per leaf each), fused_sgd {n}, fused_adamw {n}")
+          f"sgd, one per leaf each), fused_sgd {n}, fused_adamw {n}, philox {3 * n} (the "
+          f"bits of non-fused adamw, sgd and fused sgd; fused adamw draws its own)")
     print(f"[parity] {policy.name}, lr {lr}, one step from the trained state on {card}: adamw "
           f"== fused_adamw and sgd == fused_sgd (momentum 0.9, wd 1e-4) on w, moments and "
           f"Kahan c of all {n} leaves (torch.equal, full width, leaf by leaf) in "
@@ -1614,21 +1884,25 @@ def main():
     rows = {"decode_attention": phase_kernel(card),
             "paged_decode_attention": phase_kernel_paged(card)}
     model = serve_model()
-    launches, engines = {}, {}
-    launches["decode_attention"], engines["contiguous"] = phase_main_path(card, *model)
+    rows["row_mean_sq"] = phase_row_probe(card, *model)
+    engines = {}
+    launches, engines["contiguous"] = phase_main_path(card, *model)
     launches["paged_decode_attention"], engines["paged"] = phase_serve_paged(card, *model)
     for tag, eng in engines.items():     # last: the profiler may slow later launches
         phase_profile(eng, model[1], card, tag)
     del model, engines, eng
     torch.cuda.empty_cache()
     rows.update(phase_update_kernels(card))
-    rows["qmatmul"], launches["qmatmul"] = phase_qmatmul(card)
+    rows["qmatmul"], op_launches = phase_qmatmul(card)
     phase_update_ops()
     run, state, launches["fused_adamw"] = phase_train(card)
     state = phase_train_profile(run, state, card)
     phase_f32_products(run.cfg, state.params["embed"]["embedding"], card)
     parity = phase_parity(run, state, card)
-    launches["sr_cast"], launches["fused_sgd"] = parity["sr_cast"], parity["fused_sgd"]
+    for name in ("sr_cast", "fused_sgd", "philox"):
+        launches[name] = parity[name]
+    print(f"[smoke] qmatmul launches: {launches['qmatmul']} on the serve main path, "
+          f"{op_launches} through the op layer")
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s on {card}")
     replaces = {
         "decode_attention": ("decode_attention", "src/repro/kernels/decode_attention.py:42"),
@@ -1638,6 +1912,10 @@ def main():
         "fused_adamw": ("fused_adamw", "src/repro/kernels/fused_adamw.py:36"),
         "fused_sgd": ("fused_sgd", "src/repro/kernels/fused_sgd.py:18"),
         "qmatmul": ("qmatmul", "src/repro/kernels/qmatmul.py:22"),
+        # not TPU kernels: the reference's jax.random.bits draw of a leaf's SR
+        # bits, and its jnp.mean under RMSNorm
+        "philox": ("philox", "src/repro/optim/fused.py:124"),
+        "row_mean_sq": ("row_mean_sq", "src/repro/core/qarith.py:114"),
     }
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

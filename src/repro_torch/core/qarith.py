@@ -165,16 +165,21 @@ class QArith:
         return self.cast(fn(*[_as(a, torch.float32) for a in args]))
 
     def rmsnorm(self, x: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-6) -> torch.Tensor:
+                eps: float = 1e-6, *, mean_sq=None) -> torch.Tensor:
+        """``mean_sq`` (x → f32 mean of x² over the last axis, keepdim)
+        replaces ``torch.mean`` for the reduction: the serve step passes a
+        row reduction whose order does not depend on the row count."""
         # reductions in f32 (the accumulator), elementwise normalize in the
         # compute dtype: inv is rounded, then two rounded products — the
         # reference's op order, bitwise on CPU
+        if mean_sq is None:
+            def mean_sq(t):
+                return torch.mean(torch.square(t.to(torch.float32)), dim=-1, keepdim=True)
         if not self._native:
             def _f(xf, sf):
-                var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-                return xf * torch.rsqrt(var + eps) * sf
+                return xf * torch.rsqrt(mean_sq(xf) + eps) * sf
             return self.act(_f, x, scale)
-        var = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
+        var = mean_sq(x)
         inv = torch.rsqrt(var + eps).to(self.dtype)
         return (x.to(self.dtype) * inv) * scale.to(self.dtype)
 

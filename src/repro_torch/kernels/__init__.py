@@ -5,7 +5,9 @@
 - fused_sgd        — Algorithms 2/3 in one pass, in place
 - qmatmul          — bf16-in / f32-accumulate / round-once FMAC matmul (Table 1)
 - fused_decode_attention — single-token attention over the slotted KV pool
-- dispatch         — routing of layer code onto the fused decode kernel
+- philox           — the SR bits of a leaf from its Philox4x32-10 stream
+- row_mean_sq      — RMSNorm's mean of squares in an order fixed by the row length
+- dispatch         — routing of the serve step onto the kernels
 - ops              — entry points that draw the SR bits from a torch.Generator
 - ref              — the plain versions under the reference's oracle names
 
@@ -18,7 +20,7 @@ functions; their modules (with each kernel's ``LAUNCHES`` count) are
 """
 import sys
 
-from repro_torch.kernels import dispatch, ops, ref
+from repro_torch.kernels import dispatch, ops, philox, ref, row_mean_sq
 from repro_torch.kernels.decode_attention import fused_decode_attention
 from repro_torch.kernels.fused_adamw import fused_adamw
 from repro_torch.kernels.fused_sgd import fused_sgd
@@ -33,7 +35,8 @@ def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by kernel name (beside the
     reference's exports, so not in ``__all__``)."""
     mod = {name: sys.modules[f"{__name__}.{name}"] for name in
-           ("decode_attention", "fused_adamw", "fused_sgd", "qmatmul", "sr_cast")}
+           ("decode_attention", "fused_adamw", "fused_sgd", "philox", "qmatmul",
+            "row_mean_sq", "sr_cast")}
     counts = {name: m.LAUNCHES for name, m in mod.items()}
     counts["paged_decode_attention"] = mod["decode_attention"].PAGED_LAUNCHES
     return counts

@@ -40,23 +40,31 @@ __device__ __forceinline__ __nv_bfloat16 sr(float x, uint32_t bits) {
 // The weight update shared by AdamW and SGD, given the rounded update u:
 // w <- w - u (Alg. 2/4), or with Kahan compensation c (Alg. 3/5):
 //   y = bf(bf(-u) - c); s = round(w + y); c = bf(bf(s - w) - y).
-// The rounding of w - u (or of w + y) is stochastic under SR.
+// The rounding of w - u (or of w + y) is stochastic under SR, from `bits`.
+// On values: w_out (and c_out under KAHAN) from w, u and c as f32.
+template <bool SR, bool KAHAN>
+__device__ __forceinline__ void weight_step(float wf, float u, float cf, uint32_t bits,
+                                            __nv_bfloat16& w_out, __nv_bfloat16& c_out) {
+  if (!KAHAN) {
+    const float step = __fsub_rn(wf, u);
+    w_out = SR ? sr(step, bits) : bf(step);
+    return;
+  }
+  const float y = q(__fsub_rn(q(-u), cf));
+  const float s_val = __fadd_rn(wf, y);
+  const __nv_bfloat16 s = SR ? sr(s_val, bits) : bf(s_val);
+  w_out = s;
+  c_out = bf(__fsub_rn(q(__fsub_rn(f32(s), wf)), y));
+}
+
+// weight_step on element i of w (and c), its bits read from bits[i].
 template <bool SR, bool KAHAN>
 __device__ __forceinline__ void update_weight(__nv_bfloat16* w, __nv_bfloat16* c,
                                               const uint32_t* bits, long long i,
                                               float wf, float u) {
-  if (!KAHAN) {
-    const float step = __fsub_rn(wf, u);
-    w[i] = SR ? sr(step, bits[i]) : bf(step);
-    return;
-  }
-  const float u_neg = q(-u);
-  const float y = q(__fsub_rn(u_neg, f32(c[i])));
-  const float s_val = __fadd_rn(wf, y);
-  const __nv_bfloat16 s = SR ? sr(s_val, bits[i]) : bf(s_val);
-  const float diff = q(__fsub_rn(f32(s), wf));
-  w[i] = s;
-  c[i] = bf(__fsub_rn(diff, y));
+  __nv_bfloat16 c_out;
+  weight_step<SR, KAHAN>(wf, u, KAHAN ? f32(c[i]) : 0.f, SR ? bits[i] : 0u, w[i], c_out);
+  if (KAHAN) c[i] = c_out;
 }
 
 inline int blocks_for(long long n) {

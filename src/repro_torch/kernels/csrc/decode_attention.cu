@@ -20,7 +20,12 @@
 //   contiguous  k/v (B, Sc, Hkv, D), k_pos (B, Sc):      row = b*Sc + key
 //   paged       k/v pages (R, P, Hkv, D), pos (R, P), block table
 //               (B, n_blocks), Sc = n_blocks*P:          row = table[b][key/P]*P + key%P
-// The body is templated on that map (ContiguousRows, PagedRows below).
+//   mapped      as contiguous, lane b reading cache row
+//               lane_rows[b]:                        row = lane_rows[b]*Sc + key
+// The body is templated on that map (ContiguousRows, MappedRows, PagedRows
+// below). The mapped form runs each query row of a prefill chunk as a lane
+// of its own over its lane's cache: a row's arithmetic is then the same as
+// the single-token step's at its position (its visible range is the same).
 // Nothing of the launch plan or of the float operations depends on the map,
 // so on a gathered view pages[table] of equal length the paged kernel equals
 // the contiguous kernel bit for bit. Null blocks point at a row whose
@@ -177,6 +182,13 @@ __device__ __forceinline__ void reduce_rows(float (&a)[4], int lane) {
 struct ContiguousRows {            // k/v (B, Sc, Hkv, D), k_pos (B, Sc)
   int Sc;
   __device__ __forceinline__ int operator()(int b, int key) const { return b * Sc + key; }
+};
+struct MappedRows {                // k/v (N, Sc, Hkv, D), k_pos (N, Sc), lane b -> row lane_rows[b]
+  const int* __restrict__ lane_rows;
+  int Sc;
+  __device__ __forceinline__ int operator()(int b, int key) const {
+    return lane_rows[b] * Sc + key;
+  }
 };
 struct PagedRows {                 // pages (R, P, Hkv, D), pos (R, P), table (B, n_blocks)
   const int* __restrict__ table;
@@ -625,12 +637,19 @@ int dispatch(const void* q, const void* k, const void* v, const int* k_pos,
 
 // dtype: 0 = bf16 q/k/v, 1 = f32. window < 0: none. softcap == 0: none.
 // q, k, v must be 16-byte aligned; D one of 32, 64, 128, 256.
-// Contiguous pool: k/v (B, Sc, Hkv, D), k_pos (B, Sc).
+// Contiguous pool: k/v (N, Sc, Hkv, D), k_pos (N, Sc). Without lane_rows
+// (null) lane b reads cache row b (N = B); with it, lane b reads cache row
+// lane_rows[b] (int32, B entries in [0, N)), so the query rows of a prefill
+// chunk run as lanes of their own over their lane's cache, in place.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const int* k_pos, const int* q_pos, float* out,
+                                      const int* k_pos, const int* q_pos,
+                                      const int* lane_rows, float* out,
                                       int B, int Sc, int Hkv, int G, int D,
                                       float scale, int window, float softcap,
                                       int round_p, int dtype, void* stream) {
+  if (lane_rows != nullptr)
+    return dispatch(q, k, v, k_pos, q_pos, out, MappedRows{lane_rows, Sc}, B, Sc, Hkv, G,
+                    D, scale, window, softcap, round_p, dtype, stream);
   return dispatch(q, k, v, k_pos, q_pos, out, ContiguousRows{Sc}, B, Sc, Hkv, G, D,
                   scale, window, softcap, round_p, dtype, stream);
 }

@@ -8,7 +8,9 @@ and ``:102`` (``paged_decode_attention_kernel``, wrapper ``:148``
 Hopper, ``csrc/decode_attention.cu``, entered through two C functions
 that differ only in how a key index becomes a row of K/V: ``b·Sc + key``
 for the contiguous pool, ``table[b, key // P]·P + key % P`` for the
-paged pool. Per lane, in the reference's op order: f32
+paged pool. The contiguous entry also takes a lane → cache-row map, so
+that the query rows of a prefill chunk run as lanes of their own, each
+over its lane's cache in place. Per lane, in the reference's op order: f32
 scores ``q.k / sqrt(D)``, optional softcap tanh, the mask
 ``0 <= k_pos <= q_pos`` (plus the window), a full-row softmax, the
 probabilities cast to ``p_dtype``, PV accumulated in f32, an unrounded f32
@@ -75,11 +77,16 @@ LAUNCHES = 0
 PAGED_LAUNCHES = 0
 
 
-def decode_attention_ref(q, k_cache, v_cache, k_pos, q_pos, *, window=None,
-                         softcap=None, p_dtype=torch.bfloat16):
+def decode_attention_ref(q, k_cache, v_cache, k_pos, q_pos, *, lane_rows=None,
+                         window=None, softcap=None, p_dtype=torch.bfloat16):
     """Plain PyTorch version, in ``repro.models.layers.decode_attention``'s
-    op order (S=1). q: (B,1,Hq,D); caches: (B,Sc,Hkv,D); k_pos: (B,Sc) i32;
-    q_pos: (B,) i32, −1 ⇒ parked lane (zeros). Returns f32 (B,1,Hq,D)."""
+    op order (S=1). q: (B,1,Hq,D); caches: (N,Sc,Hkv,D); k_pos: (N,Sc) i32;
+    q_pos: (B,) i32, −1 ⇒ parked lane (zeros). Lane b attends over cache
+    row b (N = B), or over row ``lane_rows[b]`` when that (B,) integer map
+    is given. Returns f32 (B,1,Hq,D)."""
+    if lane_rows is not None:
+        rows = lane_rows.long()
+        k_cache, v_cache, k_pos = k_cache[rows], v_cache[rows], k_pos[rows]
     B, _, Hq, D = q.shape
     Hkv = k_cache.shape[2]
     qg = q.reshape(B, Hkv, Hq // Hkv, D).to(torch.float32)
@@ -101,16 +108,19 @@ def decode_attention_ref(q, k_cache, v_cache, k_pos, q_pos, *, window=None,
     return out.reshape(B, 1, Hq, D)
 
 
-def fused_decode_attention(q, k_cache, v_cache, k_pos, q_pos, *, window=None,
-                           softcap=None, p_dtype=torch.bfloat16):
-    """The decode kernel: q (B,1,Hq,D); caches (B,Sc,Hkv,D) bf16 or f32;
-    k_pos (B,Sc) i32; q_pos (B,) (−1 ⇒ parked lane). Returns f32
+def fused_decode_attention(q, k_cache, v_cache, k_pos, q_pos, *, lane_rows=None,
+                           window=None, softcap=None, p_dtype=torch.bfloat16):
+    """The decode kernel: q (B,1,Hq,D); caches (N,Sc,Hkv,D) bf16 or f32;
+    k_pos (N,Sc) i32; q_pos (B,) (−1 ⇒ parked lane). Lane b reads cache
+    row b (N = B) or, given ``lane_rows`` ((B,) int32 in [0, N)), row
+    ``lane_rows[b]`` in place: the query rows of a prefill chunk then run
+    as lanes of their own over their lane's cache. Returns f32
     (B,1,Hq,D), unrounded. CPU tensors take the plain version."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, k_pos, q_pos,
-                                    window=window, softcap=softcap,
-                                    p_dtype=p_dtype)
-    return _launch(q, k_cache, v_cache, k_pos, q_pos, window=window,
+                                    lane_rows=lane_rows, window=window,
+                                    softcap=softcap, p_dtype=p_dtype)
+    return _launch(q, k_cache, v_cache, k_pos, q_pos, lane_rows, window=window,
                    softcap=softcap, p_dtype=p_dtype)
 
 
@@ -255,16 +265,21 @@ def _check(q, q_pos, p_dtype, Hkv, n_keys, tensors):
         raise ValueError(f"decode attention runs on CUDA or CPU, not {q.device}")
 
 
-def _launch(q, k_cache, v_cache, k_pos, q_pos, *, window, softcap, p_dtype):
+def _launch(q, k_cache, v_cache, k_pos, q_pos, lane_rows, *, window, softcap, p_dtype):
     global LAUNCHES
     B, S, Hq, D = q.shape
-    _, Sc, Hkv, _ = k_cache.shape
+    N, Sc, Hkv, _ = k_cache.shape
     if q_pos.dtype != torch.int32:
         q_pos = q_pos.to(torch.int32)
-    _check(q, q_pos, p_dtype, Hkv, Sc,
-           {"k_cache": k_cache, "v_cache": v_cache, "k_pos": k_pos})
-    if k_cache.shape != (B, Sc, Hkv, D) or v_cache.shape != k_cache.shape \
-            or k_pos.shape != (B, Sc):
+    tensors = {"k_cache": k_cache, "v_cache": v_cache, "k_pos": k_pos}
+    if lane_rows is not None:
+        tensors["lane_rows"] = lane_rows
+        if lane_rows.dtype != torch.int32 or lane_rows.shape != (B,):
+            raise ValueError(f"lane_rows must be a ({B},) int32 map of lanes to cache "
+                             f"rows, got {lane_rows.dtype} {tuple(lane_rows.shape)}")
+    _check(q, q_pos, p_dtype, Hkv, Sc, tensors)
+    if k_cache.shape != (N, Sc, Hkv, D) or v_cache.shape != k_cache.shape \
+            or k_pos.shape != (N, Sc) or (lane_rows is None and N != B):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k_cache.shape)}, "
                          f"v {tuple(v_cache.shape)}, k_pos {tuple(k_pos.shape)} "
                          "do not form a single-token GQA decode")
@@ -275,10 +290,11 @@ def _launch(q, k_cache, v_cache, k_pos, q_pos, *, window, softcap, p_dtype):
         raise ValueError(f"k_pos must be int32 (got {k_pos.dtype})")
     out = torch.empty((B, 1, Hq, D), dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_pos.data_ptr(),
-            q_pos.data_ptr(), out.data_ptr(), B, Sc, Hkv, Hq // Hkv, D,
+            q_pos.data_ptr(), None if lane_rows is None else lane_rows.data_ptr(),
+            out.data_ptr(), B, Sc, Hkv, Hq // Hkv, D,
             *_scalars(D, window, softcap, p_dtype, q.dtype))
     with torch.cuda.device(q.device):
-        rc = _kernel("repro_decode_attention", 6, 5)(
+        rc = _kernel("repro_decode_attention", 7, 5)(
             *args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {rc}")

@@ -1,0 +1,112 @@
+"""The stochastic-rounding bits of a parameter leaf from Philox4x32-10.
+
+No TPU kernel is replaced: the reference draws its SR bits with
+``jax.random.bits`` from a key split per leaf (``repro/optim/base.py``),
+and the port keys a counter-based generator instead, so that a kernel can
+draw the bits itself (``csrc/philox.cuh``). The stream of a leaf with the
+64-bit seed s: key = (s & 0xffffffff, s >> 32); element i takes word i % 4
+of the block j = i // 4, whose counter is (j & 0xffffffff, j >> 32, 0, 0).
+
+:func:`philox_bits` fills an int32 tensor (carrying u32) with those words:
+``csrc/philox.cu`` for a CUDA device, raising if it cannot launch; the plain
+PyTorch version :func:`philox_bits_ref` only for the CPU. ``fused_adamw``
+draws the same words inside its kernel, so every optimizer sees the same
+bits for one seed. The plain version works in int64, every value masked to
+32 bits, and forms the high and low words of a 32×32-bit product from two
+products of at most 48 bits, so no int64 operation overflows.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["LAUNCHES", "philox4x32_10", "philox_bits", "philox_bits_ref", "split_seed"]
+
+M32 = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57          # round multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85          # key bumps
+
+# Kernel launches made by philox_bits (incremented per launch).
+LAUNCHES = 0
+
+
+def split_seed(seed: int) -> tuple[int, int]:
+    """The Philox key of a 64-bit seed: (low word, high word)."""
+    seed = int(seed) & ((1 << 64) - 1)
+    return seed & M32, seed >> 32
+
+
+def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """High and low 32-bit words of ``m * x`` (m < 2³², x int64 < 2³²),
+    from the two partial products m·x_lo and m·x_hi of at most 48 bits."""
+    p_lo = m * (x & 0xFFFF)
+    p_hi = m * (x >> 16)
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & M32
+    return hi, lo
+
+
+def philox4x32_10(ctr, key) -> list[torch.Tensor]:
+    """Philox4x32-10 on int64 tensors of counters: ``ctr`` four tensors (or
+    ints) of one shape holding u32 values, ``key`` two ints. Returns the
+    four output words as int64 tensors holding u32."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
+    k0, k1 = (int(k) & M32 for k in key)
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & M32, (k1 + _W1) & M32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return [c0, c1, c2, c3]
+
+
+def philox_bits_ref(seed: int, n: int, device=None) -> torch.Tensor:
+    """Plain PyTorch version: the (n,) int32 words of the leaf stream of
+    ``seed`` (word i of the stream at element i)."""
+    j = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+    words = torch.stack(philox4x32_10((j & M32, j >> 32, 0, 0), split_seed(seed)), dim=1)
+    words = words.reshape(-1)[:n]
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
+def philox_bits(seed: int, shape, device) -> torch.Tensor:
+    """The SR bits of the leaf stream of ``seed`` as an int32 tensor of
+    ``shape`` on ``device`` (row-major element order). CPU devices take
+    the plain version."""
+    device = torch.device(device)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    if device.type == "cpu":
+        return philox_bits_ref(seed, n).reshape(shape)
+    return _launch(seed, shape, n, device)
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load("philox").repro_philox_bits
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _launch(seed, shape, n, device):
+    global LAUNCHES
+    if device.type != "cuda":
+        raise ValueError(f"philox_bits runs on CUDA or CPU, not {device}")
+    out = torch.empty(shape, dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    with torch.cuda.device(device):
+        rc = _kernel()(out.data_ptr(), n, *split_seed(seed),
+                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"philox_bits kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out

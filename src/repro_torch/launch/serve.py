@@ -99,9 +99,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the weights and the request stream")
     ap.add_argument("--fused-decode", action="store_true",
-                    help="decode attention via the CUDA kernel (one block "
-                         "per lane and kv-head, parked lanes skipped); token "
-                         "parity with the plain path")
+                    help="the serve step through the hand-written kernels: "
+                         "decode attention via the CUDA kernel (parked lanes "
+                         "skipped) and, on CUDA, the dense products via qmatmul, "
+                         "RMSNorm's mean via row_mean_sq and a prefill chunk's "
+                         "attention via the decode kernel, so chunked prefill "
+                         "gives the unchunked tokens")
     ap.add_argument("--paged", action="store_true",
                     help="back full-context attention layers with the paged KV "
                          "pool (token-granular allocation via a per-lane block "

@@ -22,10 +22,22 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   fused_decode_attention,
                                                   fused_paged_decode_attention)
+from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.row_mean_sq import row_mean_sq
 
-__all__ = ["dense_init", "dense", "embed_init", "norm_init", "norm_apply",
-           "rope", "flash_attention", "decode_attention", "attention_init",
-           "attention_apply", "copy_page_rows"]
+__all__ = ["dense_init", "dense", "project", "embed_init", "norm_init", "norm_apply",
+           "rope", "flash_attention", "decode_attention", "attention_as_lanes",
+           "paged_attention_as_lanes", "attention_init", "attention_apply",
+           "copy_page_rows"]
+
+
+def _kernel_route(*tensors: torch.Tensor) -> bool:
+    """Whether an op of the serve step runs on its row-independent kernel:
+    inside :func:`repro_torch.kernels.dispatch.fused_decode`, on CUDA.
+    On the card every such op gives a token row the same bits whatever
+    the number of rows of the step (ROADMAP C10); on the CPU the ops stay
+    the reference's own arithmetic."""
+    return dispatch.fused_decode_enabled() and all(t.device.type == "cuda" for t in tensors)
 
 
 def copy_page_rows(pages, dst, src, pdim: int = 0):
@@ -78,8 +90,23 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = Fals
     return p
 
 
+def project(qa: QArith, x, w):
+    """``x`` (..., d_in) @ ``w`` (d_in, d_out): 16-bit inputs, f32
+    accumulation, one nearest rounding. On the kernel route with bf16
+    operands it is one :func:`~repro_torch.kernels.qmatmul.qmatmul` launch
+    on the rows flattened to (rows, d_in), whose row bits do not depend on
+    the row count; otherwise ``qa.einsum`` (cuBLAS on CUDA, which picks its
+    kernel by the row count; the upcast product on the CPU)."""
+    if _kernel_route(x, w):
+        xc, wc = qa.cast(x), qa.cast(w)
+        if xc.dtype == wc.dtype == torch.bfloat16:
+            y = qmatmul(xc.reshape(-1, x.shape[-1]).contiguous(), wc.contiguous())
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+    return qa.einsum("...d,df->...f", x, w)
+
+
 def dense(qa: QArith, p, x):
-    y = qa.einsum("...d,df->...f", x, p["kernel"])
+    y = project(qa, x, p["kernel"])
     if "bias" in p:
         y = qa.add(y, p["bias"])
     return y
@@ -97,9 +124,12 @@ def norm_init(kind: str, d: int, dtype=torch.float32, device=None):
 
 
 def norm_apply(qa: QArith, kind: str, p, x):
+    """On the kernel route RMSNorm's f32 mean of squares is
+    :func:`~repro_torch.kernels.row_mean_sq.row_mean_sq`, summed in an
+    order fixed by the row length."""
     if kind == "ln":
         return qa.layernorm(x, p["scale"], p["bias"])
-    return qa.rmsnorm(x, p["scale"])
+    return qa.rmsnorm(x, p["scale"], mean_sq=row_mean_sq if _kernel_route(x) else None)
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +299,41 @@ def flash_attention(qa: QArith, q, k, v, *, q_offset=0, causal=True,
     return qa.cast(out.transpose(1, 2))
 
 
+def attention_as_lanes(q, k_cache, v_cache, k_pos, q_pos, *, window=None,
+                       softcap=None, p_dtype=torch.bfloat16):
+    """Every query row of ``q`` (B,S,Hq,D) as a decode lane of its own:
+    B·S lanes, lane b·S+i at position ``q_pos[b, i]`` (−1 ⇒ exact zeros)
+    reading lane b's contiguous cache in place (the decode kernel's lane →
+    cache-row map; none for S=1). A row's visible keys, and so the kernel's
+    split of them, are those of the single-token step at its position, so
+    the row gets that step's bits. One launch of
+    :func:`~repro_torch.kernels.decode_attention.fused_decode_attention`
+    (its plain version for CPU tensors); returns f32 (B,S,Hq,D), unrounded."""
+    B, S = q.shape[:2]
+    lanes = None if S == 1 else torch.arange(
+        B, dtype=torch.int32, device=q.device).repeat_interleave(S)
+    out = fused_decode_attention(q.reshape(B * S, 1, *q.shape[2:]).contiguous(), k_cache,
+                                 v_cache, k_pos, q_pos.reshape(B * S).to(torch.int32),
+                                 lane_rows=lanes, window=window, softcap=softcap,
+                                 p_dtype=p_dtype)
+    return out.reshape(q.shape)
+
+
+def paged_attention_as_lanes(q, k_pages, v_pages, pos_pages, block_table, q_pos, *,
+                             window=None, softcap=None, p_dtype=torch.bfloat16):
+    """:func:`attention_as_lanes` over the paged pool: lane b·S+i takes
+    lane b's block-table row (repeated S times). One launch of
+    :func:`~repro_torch.kernels.decode_attention.fused_paged_decode_attention`
+    (its plain version for CPU tensors); returns f32 (B,S,Hq,D)."""
+    B, S = q.shape[:2]
+    table = block_table if S == 1 else block_table.repeat_interleave(S, dim=0)
+    out = fused_paged_decode_attention(
+        q.reshape(B * S, 1, *q.shape[2:]).contiguous(), k_pages, v_pages, pos_pages,
+        table.contiguous(), q_pos.reshape(B * S).to(torch.int32), window=window,
+        softcap=softcap, p_dtype=p_dtype)
+    return out.reshape(q.shape)
+
+
 def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
                      window=None, softcap=None):
     """Attention of one query token, or a chunk of them, per lane against
@@ -276,21 +341,22 @@ def decode_attention(qa: QArith, q, k_cache, v_cache, k_pos, *, q_pos,
 
     q: (B,S,Hq,D); caches: (B,Sc,Hkv,D); k_pos: (B,Sc) i32 (−1 ⇒ empty
     cell); q_pos: (B,) i32 for S=1 (−1 ⇒ parked lane) or (B,S) per-query
-    positions (−1 ⇒ masked query row: chunk padding). S=1 inside a
-    :func:`repro_torch.kernels.dispatch.fused_decode` context runs the
-    fused decode kernel; otherwise its plain PyTorch version. Both give
-    the same op order and one output rounding. S>1 (chunked prefill)
-    always takes the plain multi-query path: every query row masks the
-    same (Sc,) cache axis, so a row reduces over the keys as the S=1
-    path does (reference ``layers.py:358-379``).
+    positions (−1 ⇒ masked query row: chunk padding). Inside a
+    :func:`repro_torch.kernels.dispatch.fused_decode` context S=1 runs the
+    fused decode kernel, and on CUDA so does S>1 (chunked prefill), each
+    query row a lane of its own (:func:`attention_as_lanes`; padding rows
+    give zeros). Otherwise S=1 runs the kernel's plain version and S>1 the
+    plain multi-query path: every query row masks the same (Sc,) cache
+    axis, so a row reduces over the keys as the S=1 path does (reference
+    ``layers.py:358-379``). All give one output rounding.
     """
     B, S = q.shape[:2]
+    if dispatch.fused_decode_enabled() and (S == 1 or q.device.type == "cuda"):
+        return qa.cast(attention_as_lanes(q, k_cache, v_cache, k_pos, q_pos, window=window,
+                                          softcap=softcap, p_dtype=qa.dtype))
     if S == 1:
-        q_pos = q_pos.reshape(B)
-        attend = (fused_decode_attention if dispatch.fused_decode_enabled()
-                  else decode_attention_ref)
-        out = attend(q, k_cache, v_cache, k_pos, q_pos, window=window,
-                     softcap=softcap, p_dtype=qa.dtype)
+        out = decode_attention_ref(q, k_cache, v_cache, k_pos, q_pos.reshape(B),
+                                   window=window, softcap=softcap, p_dtype=qa.dtype)
         return qa.cast(out)
     Hq, D = q.shape[2:]
     Hkv = k_cache.shape[2]
@@ -361,9 +427,11 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None
       a real token aimed at an unmapped block) go to the null row with
       position −1, so its positions stay −1 and gathered null blocks mask
       out. Token at logical position p lands at view index p, so the paged
-      view equals a contiguous cache of the same length. S=1 inside
-      ``fused_decode`` runs the paged kernel on the pool; otherwise the
-      gathered view ``pages[block_table]`` goes to :func:`decode_attention`.
+      view equals a contiguous cache of the same length. Inside
+      ``fused_decode`` the paged kernel runs on the pool for S=1, and on
+      CUDA for S>1 too, each query row a lane
+      (:func:`paged_attention_as_lanes`); otherwise the gathered view
+      ``pages[block_table]`` goes to :func:`decode_attention`.
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -394,8 +462,8 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None
         kp[page, off] = k.reshape(B * S, cfg.n_kv_heads, hd).to(kp.dtype)
         vp[page, off] = v.reshape(B * S, cfg.n_kv_heads, hd).to(vp.dtype)
         pp[page, off] = torch.where(write, tpos, -1).reshape(-1)
-        if S == 1 and dispatch.fused_decode_enabled():
-            out = qa.cast(fused_paged_decode_attention(
+        if dispatch.fused_decode_enabled() and (S == 1 or x.device.type == "cuda"):
+            out = qa.cast(paged_attention_as_lanes(
                 q, kp, vp, pp, block_table, q_pos, window=window,
                 softcap=cfg.attn_logit_softcap, p_dtype=qa.dtype))
         else:

@@ -9,7 +9,7 @@ import math
 import torch
 
 from repro_torch.core.qarith import QArith
-from repro_torch.models.layers import _normal
+from repro_torch.models.layers import _normal, project
 
 __all__ = ["mlp_init", "mlp_apply"]
 
@@ -24,8 +24,8 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
 
 
 def mlp_apply(qa: QArith, p, x, act: str = "silu"):
-    g = qa.einsum("...d,df->...f", x, p["w_gate"])
-    u = qa.einsum("...d,df->...f", x, p["w_up"])
+    g = project(qa, x, p["w_gate"])
+    u = project(qa, x, p["w_up"])
     a = qa.silu(g) if act == "silu" else qa.gelu(g)
     h = qa.mul(a, u)
-    return qa.einsum("...f,fd->...d", h, p["w_down"])
+    return project(qa, h, p["w_down"])

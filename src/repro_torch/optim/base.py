@@ -11,10 +11,15 @@ inputs, f32 accumulator, output rounded once to the storage format.
 
 Randomness. The reference splits one JAX key per leaf; the port keys one
 random stream per leaf instead: :class:`StepKey` ``(seed, step)`` gives
-leaf ``i`` a ``torch.Generator`` seeded from ``(seed, step, i)``, from
-which :meth:`LeafNoise.bits` draws the leaf's u32 SR bits. The bits differ
-from ``jax.random``'s; to compare with the reference bit for bit, pass a
-:class:`GivenKey` holding the reference's own bits.
+leaf ``i`` a 64-bit seed mixed from ``(seed, step, i)``, and its u32 SR
+bits are the words of that seed's Philox4x32-10 stream
+(:mod:`repro_torch.kernels.philox`: element k takes word k % 4 of block
+k // 4). :meth:`LeafNoise.bits` fills them (the ``philox`` kernel on the
+card); the fused AdamW kernel draws the same words itself from the seed,
+so the non-fused optimizers, fused SGD and fused AdamW all round with the
+same bits. The bits differ from ``jax.random``'s; to compare with the
+reference bit for bit, pass a :class:`GivenKey` holding the reference's
+own bits.
 
 On the card, ``q_sr`` onto native bf16 launches the ``sr_cast`` CUDA kernel
 with those bits (the same function as the reference's bf16 bit trick).
@@ -31,9 +36,9 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.formats import (FloatFormat, random_bits, round_nearest,
-                                      round_stochastic)
+from repro_torch.core.formats import FloatFormat, round_nearest, round_stochastic
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.kernels.philox import philox_bits
 from repro_torch.kernels.sr_cast import sr_cast
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -58,23 +63,21 @@ def _mix(*ints: int) -> int:
 
 
 class LeafNoise:
-    """The SR randomness of one leaf: u32 bits (int32) and, for the fp16 and
-    small-exponent grids, f32 uniforms — each from its own generator seeded
-    from the leaf's seed, on the device it is drawn for."""
+    """The SR randomness of one leaf: u32 bits (int32), the Philox stream of
+    the leaf's 64-bit ``seed``, and, for the fp16 and small-exponent grids,
+    f32 uniforms from a generator seeded from it, on the device they are
+    drawn for. A kernel that draws its own bits takes ``seed``."""
 
     def __init__(self, seed: int):
         self.seed = seed
 
-    def _gen(self, stream: int, device) -> torch.Generator:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(_mix(self.seed, stream))
-        return gen
-
     def bits(self, shape, device) -> torch.Tensor:
-        return random_bits(shape, generator=self._gen(0, device), device=device)
+        return philox_bits(self.seed, shape, device)
 
     def uniform(self, shape, device) -> torch.Tensor:
-        return torch.rand(shape, generator=self._gen(1, device), device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(_mix(self.seed, 1))
+        return torch.rand(shape, generator=gen, device=device)
 
 
 class StepKey(NamedTuple):
@@ -87,6 +90,8 @@ class StepKey(NamedTuple):
 
 
 class _GivenNoise:
+    seed = None            # no stream: the bits are given
+
     def __init__(self, bits, uniform):
         self._bits, self._uniform = bits, uniform
 

@@ -10,9 +10,12 @@ grid). Given the same per-leaf bits, the result equals the reference
 optimizers' bit for bit: the kernels round every op as they do and
 contract no multiply-add.
 
-Each leaf's SR bits are drawn (``key.leaf(i).bits``), used and freed
-before the next leaf's, and w, m, v, c are updated in place, so a step
-holds no second copy of the optimizer state. The shard-local mode of the
+Fused AdamW draws a ``StepKey`` leaf's SR bits inside its kernel from the
+leaf's seed (the Philox stream that ``LeafNoise.bits`` fills), so they never
+pass through device memory; a ``GivenKey`` leaf's bits are read from its
+tensor. Fused SGD takes each leaf's bits from ``key.leaf(i).bits``, used
+and freed before the next leaf's. w, m, v, c are updated in place, so a
+step holds no second copy of the optimizer state. The shard-local mode of the
 reference (``mesh=``/``pspecs=``) is ported with the ``dist`` slice.
 """
 from __future__ import annotations
@@ -94,11 +97,15 @@ def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
             c1f, c2f = float(c1), float(c2)       # one host read per step
             for i, (w, g, m, v, c) in enumerate(_leaves(params, grads, state.m, state.v,
                                                         state.kahan_c)):
-                bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
-                fused_adamw(w, m, v, g.to(torch.bfloat16), c=c, bits=bits,
-                            stochastic=stochastic, lr=lr, b1=b1q, b2=b2q, eps=eps,
-                            wd=weight_decay, c1=c1f, c2=c2f)
-                del bits
+                noise = dict()
+                if stochastic:
+                    leaf = key.leaf(i)
+                    noise = (dict(seed=leaf.seed) if leaf.seed is not None
+                             else dict(bits=leaf.bits(w.shape, w.device)))
+                fused_adamw(w, m, v, g.to(torch.bfloat16), c=c, stochastic=stochastic,
+                            lr=lr, b1=b1q, b2=b2q, eps=eps, wd=weight_decay, c1=c1f,
+                            c2=c2f, **noise)
+                del noise
         return params, AdamWState(state.m, state.v, c1, c2, state.kahan_c)
 
     return Optimizer(f"fused_adamw[{policy.name}]", policy, init, update)

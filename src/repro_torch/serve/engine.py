@@ -45,10 +45,16 @@ consumed the last prompt token. Under nearest rounding the engine with
 ``prefill_chunk=1`` is token-for-token identical to lock-step
 :func:`repro_torch.serve.decode.generate` run at the engine's lane count,
 paged or not, prefix hits included: a paged lane's gathered view is
-index for index the contiguous cache. A chunk step multiplies N·C rows
-where a single-token step multiplies N, and matmul rows depend on the
-row count (ROADMAP C6), so chunked prefill is held to the unchunked
-engine at the logit level (ROADMAP C10, tests/test_torch_paged_engine.py).
+index for index the contiguous cache. A chunk step carries N·C token rows
+where a single-token step carries N. With ``fused_decode`` on the card
+every op of the step gives a row the same bits at either count (the
+dense products on ``qmatmul``, RMSNorm's mean on ``row_mean_sq``, the
+chunk's attention on the decode kernels with each query row a lane;
+ROADMAP C10), so chunked prefill gives the unchunked engine's tokens bit
+for bit (``chip_smoke.py``, tests/test_torch_cuda.py). On the CPU the
+step is the reference's own arithmetic, whose matmul rows depend on the
+row count (C6), so there chunked prefill is held to the unchunked engine
+at the logit level (tests/test_torch_paged_engine.py).
 """
 from __future__ import annotations
 
@@ -227,8 +233,11 @@ class Engine:
     ``n_slots`` bounds concurrency, ``max_len`` bounds per-request
     ``len(prompt) + max_new_tokens``. The engine runs on ``device`` (CUDA
     unless ``"cpu"``), where ``params`` must live; the KV pool is
-    allocated there once. ``fused_decode=True`` runs single-token decode
-    attention through the CUDA kernel (its plain version on the CPU).
+    allocated there once. ``fused_decode=True`` runs the serve step
+    inside :func:`repro_torch.kernels.dispatch.fused_decode`: decode
+    attention through the CUDA kernels (their plain versions on the CPU)
+    and, on CUDA, the dense products, norms and chunk attention on their
+    row-independent kernels.
 
     ``paged=True`` backs full-context attention layers with a
     :class:`~repro_torch.serve.paged.PagedCachePool` (``page_size`` tokens

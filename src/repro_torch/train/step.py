@@ -157,9 +157,12 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     token −1. The cache is updated in place and returned.
 
     ``fused_decode=True`` runs the step inside
-    :func:`repro_torch.kernels.dispatch.fused_decode`, so single-token
-    attention against the pool goes through the CUDA decode kernel (the
-    paged kernel for a paged pool).
+    :func:`repro_torch.kernels.dispatch.fused_decode`, so attention
+    against the pool goes through the CUDA decode kernel (the paged kernel
+    for a paged pool; on CUDA a prefill chunk too, each query row a lane),
+    and on CUDA the dense products through ``qmatmul`` and RMSNorm's mean
+    through ``row_mean_sq``: a token row gets the same bits at every
+    chunk width (ROADMAP C10).
 
     ``paged=True`` expects the paged cache layout
     (:func:`repro_torch.models.transformer.init_cache`) and keyword inputs

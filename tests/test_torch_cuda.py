@@ -41,11 +41,11 @@ FS = importlib.import_module("repro_torch.kernels.fused_sgd")
 QM = importlib.import_module("repro_torch.kernels.qmatmul")
 SC = importlib.import_module("repro_torch.kernels.sr_cast")
 
+PH = importlib.import_module("repro_torch.kernels.philox")
+RM = importlib.import_module("repro_torch.kernels.row_mean_sq")
+
 pytestmark = pytest.mark.cuda
 TOL = 1e-2
-# a chunked-prefill token may part from the chunk-1 token only where the
-# chunk-1 model prefers its own token by at most this in logit (ROADMAP C10)
-CHUNK_LOGIT_TOL = 0.125
 # on long views an output is ~sqrt(e/keys), about TOL itself, so there the
 # kernel is also held, lane by lane, to REL_RMS of the RMS of the plain
 # version's output in that lane
@@ -123,7 +123,11 @@ def test_engine_matches_generate_on_the_card(cuda):
     before = DA.LAUNCHES
     done = eng.run()
     assert eng.graphs[1].replays == eng.stats.steps - 1       # the first step is eager
-    assert eng.graphs[1].kernels == {"decode_attention": cfg.n_layers}
+    # the serve step's kernels: decode attention per layer, qmatmul for its
+    # seven products, row_mean_sq under its two norms and the final one
+    assert eng.graphs[1].kernels == {"decode_attention": cfg.n_layers,
+                                     "qmatmul": 7 * cfg.n_layers,
+                                     "row_mean_sq": 2 * cfg.n_layers + 1}
     assert _run_launches(eng, "decode_attention", DA.LAUNCHES - before) \
         == cfg.n_layers * eng.stats.steps
     groups = {}
@@ -258,15 +262,18 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
         before = DA.PAGED_LAUNCHES
         done = eng.run()
         launched = _run_launches(eng, "paged_decode_attention", DA.PAGED_LAUNCHES - before)
-        return {c.rid: c.tokens for c in done}, eng, launched, _width_steps(eng, 1)
+        steps = sum(_width_steps(eng, w) for w in eng.graphs)
+        return {c.rid: c.tokens for c in done}, eng, launched, steps
 
     for chunk in (1, 4):
         want, _, launched, _ = run(prefill_chunk=chunk)
         assert launched == 0
-        got, eng, launched, single = run(prefill_chunk=chunk, paged=True, page_size=4,
-                                         n_pages=20)
+        got, eng, launched, steps = run(prefill_chunk=chunk, paged=True, page_size=4,
+                                        n_pages=20)
         assert eng.stats.preemptions >= 1 and eng.stats.prefix_hits >= 1
-        assert launched == cfg.n_layers * single
+        # one paged launch per layer in every serve step: a chunk step runs
+        # its query rows as lanes of the paged kernel too
+        assert launched == cfg.n_layers * steps
         for rid in want:
             assert np.array_equal(got[rid], want[rid]), (chunk, rid)
 
@@ -310,52 +317,115 @@ def test_graph_engine_equals_the_eager_step(cuda, config):
         assert np.array_equal(got[rid], want[rid]), rid
 
 
-def test_chunk_32_graph_engine_is_held_to_chunk_1_at_the_logit_level(cuda):
-    """ROADMAP C10 on the card: the paged graph engine with
-    ``prefill_chunk=32`` gives the chunk-1 engine's tokens, or parts from
-    them only where the chunk-1 model's top choice beats the chunked
-    run's token by at most CHUNK_LOGIT_TOL (the teacher-forced logits at
-    the engine's lane count reproduce the chunk-1 tokens first)."""
-    from repro_torch.core.qarith import QArith
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_chunk_32_graph_engine_equals_chunk_1(cuda, paged):
+    """ROADMAP C10 on the card: the graph engine with ``prefill_chunk=32``
+    gives exactly the chunk-1 engine's tokens, contiguous and paged: on
+    the kernel route a token row gets the same bits at every row count."""
     policy = get_policy("bf16_standard")
     cfg = R.get_config("qwen2.5-3b").reduced()
     params = R.init(cfg, 0, policy.param_dtype)
     rng = np.random.default_rng(2)
     stream = [(rng.integers(0, cfg.vocab, s).astype(np.int32), g)
               for s, g in zip((40, 25, 33, 12, 37, 21), (6, 9, 5, 8, 7, 6))]
-    n_slots, max_len = 3, 64
+    kw = dict(paged=True, page_size=4, n_pages=64) if paged else {}
 
     def run(chunk):
-        eng = Engine(params, cfg, policy, n_slots=n_slots, max_len=max_len,
-                     fused_decode=True, paged=True, page_size=4, n_pages=64,
-                     prefill_chunk=chunk)
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=64, fused_decode=True,
+                     prefill_chunk=chunk, **kw)
         for p, g in stream:
             eng.submit(p, g)
         done = {c.rid: c.tokens for c in eng.run()}
         assert set(eng.graphs) == {1, chunk}
-        return done
+        return done, eng
 
-    want, got = run(1), run(32)
+    (want, one), (got, chunked) = run(1), run(32)
+    assert chunked.stats.steps < one.stats.steps
+    for rid in want:
+        assert np.array_equal(got[rid], want[rid]), rid
+
+
+def test_chunk_step_equals_single_token_steps_on_the_card(cuda):
+    """One chunk step ≡ its tokens fed one by one: every layer's K, V and
+    positions and the last row's logits, bit for bit."""
+    from repro_torch.core.qarith import QArith
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 1, policy.param_dtype)
     qa = QArith(policy)
-    for rid, (prompt, _) in enumerate(stream):
-        if np.array_equal(got[rid], want[rid]):
-            continue
-        t = int(np.argmax(got[rid] != want[rid]))
-        seq = np.concatenate([prompt, want[rid][:t]])
-        rows = np.zeros((n_slots, seq.size), np.int32)
-        rows[0] = seq
-        tokens = torch.from_numpy(rows).to(cuda)
-        cache = R.make_cache(params, cfg, batch_size=n_slots, max_len=max_len,
-                             dtype=policy.compute_dtype)
-        with dispatch.fused_decode():
-            for i in range(seq.size):
-                pos = torch.full((n_slots,), i, dtype=torch.int32, device=cuda)
-                logits, cache = R.decode(qa, params, cfg, tokens[:, i:i + 1], cache, pos)
-                if i >= prompt.size - 1:
-                    assert int(logits[0, 0].argmax()) == int(want[rid][i - prompt.size + 1])
-        last = logits[0, 0].float()
-        margin = float(last[int(want[rid][t])] - last[int(got[rid][t])])
-        assert 0 <= margin <= CHUNK_LOGIT_TOL, (rid, t, margin)
+    C = 12
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (3, C))
+                            .astype(np.int32)).to(cuda)
+    caches, logits = [], []
+    with dispatch.fused_decode():
+        for chunk in (1, C):
+            cache = R.make_cache(params, cfg, batch_size=3, max_len=48,
+                                 dtype=policy.compute_dtype)
+            for t in range(0, C, chunk):
+                pos = torch.arange(t, t + chunk, dtype=torch.int32, device=cuda)
+                pos = pos[None].expand(3, chunk).contiguous()
+                rows = torch.full((3,), chunk - 1, device=cuda)
+                out, cache = R.decode(qa, params, cfg, toks[:, t:t + chunk], cache,
+                                      pos if chunk > 1 else pos[:, 0], out_rows=rows)
+            logits.append(out)
+            caches.append(cache["layers"]["b0"])
+    for a, b in zip(*caches):
+        assert torch.equal(a, b)
+    assert torch.equal(logits[0], logits[1])
+
+
+def test_decode_kernel_lane_map_equals_the_gathered_cache(cuda):
+    q, k, v, k_pos, q_pos = _inputs(cuda, B=4, Sc=300, G=8, D=128)
+    rows = torch.tensor([3, 0, 3, 1, 2, 0], dtype=torch.int32, device=cuda)
+    ql = q[rows.long()].contiguous()
+    qp = q_pos[rows.long()].clone()
+    qp[4] = -1                                             # a parked lane
+    got = DA.fused_decode_attention(ql, k, v, k_pos, qp, lane_rows=rows)
+    r = rows.long()
+    want = DA.fused_decode_attention(ql, k[r].contiguous(), v[r].contiguous(),
+                                     k_pos[r].contiguous(), qp)
+    assert torch.equal(got, want)
+    assert bool((got[4] == 0).all())
+    torch.testing.assert_close(got, DA.decode_attention_ref(ql, k, v, k_pos, qp, lane_rows=rows),
+                               atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="lane_rows"):
+        DA.fused_decode_attention(ql, k, v, k_pos, qp, lane_rows=rows.long())
+
+
+def test_chunk_rows_as_lanes_equal_single_token_calls(cuda):
+    """Each row of a chunk, run as a lane of its own (contiguous and paged),
+    ≡ the single-token kernel over a cache holding positions up to its own."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, Sc, P = 3, 16, 64, 8
+    q = torch.randn((B, S, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k = torch.randn((B, Sc, 2, 128), generator=g, device=cuda).to(torch.bfloat16)
+    v = torch.randn((B, Sc, 2, 128), generator=g, device=cuda).to(torch.bfloat16)
+    depth = torch.tensor([0, 7, 30], dtype=torch.int32, device=cuda)
+    q_pos = depth[:, None] + torch.arange(S, dtype=torch.int32, device=cuda)[None]
+    q_pos[1, 10:] = -1
+    cells = torch.arange(Sc, dtype=torch.int32, device=cuda)[None]
+    k_pos = torch.where(cells <= q_pos.amax(1, keepdim=True), cells, -1).contiguous()
+    got = L.attention_as_lanes(q, k, v, k_pos, q_pos)
+    for b in range(B):
+        for i in range(S):
+            p = int(q_pos[b, i])
+            if p < 0:
+                assert bool((got[b, i] == 0).all())
+                continue
+            kp = torch.where(k_pos[b:b + 1] <= p, k_pos[b:b + 1], -1).contiguous()
+            one = DA.fused_decode_attention(q[b:b + 1, i:i + 1].contiguous(), k[b:b + 1],
+                                            v[b:b + 1], kp, q_pos[b:b + 1, i])
+            assert torch.equal(one[0, 0], got[b, i]), (b, i)
+    perm = torch.randperm(B * Sc // P, generator=g, device=cuda)
+
+    def pool(t):
+        out = torch.empty((B * Sc // P, P, *t.shape[2:]), dtype=t.dtype, device=cuda)
+        out[perm] = t.reshape(B * Sc // P, P, *t.shape[2:])
+        return out
+    table = perm.reshape(B, Sc // P).to(torch.int32)
+    paged = L.paged_attention_as_lanes(q, pool(k), pool(v), pool(k_pos), table, q_pos)
+    assert torch.equal(paged, got)
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +551,53 @@ def test_fused_sgd_kernel_matches_plain(cuda, n, stochastic, kahan):
     for a, b in zip(got, want):
         if b is not None:
             _same(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
+def test_philox_fill_matches_plain(cuda, n):
+    seed = 0x0123_4567_89AB_CDEF
+    before = PH.LAUNCHES
+    got = PH.philox_bits(seed, (n,), cuda)
+    torch.cuda.synchronize()
+    assert PH.LAUNCHES == before + 1
+    assert torch.equal(got, PH.philox_bits_ref(seed, n, cuda))
+
+
+@pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
+@pytest.mark.parametrize("offset", [(0, 0), (3, 3), (1, 0)], ids=["aligned", "head", "mixed"])
+@pytest.mark.parametrize("kahan", [False, True])
+def test_seeded_fused_adamw_kernel_matches_plain(cuda, n, offset, kahan):
+    """The bits drawn in the kernel (Philox, vector body, scalar head and
+    tail, tensors of unequal alignment) ≡ the plain version on the seed."""
+    x = _state(cuda, n, n + 2)
+
+    def at(t, off):
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device=cuda)
+        buf[off:].copy_(t)
+        return buf[off:]
+    y = {k: at(t, offset[1] if k == "g" else offset[0]) for k, t in x.items() if k != "bits"}
+    seed = 0xFEDC_BA98_7654_3210 + n
+    c = y["c"] if kahan else None
+    want = FA.fused_adamw_ref(y["w"], y["m"], y["v"], y["g"], c=c, seed=seed, **ADAMW_HP)
+    got = FA.fused_adamw(y["w"], y["m"], y["v"], y["g"], c=c, seed=seed, **ADAMW_HP)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if b is not None:
+            _same(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 2048), (8, 2048), (256, 2048), (5, 77), (3, 4, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_mean_sq_kernel_matches_plain(cuda, shape, dtype):
+    x = (torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda) * 3).to(dtype)
+    before = RM.LAUNCHES
+    got = RM.row_mean_sq(x)
+    torch.cuda.synchronize()
+    assert RM.LAUNCHES == before + 1
+    assert torch.equal(got, RM.row_mean_sq_ref(x))
+    rows = x.reshape(-1, shape[-1])
+    assert torch.equal(RM.row_mean_sq(rows[:1].contiguous()), got.reshape(-1, 1)[:1])
 
 
 def test_update_wrappers_reject_what_the_kernels_cannot_take(cuda):
