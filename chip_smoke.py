@@ -53,7 +53,8 @@ Phases, each printing its lines (a failed check exits non-zero):
    run must have made that many per serve step (the launches of the eager
    first step plus the graph's per replay), and the tokens must equal the
    eager step's and the port's ``generate`` (same kernels, batched to the
-   engine's 8 rows) bit for bit; then the same stream with
+   engine's 8 rows) bit for bit, and the run captures no logits graph
+   (greedy traffic); then the same stream with
    ``prefill_chunk=32`` (graphs of widths 1 and 32): tokens equal to the
    chunk-1 run's on every request, 36 decode launches per step at both
    widths, ms per step of each width;
@@ -132,7 +133,35 @@ Phases, each printing its lines (a failed check exits non-zero):
     ``sr_cast`` launched by the non-fused path and ``philox`` once per leaf
     by each optimizer but fused AdamW; then whether the card's
     embedding backward (``index_put_`` with accumulation, bf16) equals the
-    CPU's bf16 scatter-add.
+    CPU's bf16 scatter-add;
+12. sample (main path of sampled serving; it runs after the serving runs
+    of phase 7 and before their profiles): the serve and serve-paged
+    streams with every other request sampled (temperature 0.8, top-k 50,
+    top-p 0.95, seed 1): graphs of width 1 with and without the logits
+    (the greedy-only runs of phases 6 and 7 must capture none with them),
+    a Philox fill per sampled token; (a) the greedy requests' tokens ==
+    the greedy-only runs', request by request; (b) a second fresh engine
+    draws the same tokens, seed 2 changes at least one request; (c) 64
+    pages with ``prefill_chunk=32`` (≥ 1 preemption) == 512 pages with
+    chunk 1 == 64 pages with chunk 1; (d) 20000 draws from one real
+    logits row at positions 0–19999: the card's sampler == the CPU plain
+    path on ≥ 99.9% of draws (mismatches printed), every kept token within
+    5σ of the exact filtered softmax, none outside the support; (e) ms per
+    replayed step of each (width, with_logits), the sampler's ms per step
+    (CUDA events), tok/s beside the greedy stream's, device memory after
+    capture;
+13. ckpt (main path of checkpointed training; it runs last): the train
+    cell cut to 2 layers (465 M parameters) through the launcher's
+    ``build`` and ``train`` with ``--ckpt-every 2``, keep-N 2, under a
+    temporary directory removed at the end (its free space printed first):
+    (a) two uninterrupted 6-step runs, the second checkpointing
+    asynchronously, agree bitwise on every leaf and loss; (b) SIGTERM at
+    step 3 returns preempted with a checkpoint at step 4, and a fresh
+    ``build`` resumes and finishes equal to the uninterrupted run, leaf for
+    leaf and loss for loss; (c) a ``--sync-ckpt`` checkpoint restores to
+    the async one's state; prints the checkpoint's bytes, the snapshot's
+    ms, the commit's s, ms per step with a commit in flight against the
+    same steps without checkpoints, and the restore's s.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -166,6 +195,9 @@ PAGED_MAX_LEN = 1024        # the paged engine's max_len: its views are 64 pages
 PAGED_N_PAGES = 64          # below byte parity (8 x 64 = 512), so the run preempts
 LONG_VIEW = 32768           # qwen2.5-3b's max_position_embeddings: the longest view timed
 CHUNK = 32                  # the chunked reruns' prefill chunk
+# the sample phase: every other request of the serve streams samples so
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, seed=1)
+SAMPLE_DRAWS = 20000        # draws on one logits row, card against the CPU
 SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd", "qmatmul", "philox",
            "row_mean_sq")
 KERNELS = ("decode_attention", "paged_decode_attention", "sr_cast", "fused_adamw",
@@ -205,6 +237,12 @@ HP_SGD = dict(lr=0.1, momentum=0.9, wd=1e-4)
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
               "--batch", "2", "--seq", "2048", "--steps", "8", "--lr", "3e-3",
               "--seed", "0", "--device", "cuda"]
+# the ckpt phase: the train cell at full width, depth cut to CKPT_LAYERS
+CKPT_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
+    "--steps", "6", "--lr", "3e-3", "--seed", "0", "--device", "cuda", "--ckpt-every", "2"]
+CKPT_LAYERS = 2
+CKPT_KEEP = 2
+CKPT_SIGTERM_AT = 3
 
 
 def kernel_module(name: str):
@@ -467,42 +505,51 @@ def phase_kernel(card: str) -> dict:
 
 def run_launches(eng, name: str, counted: int) -> int:
     """Launches of kernel ``name`` that a serve run really made: its
-    wrapper's count over the run (each width's eager first step and its
-    capture) less the captures, plus each graph's replays times the
+    wrapper's count over the run (each step variant's eager first step and
+    its capture) less the captures, plus each graph's replays times the
     launches it holds."""
     per = {w: g.kernels.get(name, 0) for w, g in eng.graphs.items()}
     return counted - sum(per.values()) + sum(g.replays * per[w] for w, g in eng.graphs.items())
 
 
-def width_steps(eng, width: int) -> int:
-    """Serve steps of one token width: the eager first step, then replays."""
-    g = eng.graphs.get(width)
+def width_steps(eng, width: int, with_logits: bool = False) -> int:
+    """Serve steps of one step variant: the eager first step, then replays."""
+    g = eng.graphs.get((width, with_logits))
     return 0 if g is None else 1 + g.replays
 
 
+def variant(key) -> str:
+    """A step variant's name: its token width, and whether it returns the
+    logits (an engine of a tree before sampling keys its steps by width)."""
+    if isinstance(key, tuple):
+        return f"width {key[0]}" + (" + logits" if key[1] else "")
+    return f"width {key}"
+
+
 def step_times(eng) -> dict:
-    """Record the host wall of each serve-step call of ``eng`` by token
-    width (the call ends in the read of its tokens, a sync): {width:
-    [seconds, ...]}, the width's eager first step first. The wrapper holds
-    the engine weakly, so dropping the engine frees it (its pool, graphs
-    and the weights it holds) without waiting for the cycle collector."""
+    """Record the host wall of each serve-step call of ``eng`` by step
+    variant (the call ends in the read of its tokens, a sync, after the
+    sampler): {key: [seconds, ...]}, the variant's eager first step first.
+    The wrapper holds the engine weakly, so dropping the engine frees it
+    (its pool, graphs and the weights it holds) without waiting for the
+    cycle collector."""
     import weakref
     times, ref, serve = {}, weakref.ref(eng), type(eng)._serve
 
-    def timed(width, args):
+    def timed(key, *args):
         t0 = time.perf_counter()
-        out = serve(ref(), width, args)
-        times.setdefault(width, []).append(time.perf_counter() - t0)
+        out = serve(ref(), key, *args)
+        times.setdefault(key, []).append(time.perf_counter() - t0)
         return out
     eng._serve = timed
     return times
 
 
 def width_ms(times: dict) -> str:
-    """Mean ms per replayed step of each width (the eager first step and
-    the capture left out)."""
-    return ", ".join(f"width {w}: {1e3 * sum(t[1:]) / max(len(t) - 1, 1):.2f} ms per "
-                     f"replayed step over {len(t) - 1}" for w, t in sorted(times.items()))
+    """Mean ms per replayed step of each step variant (the eager first
+    step and the capture left out)."""
+    return ", ".join(f"{variant(k)}: {1e3 * sum(t[1:]) / max(len(t) - 1, 1):.2f} ms per "
+                     f"replayed step over {len(t) - 1}" for k, t in sorted(times.items()))
 
 
 SERVE_KERNELS = {"qmatmul": 7, "row_mean_sq": 2}   # per layer; one more row_mean_sq: the final norm
@@ -518,9 +565,9 @@ def step_kernels(cfg, decode: str) -> dict:
 
 
 def graph_summary(eng) -> str:
-    return "; ".join(f"width {w}: 1 eager step + {g.replays} graph replays, "
+    return "; ".join(f"{variant(k)}: 1 eager step + {g.replays} graph replays, "
                      f"{sum(g.kernels.values())} hand-written kernel launches per replay "
-                     f"{dict(g.kernels)}" for w, g in sorted(eng.graphs.items()))
+                     f"{dict(g.kernels)}" for k, g in sorted(eng.graphs.items()))
 
 
 def serve_model():
@@ -680,12 +727,21 @@ def phase_row_probe(card: str, params, cfg, policy) -> dict:
     return row
 
 
+def main_stream(vocab: int):
+    """12 requests from the synthetic stream (seed 0, Poisson 1.0 per step,
+    prompts 16–64, generations 16–48): the contiguous serving cell."""
+    import numpy as np
+    from repro_torch.launch.serve import synthetic_stream
+    return synthetic_stream(np.random.default_rng(0), 12, rate=1.0, prompt_lens=(16, 64),
+                            gen_lens=(16, 48), vocab=vocab)
+
+
 def phase_main_path(card: str, params, cfg, policy) -> tuple:
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import serve_stream, synthetic_stream
+    from repro_torch.launch.serve import serve_stream
     from repro_torch.serve.decode import generate
     from repro_torch.serve.engine import Engine
 
@@ -700,9 +756,7 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
     warm.run()
     del warm
 
-    stream = synthetic_stream(np.random.default_rng(0), 12, rate=1.0,
-                              prompt_lens=(16, 64), gen_lens=(16, 48),
-                              vocab=cfg.vocab)
+    stream = main_stream(cfg.vocab)
     # the eager step (no graphs) first: its time, and its tokens
     eager = engine()
     eager._use_graphs = False
@@ -726,11 +780,11 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
     st = eng.stats
     check(st.finished == len(stream) == len(res.completions),
           f"{st.finished}/{len(stream)} requests finished")
-    check(set(eng.graphs) == {1} and width_steps(eng, 1) == res.calls,
-          f"serve steps {res.calls}, graphs {eng.graphs}")
+    check(set(eng.graphs) == {(1, False)} and width_steps(eng, 1) == res.calls,
+          f"serve steps {res.calls}, graphs {eng.graphs} (greedy: no logits graph)")
     per_step = step_kernels(cfg, "decode_attention")
-    check(eng.graphs[1].kernels == per_step,
-          f"the step's graph holds {eng.graphs[1].kernels}, expected {per_step}")
+    check(eng.graphs[1, False].kernels == per_step,
+          f"the step's graph holds {eng.graphs[1, False].kernels}, expected {per_step}")
     for k, n in per_step.items():
         check(launches[k] == n * res.calls,
               f"{k} launches {launches[k]} != {n} x {res.calls} serve-step calls")
@@ -773,12 +827,14 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
 
     # ROADMAP C10: the same stream with chunked prefill gives the same tokens
     want = {c.rid: c.tokens for c in res.completions}
+    greedy = {"tokens": want, "tok_s": st.tokens_generated / res.seconds,
+              "ms": 1e3 * sum(times[1, False][1:]) / (len(times[1, False]) - 1)}
     chunked = Engine(params, cfg, policy, n_slots=n_slots, max_len=max_len,
                      fused_decode=True, prefill_chunk=CHUNK, device="cuda")
     times = step_times(chunked)
     DA.LAUNCHES = 0
     res32 = serve_stream(chunked, stream)
-    check(set(chunked.graphs) == {1, CHUNK}
+    check(set(chunked.graphs) == {(1, False), (CHUNK, False)}
           and width_steps(chunked, 1) + width_steps(chunked, CHUNK) == res32.calls,
           f"chunked run: {res32.calls} serve steps, graphs {chunked.graphs}")
     check(run_launches(chunked, "decode_attention", DA.LAUNCHES) == cfg.n_layers * res32.calls,
@@ -799,7 +855,7 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
     del chunked
     print(f"[main] peak device memory while serving and checking "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
-    return launches, eng
+    return launches, eng, greedy
 
 
 def _paged_inputs(n_blocks: int, seed: int, *, window=None, softcap=None):
@@ -1004,17 +1060,20 @@ def phase_serve_paged(card: str, params, cfg, policy) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     DA.PAGED_LAUNCHES = 0
+    times = step_times(eng)
     res = serve_stream(eng, stream)
     launches = run_launches(eng, "paged_decode_attention", DA.PAGED_LAUNCHES)
     report(f"paged (page {PAGE}, {PAGED_N_PAGES} pages, prefix cache, chunk 1)", eng, res)
     paged_tok = tokens(res)
     st = eng.stats
+    greedy = {"tokens": paged_tok, "tok_s": st.tokens_generated / res.seconds,
+              "ms": 1e3 * sum(times[1, False][1:]) / (len(times[1, False]) - 1)}
     check(st.steps == eager_steps, f"{st.steps} steps, the eager step took {eager_steps}")
     for rid in paged_tok:
         check(np.array_equal(paged_tok[rid], eager_tok[rid]),
               f"rid {rid}: graph {paged_tok[rid].tolist()} != eager {eager_tok[rid].tolist()}")
-    check(set(eng.graphs) == {1} and width_steps(eng, 1) == res.calls,
-          f"serve steps {res.calls}, graphs {eng.graphs}")
+    check(set(eng.graphs) == {(1, False)} and width_steps(eng, 1) == res.calls,
+          f"serve steps {res.calls}, graphs {eng.graphs} (greedy: no logits graph)")
     check(launches == cfg.n_layers * res.calls,
           f"paged kernel launches {launches} != {cfg.n_layers} x {res.calls} serve steps")
     check(st.preemptions >= 1, "the paged run never preempted")
@@ -1051,7 +1110,7 @@ def phase_serve_paged(card: str, params, cfg, policy) -> tuple:
     DA.PAGED_LAUNCHES = 0
     res = serve_stream(chunked, stream)
     report(f"paged + chunked prefill {CHUNK}", chunked, res)
-    check(set(chunked.graphs) == {1, CHUNK}
+    check(set(chunked.graphs) == {(1, False), (CHUNK, False)}
           and width_steps(chunked, 1) + width_steps(chunked, CHUNK) == res.calls,
           f"chunked run: {res.calls} serve steps, graphs {chunked.graphs}")
     chunk_launches = run_launches(chunked, "paged_decode_attention", DA.PAGED_LAUNCHES)
@@ -1070,7 +1129,207 @@ def phase_serve_paged(card: str, params, cfg, policy) -> tuple:
           f"{chunk_launches} paged launches ({cfg.n_layers} per step at both widths); tokens "
           f"== the chunk-1 run's for all {len(want)} requests")
     chunk_probe(params, cfg, policy, stream)
-    return launches, engine(**paged_kw)
+    return launches, engine(**paged_kw), greedy
+
+
+def sampler_events(eng) -> list:
+    """Record CUDA events around each call of ``eng``'s device sampler
+    (held weakly, as ``step_times`` holds the engine)."""
+    import weakref
+    import torch
+    events, ref, sample = [], weakref.ref(eng), type(eng)._sample
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sample(ref(), *args)
+        end.record()
+        events.append((start, end))
+        return out
+    eng._sample = timed
+    return events
+
+
+def phase_sample(card: str, params, cfg, policy, greedy: dict) -> int:
+    """Sampled serving at full width: every other request of the serve and
+    serve-paged streams samples (``SAMPLING``), the rest stay greedy.
+    (a) the greedy requests' tokens == the greedy-only runs'; (b) a fresh
+    engine reproduces every sampled request, another seed changes one;
+    (c) tight pages with ``prefill_chunk=32`` == roomy pages with chunk 1;
+    (d) one real logits row, ``SAMPLE_DRAWS`` draws: the card's sampler ==
+    the CPU plain path on ≥ 99.9%, frequencies within 5σ of the exact
+    filtered softmax, nothing outside the support; (e) ms per replayed
+    step of each (width, with_logits), the sampler's ms per step, tok/s
+    beside the greedy stream's, device memory after capture. Returns the
+    Philox fill's launches on the main path (the serve stream's mixed run)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.serve.engine import Engine
+    PH = kernel_module("philox")
+
+    def knobs(seed):
+        return lambda i: dict(SAMPLING, seed=seed) if i % 2 else {}
+
+    cells = {"serve": (dict(max_len=MAIN_SC), main_stream(cfg.vocab)),
+             "serve-paged": (dict(max_len=PAGED_MAX_LEN, paged=True, page_size=PAGE,
+                                  n_pages=PAGED_N_PAGES), paged_stream(cfg.vocab))}
+
+    def run(cell, seed, **kw):
+        base, stream = cells[cell]
+        eng = Engine(params, cfg, policy, n_slots=8, fused_decode=True, device="cuda",
+                     **{**base, **kw})
+        times, sampler = step_times(eng), sampler_events(eng)
+        res = serve_stream(eng, stream, knobs(seed))
+        out = {c.rid: c.tokens for c in res.completions}
+        check(len(out) == len(stream) and all(out[i].size == g for i, (_, _, g)
+                                              in enumerate(stream)),
+              f"[sample] {cell}: {len(out)}/{len(stream)} requests finished in full")
+        return out, eng, res, times, sampler
+
+    launches = 0
+    main = {}
+    for cell in cells:
+        stream = cells[cell][1]
+        sampled = [i for i in range(len(stream)) if i % 2]
+        torch.cuda.synchronize()
+        PH.LAUNCHES = 0
+        out, eng, res, times, sampler = run(cell, SAMPLING["seed"])
+        fills = PH.LAUNCHES
+        if cell == "serve":
+            launches = fills
+        torch.cuda.synchronize()
+        mem = (torch.cuda.memory_allocated() / 2**30, torch.cuda.memory_reserved() / 2**30)
+        st = eng.stats
+        keys = set(eng.graphs)
+        check({(1, False), (1, True)} <= keys and all(w == 1 for w, _ in keys),
+              f"[sample] {cell}: graphs {sorted(keys)}, expected width 1 with and without "
+              f"the logits")
+        check(fills >= sum(stream[i][2] for i in sampled),
+              f"[sample] {cell}: {fills} Philox fills for "
+              f"{sum(stream[i][2] for i in sampled)} sampled tokens")
+        # (a) greedy requests keep the greedy-only run's tokens
+        for rid in range(len(stream)):
+            if rid % 2 == 0:
+                check(np.array_equal(out[rid], greedy[cell]["tokens"][rid]),
+                      f"[sample] {cell} rid {rid}: greedy tokens beside sampling lanes "
+                      f"{out[rid].tolist()} != the greedy-only run's "
+                      f"{greedy[cell]['tokens'][rid].tolist()}")
+        check(any(not np.array_equal(out[r], greedy[cell]["tokens"][r]) for r in sampled),
+              f"[sample] {cell}: every sampled request gave the greedy tokens")
+        sampler_ms = [a.elapsed_time(b) for a, b in sampler]
+        main[cell] = out
+        print(f"[sample] {cell} on {card}: {len(stream)} requests, {len(sampled)} sampled "
+              f"(temperature {SAMPLING['temperature']}, top_k {SAMPLING['top_k']}, top_p "
+              f"{SAMPLING['top_p']}, seed {SAMPLING['seed']}); {st.steps} engine steps, "
+              f"{res.calls} serve-step calls, {st.tokens_generated} tokens in "
+              f"{res.seconds:.3f}s -> {st.tokens_generated / res.seconds:.1f} tok/s (greedy "
+              f"stream: {greedy[cell]['tok_s']:.1f} tok/s, {greedy[cell]['ms']:.2f} ms per "
+              f"replayed width-1 step); {width_ms(times)}; sampler "
+              f"{sorted(sampler_ms)[len(sampler_ms) // 2]:.3f} ms per sampling step (median, "
+              f"CUDA events; the first, {sampler_ms[0]:.3f} ms, loads its kernels; "
+              f"{len(sampler_ms)} steps, {fills} Philox fills); {graph_summary(eng)}; "
+              f"device memory after capture {mem[0]:.2f} GiB allocated, {mem[1]:.2f} GiB "
+              f"reserved (the logits buffer: 8 x {cfg.vocab} x 4 B = "
+              f"{8 * cfg.vocab * 4 / 2**20:.1f} MiB); (a) greedy tokens == the greedy-only "
+              f"run's for all {len(stream) - len(sampled)} greedy requests")
+        # (b) a fresh engine reproduces the sampled tokens
+        again = run(cell, SAMPLING["seed"])[0]
+        for rid in sampled:
+            check(np.array_equal(again[rid], out[rid]),
+                  f"[sample] {cell} rid {rid}: a second engine drew {again[rid].tolist()}, "
+                  f"the first {out[rid].tolist()}")
+        other = run(cell, SAMPLING["seed"] + 1)[0]
+        changed = sum(not np.array_equal(other[r], out[r]) for r in sampled)
+        check(changed >= 1, f"[sample] {cell}: seed {SAMPLING['seed'] + 1} changed no request")
+        print(f"[sample] {cell}: (b) a fresh engine reproduces all {len(sampled)} sampled "
+              f"requests; seed {SAMPLING['seed'] + 1} changes {changed} of them")
+        del eng, times, sampler
+        torch.cuda.empty_cache()
+    # (c) preemption and chunking keep the sampled tokens
+    tight, eng, res, times, _ = run("serve-paged", SAMPLING["seed"], prefill_chunk=CHUNK)
+    preempted = eng.stats.preemptions
+    check(preempted >= 1, "[sample] the tight chunk-32 run never preempted")
+    del eng
+    roomy, eng, _, _, _ = run("serve-paged", SAMPLING["seed"], n_pages=8 * PAGED_MAX_LEN // PAGE)
+    check(eng.stats.preemptions == 0, "[sample] the roomy run preempted")
+    del eng
+    for rid in roomy:
+        check(np.array_equal(tight[rid], roomy[rid]) and np.array_equal(roomy[rid],
+                                                                        main["serve-paged"][rid]),
+              f"[sample] rid {rid}: tight pages chunk {CHUNK} {tight[rid].tolist()}, roomy "
+              f"chunk 1 {roomy[rid].tolist()}, tight chunk 1 "
+              f"{main['serve-paged'][rid].tolist()}")
+    print(f"[sample] serve-paged on {card}: (c) {PAGED_N_PAGES} pages with prefill_chunk "
+          f"{CHUNK} ({preempted} preemptions; {width_ms(times)}) == "
+          f"{8 * PAGED_MAX_LEN // PAGE} pages "
+          f"with chunk 1 (no preemption) == {PAGED_N_PAGES} pages with chunk 1, all "
+          f"{len(roomy)} requests' tokens")
+    torch.cuda.empty_cache()
+    sample_draws(card, params, cfg, policy)
+    return launches
+
+
+def sample_draws(card: str, params, cfg, policy):
+    """(d) ``SAMPLE_DRAWS`` draws from one real logits row of the model at
+    positions 0, 1, ...: the card's batched sampler against the CPU plain
+    path (the row filtered once, the noise drawn on its support)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core.qarith import QArith
+    from repro_torch.models import registry as R
+    from repro_torch.serve import sampling
+    prompt = torch.from_numpy(main_stream(cfg.vocab)[0][1]).to("cuda")[None]
+    with torch.no_grad():
+        row = R.forward_logits(QArith(policy), params, cfg, {"tokens": prompt},
+                               remat=False)[0, -1].float()
+    knobs = ([SAMPLING["temperature"]], [SAMPLING["top_k"]], [SAMPLING["top_p"]])
+    keys = [sampling.request_key(SAMPLING["seed"], 0, p) for p in range(SAMPLE_DRAWS)]
+    batch = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_tok = torch.cat([
+        sampling.sample(row[None].expand(batch, -1), *(k * batch for k in knobs),
+                        keys[i:i + batch]).cpu() for i in range(0, SAMPLE_DRAWS, batch)])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    filtered = sampling.filter_logits(row.cpu()[None], *knobs)
+    cpu_tok = torch.cat([sampling.draw(filtered.expand(batch, -1), keys[i:i + batch])
+                         for i in range(0, SAMPLE_DRAWS, batch)])
+    cpu_s = time.perf_counter() - t0
+    card_support = torch.isfinite(sampling.filter_logits(row[None], *knobs)[0]).cpu()
+    support = torch.isfinite(filtered[0])
+    mismatch = torch.nonzero(card_tok != cpu_tok)[:, 0].tolist()
+    agree = 1 - len(mismatch) / SAMPLE_DRAWS
+    print(f"[sample] (d) {SAMPLE_DRAWS} draws on one logits row on {card}: card sampler "
+          f"{card_s:.2f}s (batches of {batch}), CPU plain path {cpu_s:.2f}s; support "
+          f"{int(support.sum())} tokens (card filter: {int(card_support.sum())}, equal "
+          f"{torch.equal(card_support, support)}); same token on {agree:.4%} of draws; "
+          f"mismatches at positions {mismatch[:20]}"
+          + ("" if not mismatch else f" (card {card_tok[mismatch[:20]].tolist()}, CPU "
+             f"{cpu_tok[mismatch[:20]].tolist()})"))
+    check(agree >= 0.999, f"[sample] the card and the CPU agree on {agree:.4%} of draws")
+    exact = filtered[0].double()
+    probs = torch.where(support, torch.exp(exact - exact[support].max()), 0.0)
+    probs = (probs / probs.sum()).numpy()
+    worst = 0.0
+    for name, toks in (("card", card_tok), ("CPU", cpu_tok)):
+        counts = np.bincount(toks.numpy(), minlength=cfg.vocab)
+        check(counts[~support.numpy()].sum() == 0,
+              f"[sample] the {name} sampler drew a token outside the filter's support")
+        small = probs * SAMPLE_DRAWS < 10
+        buckets = [(counts[t], probs[t]) for t in np.nonzero(support.numpy() & ~small)[0]]
+        if probs[small].sum() > 0:
+            buckets.append((counts[small].sum(), probs[small].sum()))
+        for c, p in buckets:
+            z = abs(c / SAMPLE_DRAWS - p) / math.sqrt(p * (1 - p) / SAMPLE_DRAWS)
+            worst = max(worst, z)
+            check(z <= 5.0, f"[sample] {name}: a token's frequency {c / SAMPLE_DRAWS:.5f} is "
+                            f"{z:.2f} sigma from its probability {p:.5f}")
+    print(f"[sample] (d) every kept token's frequency within 5 sigma of the exact filtered "
+          f"softmax (worst {worst:.2f} sigma; tokens expected under 10 times judged as one "
+          f"bucket); no draw outside the support")
 
 
 def chunk_probe(params, cfg, policy, stream):
@@ -1157,7 +1416,7 @@ def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3):
           f"{graph_launches:.0f} graph launches per step holding "
           f"{n_kernels / steps:.0f} kernels; {launches:.0f} kernel "
           f"launches per step outside graphs")
-    held = eng.graphs[1].kernels
+    held = eng.graphs[1, False].kernels
     for name, key, graph_name in (("decode attention", "decode_attention_kernel",
                                    "paged_decode_attention" if eng.paged else
                                    "decode_attention"),
@@ -1859,6 +2118,164 @@ def phase_parity(run, state, card: str) -> dict:
     return launches
 
 
+def phase_ckpt(card: str):
+    """Checkpointed training through ``launch/train.py::build`` and
+    ``run_training`` at full width, depth cut to ``CKPT_LAYERS``: (a) two
+    uninterrupted runs (the second checkpointing asynchronously) agree
+    bitwise; (b) a run that gets SIGTERM at step ``CKPT_SIGTERM_AT``
+    returns preempted, and a fresh ``build`` resumes and finishes equal to
+    the uninterrupted run, leaf for leaf and loss for loss; (c) a
+    ``--sync-ckpt`` checkpoint restores to the async one's state. Prints
+    the checkpoint's bytes, the snapshot's ms (what the step pays), the
+    commit's s on the writer thread, ms per step with a commit in flight
+    against the same steps without checkpoints, and the restore's s."""
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from repro_torch.launch import train as LT
+    from repro_torch.models import registry as R
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train.loop import run_training
+
+    cfg = dataclasses.replace(R.get_config("qwen2.5-3b"), n_layers=CKPT_LAYERS)
+    spans = {"snapshot": [], "commit": [], "restore": []}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            if name == "snapshot":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spans[name].append((t0, time.perf_counter()))
+            return out
+        return wrapper
+
+    real = {name: getattr(CK, attr) for name, attr in
+            (("snapshot", "snapshot"), ("commit", "_commit"), ("restore", "restore"))}
+    CK.snapshot, CK._commit, CK.restore = (timed(n, real[n]) for n in
+                                           ("snapshot", "commit", "restore"))
+
+    def run(extra, *, fault_hook=None):
+        """Build and train (keep-N ``CKPT_KEEP``); per-step (start, end)
+        walls of the gradient and update phases (a sync ends each step),
+        the loop's log lines."""
+        args = LT.parse_args(CKPT_ARGV + extra)
+        r = LT.build(args, cfg=cfg)
+        grads, update = r.step_fn.phases
+        steps = []
+
+        def timed_grads(*a):
+            torch.cuda.synchronize()
+            steps.append([time.perf_counter()])
+            return grads(*a)
+
+        def timed_update(*a):
+            out = update(*a)
+            torch.cuda.synchronize()
+            steps[-1].append(time.perf_counter())
+            return out
+
+        def step_fn(state, batch, seed):
+            return timed_update(state, timed_grads(state, batch, seed), seed)
+        step_fn.phases = (timed_grads, timed_update)
+        logs = []
+        state, info = run_training(r.state, step_fn, r.batches,
+                                   dataclasses.replace(LT.loop_config(args), keep_n=CKPT_KEEP),
+                                   log=logs.append, fault_hook=fault_hook)
+        return state, info, steps, logs
+
+    def same(a, b, what):
+        la, lb = CK.flatten(a), CK.flatten(b)
+        check(len(la) == len(lb) and la[0] == lb[0], f"[ckpt] {what}: steps {la[0]}, {lb[0]}")
+        bad = [i for i, (x, y) in enumerate(zip(la[1:], lb[1:]), 1)
+               if x.dtype != y.dtype or not torch.equal(x, y)]
+        check(not bad, f"[ckpt] {what}: leaves {bad} of {len(la)} differ (max |diff| "
+                       f"{[float((la[i].float() - lb[i].float()).abs().max()) for i in bad[:4]]})")
+
+    root = Path(tempfile.mkdtemp(prefix="repro-ckpt-"))
+    try:
+        disk = shutil.disk_usage(root)
+        print(f"[ckpt] {cfg.name} cut to {cfg.n_layers} layers, {' '.join(CKPT_ARGV)}; "
+              f"checkpoints under {root}: {disk.free / 2**30:.1f} GiB free of "
+              f"{disk.total / 2**30:.1f} GiB")
+        ref, ref_info, ref_steps, _ = run([])
+        n_params = sum(t.numel() for t in CK.flatten(ref.params))
+        losses = [row["loss"] for row in ref_info["history"]]
+        # (a) the determinism baseline, the second run checkpointing
+        spans["snapshot"].clear()
+        spans["commit"].clear()
+        b_dir = root / "async"
+        b, b_info, b_steps, _ = run(["--ckpt-dir", str(b_dir)])
+        same(b, ref, "(a) a second uninterrupted run")
+        kept = sorted(p.name for p in b_dir.glob("step_*"))
+        check(kept == [f"step_{s:09d}" for s in (4, 6)] and CK.latest_step(b_dir) == 6,
+              f"[ckpt] (a) keep-N {CKPT_KEEP} left {kept}, LATEST {CK.latest_step(b_dir)}")
+        check([row["loss"] for row in b_info["history"]] == losses,
+              f"[ckpt] (a) losses {b_info['history']} != {losses}")
+        del b
+        nbytes = sum(f.stat().st_size for f in (b_dir / f"step_{6:09d}").iterdir())
+        snap_ms = [1e3 * (e - s) for s, e in spans["snapshot"]]
+        commit_s = [e - s for s, e in spans["commit"]]
+        busy = [(k, 1e3 * (e - s), 1e3 * (ref_steps[k][1] - ref_steps[k][0]))
+                for k, (s, e) in enumerate(b_steps)
+                if any(cs < e and ce > s for cs, ce in spans["commit"])]
+        print(f"[ckpt] (a) on {card}: two uninterrupted {len(losses)}-step runs agree "
+              f"bitwise on all {len(CK.flatten(ref)) - 1} leaves and every loss, the second "
+              f"keeping {kept} (keep-N {CKPT_KEEP}) "
+              f"({[round(x, 4) for x in losses]}); {n_params / 1e6:.1f} M parameters, "
+              f"checkpoint {nbytes / 2**30:.3f} GiB ({nbytes} bytes); snapshot "
+              f"{[round(x, 1) for x in snap_ms]} ms (what the step pays); commit "
+              f"{[round(x, 2) for x in commit_s]} s on the writer thread; steps with a "
+              f"commit in flight {[(k, round(w, 1)) for k, w, _ in busy]} ms against "
+              f"{[(k, round(wo, 1)) for k, _, wo in busy]} ms for the same steps without "
+              f"checkpoints"
+              + (f" (mean {sum(w for _, w, _ in busy) / len(busy):.1f} against "
+                 f"{sum(wo for _, _, wo in busy) / len(busy):.1f} ms)" if busy else ""))
+        # (b) SIGTERM, then a fresh build resumes
+        c_dir = root / "preempted"
+
+        def sigterm(step):
+            if step == CKPT_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+        c, c_info, _, _ = run(["--ckpt-dir", str(c_dir)], fault_hook=sigterm)
+        check(c_info["preempted"] and c.step == CKPT_SIGTERM_AT + 1
+              and CK.latest_step(c_dir) == CKPT_SIGTERM_AT + 1,
+              f"[ckpt] (b) preempted={c_info['preempted']} at step {c.step}, LATEST "
+              f"{CK.latest_step(c_dir)}")
+        del c
+        spans["restore"].clear()
+        d, d_info, _, logs = run(["--ckpt-dir", str(c_dir)])
+        check(f"[loop] resumed from checkpoint at step {CKPT_SIGTERM_AT + 1}" in logs,
+              f"[ckpt] (b) no resume line in {logs}")
+        same(d, ref, "(b) preempted and resumed against uninterrupted")
+        got = [row["loss"] for row in c_info["history"] + d_info["history"]]
+        check(got == losses, f"[ckpt] (b) losses {got} != {losses}")
+        restore_s = [e - s for s, e in spans["restore"]]
+        print(f"[ckpt] (b) on {card}: SIGTERM at step {CKPT_SIGTERM_AT} -> preempted, "
+              f"checkpointed at step {CKPT_SIGTERM_AT + 1}; a fresh build restored it in "
+              f"{restore_s[0]:.2f}s and finished: every leaf of params and optimizer state "
+              f"torch.equal to the uninterrupted run's, losses equal")
+        del d
+        shutil.rmtree(c_dir)
+        # (c) a synchronous checkpoint restores to the async one's state
+        e_dir = root / "sync"
+        e, _, _, _ = run(["--ckpt-dir", str(e_dir), "--sync-ckpt"])
+        del e
+        restored = []
+        for where in (b_dir, e_dir):
+            r = LT.build(LT.parse_args(CKPT_ARGV), cfg=cfg)
+            restored.append(CK.restore(where, r.state)[0])
+        same(restored[0], restored[1], "(c) sync against async checkpoint")
+        same(restored[0], ref, "(c) the async checkpoint against the run's state")
+        print(f"[ckpt] (c) a --sync-ckpt checkpoint restores to the async one's state and "
+              f"to the run's own (torch.equal on every leaf)")
+    finally:
+        CK.snapshot, CK._commit, CK.restore = (real[n] for n in ("snapshot", "commit",
+                                                                  "restore"))
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1885,9 +2302,12 @@ def main():
             "paged_decode_attention": phase_kernel_paged(card)}
     model = serve_model()
     rows["row_mean_sq"] = phase_row_probe(card, *model)
-    engines = {}
-    launches, engines["contiguous"] = phase_main_path(card, *model)
-    launches["paged_decode_attention"], engines["paged"] = phase_serve_paged(card, *model)
+    engines, greedy = {}, {}
+    launches, engines["contiguous"], greedy["serve"] = phase_main_path(card, *model)
+    launches["paged_decode_attention"], engines["paged"], greedy["serve-paged"] = \
+        phase_serve_paged(card, *model)
+    sample_fills = phase_sample(card, *model, greedy)
+    del greedy
     for tag, eng in engines.items():     # last: the profiler may slow later launches
         phase_profile(eng, model[1], card, tag)
     del model, engines, eng
@@ -1899,8 +2319,12 @@ def main():
     state = phase_train_profile(run, state, card)
     phase_f32_products(run.cfg, state.params["embed"]["embedding"], card)
     parity = phase_parity(run, state, card)
-    for name in ("sr_cast", "fused_sgd", "philox"):
+    for name in ("sr_cast", "fused_sgd"):
         launches[name] = parity[name]
+    launches["philox"] = parity["philox"] + sample_fills
+    del run, state
+    torch.cuda.empty_cache()
+    phase_ckpt(card)
     print(f"[smoke] qmatmul launches: {launches['qmatmul']} on the serve main path, "
           f"{op_launches} through the op layer")
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s on {card}")
@@ -1913,8 +2337,10 @@ def main():
         "fused_sgd": ("fused_sgd", "src/repro/kernels/fused_sgd.py:18"),
         "qmatmul": ("qmatmul", "src/repro/kernels/qmatmul.py:22"),
         # not TPU kernels: the reference's jax.random.bits draw of a leaf's SR
-        # bits, and its jnp.mean under RMSNorm
-        "philox": ("philox", "src/repro/optim/fused.py:124"),
+        # bits and its jax.random.gumbel draw of a sampled token, and its
+        # jnp.mean under RMSNorm
+        "philox": ("philox", "src/repro/optim/fused.py:124; "
+                             "src/repro/serve/sampling.py:80"),
         "row_mean_sq": ("row_mean_sq", "src/repro/core/qarith.py:114"),
     }
     print(json.dumps({"kernels": [{

@@ -52,10 +52,12 @@ def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def philox4x32_10(ctr, key) -> list[torch.Tensor]:
     """Philox4x32-10 on int64 tensors of counters: ``ctr`` four tensors (or
-    ints) of one shape holding u32 values, ``key`` two ints. Returns the
-    four output words as int64 tensors holding u32."""
+    ints) of one shape holding u32 values, ``key`` two ints (or int64
+    tensors holding u32 that broadcast against the counters: one key per
+    row of a batch of streams). Returns the four output words as int64
+    tensors holding u32."""
     c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in ctr)
-    k0, k1 = (int(k) & M32 for k in key)
+    k0, k1 = (k & M32 if isinstance(k, torch.Tensor) else int(k) & M32 for k in key)
     for r in range(10):
         if r:
             k0, k1 = (k0 + _W0) & M32, (k1 + _W1) & M32

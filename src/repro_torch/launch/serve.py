@@ -17,6 +17,13 @@ default with ``--paged``; ``--no-prefix-cache`` turns it off):
         --prefill-chunk 32 --fused-decode
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \\
         --device cpu --paged --page-size 16 --n-pages 24 --prefill-chunk 8
+
+Sampled decoding for every request (temperature, then top-k, then top-p;
+each token keyed by the sample seed, the request id and its position, so
+runs and preemption recomputes reproduce their tokens):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \\
+        --device cpu --temperature 0.8 --top-k 50 --top-p 0.95 --sample-seed 1
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from repro_torch import resolve_device
 from repro_torch.core.policy import get_policy
 from repro_torch.models import registry as R
 from repro_torch.serve.engine import Completion, Engine
+from repro_torch.serve.sampling import validate_sampling
 
 
 def synthetic_stream(rng: np.random.Generator, n_requests: int, *,
@@ -61,16 +69,19 @@ class StreamResult:
     seconds: float                 # host wall time, ending in a device sync
 
 
-def serve_stream(engine: Engine, stream) -> StreamResult:
+def serve_stream(engine: Engine, stream, sampling=None) -> StreamResult:
     """Feed ``stream`` to ``engine`` open-loop until drained. An engine
     iteration with nothing to do (a gap between arrivals) advances the
-    step clock without calling the serve step."""
+    step clock without calling the serve step. ``sampling(i)`` gives the
+    ``submit`` keywords (temperature, top_k, top_p, seed) of the stream's
+    request ``i``; without it every request is greedy."""
     t0 = time.perf_counter()
     completions, arrivals, queued, calls = [], {}, 0, 0
     while queued < len(stream) or engine.has_work():
         while queued < len(stream) and stream[queued][0] <= engine.stats.steps:
             arrive, prompt, gen = stream[queued]
-            arrivals[engine.submit(prompt, gen)] = arrive
+            kw = sampling(queued) if sampling is not None else {}
+            arrivals[engine.submit(prompt, gen, **kw)] = arrive
             queued += 1
         if not engine.has_work():      # open-loop gap: idle until next arrival
             engine.stats.steps += 1
@@ -118,6 +129,17 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=1,
                     help="prompt tokens admitted per engine iteration (>1 = "
                          "chunked prefill, interleaved with decode)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for every request (0 = greedy, "
+                         "the bitwise-parity path)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="keep only the k largest logits (0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (1.0 = off)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base sampling seed; each token's key is mixed from "
+                         "(seed, rid, position), so runs and preemption "
+                         "recomputes are reproducible")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable prompt-prefix page sharing (with --paged it "
                          "is on by default for attention-only full-context "
@@ -125,6 +147,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
+    try:
+        validate_sampling(args.temperature, args.top_k, args.top_p)
+    except ValueError as e:
+        ap.error(str(e))
 
     device = resolve_device(args.device)
     policy = get_policy(args.policy)
@@ -159,8 +185,12 @@ def main(argv=None):
           f"max_len={args.max_len} kv_dtype={engine.pool.dtype} {layout} "
           f"pool={engine.pool.nbytes() / 2**20:.1f} MiB chunk={args.prefill_chunk} "
           f"fused_decode={args.fused_decode} device={where}")
-
-    res = serve_stream(engine, stream)
+    if args.temperature > 0:
+        print(f"[serve] sampling: temperature={args.temperature} top_k={args.top_k} "
+              f"top_p={args.top_p} seed={args.sample_seed}")
+    knobs = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                 seed=args.sample_seed)
+    res = serve_stream(engine, stream, lambda i: knobs)
     st = engine.stats
     print(f"[serve] {st.finished}/{args.requests} finished in {st.steps} "
           f"steps, {res.calls} serve-step calls ({res.seconds:.2f}s on {where})")

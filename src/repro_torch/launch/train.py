@@ -4,16 +4,22 @@
         --reduced --device cpu --steps 30
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --policy bf16_sr_kahan --fused-update --batch 2 --seq 2048 --steps 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+        --reduced --device cpu --steps 30 --ckpt-dir /tmp/run1 --ckpt-every 10
 
 Runs on CUDA unless ``--device cpu``; without a card it raises. AdamW with
 β₂ = 0.997 (snapped to 0.99609375 in bf16) and weight decay 0.01 under a
 linear-warmup cosine schedule; ``--fused-update`` runs the update through
 the hand-written fused AdamW kernel, otherwise the non-fused optimizer
 (whose SR writes under ``bf16_sr*`` go through the ``sr_cast`` kernel on
-the card). Flags of later slices — checkpoints, meshes, FSDP, pods,
-compressed gradient wires, the spike monitor, multi-host — are accepted
-and refused with the slice that ports them. Ends with
-``[train] done at step N; final loss …``.
+the card). ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps (on a
+background writer unless ``--sync-ckpt``) and resumes from the latest
+checkpoint there, printing ``[loop] resumed from checkpoint at step N``;
+SIGTERM checkpoints at the next step boundary and exits;
+``--spike-factor`` rolls a loss spike back to the last checkpoint. Flags
+of later slices — meshes, FSDP, pods, compressed gradient wires,
+multi-host — are accepted and refused with the slice that ports them
+(ROADMAP A5). Ends with ``[train] done at step N; final loss …``.
 """
 from __future__ import annotations
 
@@ -31,10 +37,10 @@ from repro_torch.train.loop import TrainLoopConfig, run_training
 from repro_torch.train.step import make_train_step
 from repro_torch.train.train_state import TrainState, make_train_state
 
-__all__ = ["parse_args", "make_optimizer", "build", "TrainRun", "train", "main"]
+__all__ = ["parse_args", "make_optimizer", "build", "TrainRun", "loop_config", "train",
+           "main"]
 
 _DIST = "the dist slice (ROADMAP A5)"
-_CKPT = "the checkpointed-training slice (ROADMAP A)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -55,8 +61,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="run the update through the fused AdamW CUDA kernel "
                          "(bf16 policies only)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: resume from its latest checkpoint, "
+                         "save every --ckpt-every steps and on SIGTERM")
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--sync-ckpt", action="store_true",
+                    help="commit checkpoints inline instead of on the background "
+                         "writer thread")
+    ap.add_argument("--spike-factor", type=float, default=None,
+                    help="loss-spike monitor: roll back to the last good checkpoint "
+                         "after --spike-patience consecutive steps with loss > "
+                         "factor x EWMA (or non-finite)")
+    ap.add_argument("--spike-patience", type=int, default=2)
+    ap.add_argument("--max-rollbacks", type=int, default=2)
+    ap.add_argument("--preempt-poll", type=int, default=10,
+                    help="multi-host: poll the SIGTERM agreement every this many "
+                         "steps (no effect in a single process)")
     # flags of later slices: accepted, refused in parse_args
-    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--fsdp-parallel", type=int, default=1)
@@ -66,7 +87,6 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["fp32", "compressed", "bf16", "bf14", "bf12",
                              "bf10", "fp16", "e5m2", "e4m3"])
     ap.add_argument("--wire-keep-fp32", default=None)
-    ap.add_argument("--spike-factor", type=float, default=None)
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -77,8 +97,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = _parser()
     args = ap.parse_args(argv)
     later = [
-        ("--ckpt-dir", args.ckpt_dir is not None, _CKPT),
-        ("--spike-factor", args.spike_factor is not None, _CKPT),
         ("mesh sizes above 1", args.data_parallel * args.model_parallel
          * args.fsdp_parallel > 1, _DIST),
         ("--fsdp", args.fsdp, _DIST),
@@ -87,7 +105,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         ("--wire-keep-fp32", args.wire_keep_fp32 is not None, _DIST),
         ("--coordinator/--num-processes/--process-id",
          any(a is not None for a in (args.coordinator, args.num_processes,
-                                     args.process_id)), _CKPT),
+                                     args.process_id)), _DIST),
     ]
     for flag, given, slice_ in later:
         if given:
@@ -111,15 +129,16 @@ class TrainRun:
     batches: Callable[[int], Any]
 
 
-def build(args, *, optimizer: Optimizer | None = None) -> TrainRun:
-    """Config, random weights from ``--seed`` on the device, optimizer
-    (``make_optimizer`` unless one is given), state, step and batch
-    stream — everything ``train`` runs."""
+def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
+    """Config (``--arch``, or ``cfg`` when given), random weights from
+    ``--seed`` on the device, optimizer (``make_optimizer`` unless one is
+    given), state, step and batch stream — everything ``train`` runs."""
     device = resolve_device(args.device)
     policy = get_policy(args.policy)
-    cfg = R.get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = R.get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
     opt = optimizer if optimizer is not None else make_optimizer(args, policy)
     lr_schedule = linear_warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps)
@@ -134,11 +153,20 @@ def build(args, *, optimizer: Optimizer | None = None) -> TrainRun:
     return TrainRun(cfg, policy, opt, make_train_state(params, opt), step_fn, batches)
 
 
-def train(args, run: TrainRun, *, log: Callable[[str], None] = print):
+def loop_config(args) -> TrainLoopConfig:
+    """The loop's configuration from the launcher's flags."""
+    return TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every, seed=args.seed,
+                           async_saves=not args.sync_ckpt, spike_factor=args.spike_factor,
+                           spike_patience=args.spike_patience,
+                           max_rollbacks=args.max_rollbacks,
+                           preempt_poll_every=args.preempt_poll)
+
+
+def train(args, run: TrainRun, *, log: Callable[[str], None] = print, fault_hook=None):
     """Run ``run`` to ``--steps`` and print the closing line."""
-    state, info = run_training(run.state, run.step_fn, run.batches,
-                               TrainLoopConfig(total_steps=args.steps, seed=args.seed),
-                               log=log)
+    state, info = run_training(run.state, run.step_fn, run.batches, loop_config(args),
+                               log=log, fault_hook=fault_hook)
     last = info["history"][-1] if info["history"] else {}
     log(f"[train] done at step {state.step}; final loss {last.get('loss', float('nan')):.4f}; "
         f"stragglers={info['stragglers']} preempted={info['preempted']} "

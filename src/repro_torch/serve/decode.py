@@ -1,4 +1,5 @@
-"""Lock-step greedy serving with a KV cache (port of ``repro.serve.decode``).
+"""Lock-step serving with a KV cache, greedy or sampled (port of
+``repro.serve.decode``).
 
 The reference (oracle) decode path: one fixed batch, every lane at the
 same position, the prompt teacher-forced token by token through the same
@@ -23,18 +24,18 @@ __all__ = ["generate"]
 
 
 def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
-             max_new_tokens: int = 32, temperature: float = 0.0,
+             max_new_tokens: int = 32, temperature: float = 0.0, seed: int = 0,
              cache_len: int | None = None, device=None) -> torch.Tensor:
-    """prompts: (B, S_prompt) int → (B, S_prompt + max_new) int32, greedy.
+    """prompts: (B, S_prompt) int → (B, S_prompt + max_new) int32.
 
-    Runs on ``device`` (CUDA unless ``"cpu"``), where ``params`` must
-    live. ``cache_len`` overrides the KV-cache length (default exactly
-    ``S_prompt + max_new_tokens``); longer caches are masked out and
-    change nothing semantically.
+    ``temperature == 0`` decodes greedily; ``temperature > 0`` draws each
+    token from ``softmax(logits / temperature)`` with a ``torch.Generator``
+    seeded from ``seed`` on the params' device (the reference's
+    categorical draw: no top-k, no top-p). Runs on ``device`` (CUDA unless
+    ``"cpu"``), where ``params`` must live. ``cache_len`` overrides the
+    KV-cache length (default exactly ``S_prompt + max_new_tokens``);
+    longer caches are masked out and change nothing semantically.
     """
-    if temperature > 0:
-        raise ValueError("sampling (temperature > 0) is ported with the "
-                         "sampling slice; generate is greedy")
     dev = resolve_device(device)
     if params["embed"]["embedding"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed']['embedding'].device}, "
@@ -54,12 +55,18 @@ def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
     def pos(t):
         return torch.full((B,), t, dtype=torch.int32, device=dev)
 
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
     out = [prompts]
     logits = None
     for t in range(S0):
         logits, cache = R.decode(qa, params, cfg, prompts[:, t:t + 1], cache, pos(t))
     for t in range(max_new_tokens):
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        if temperature > 0:
+            probs = torch.softmax(logits[:, -1].to(torch.float32) / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+        else:
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         out.append(tok)
         if t < max_new_tokens - 1:
             logits, cache = R.decode(qa, params, cfg, tok, cache, pos(S0 + t))

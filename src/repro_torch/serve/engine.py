@@ -1,6 +1,5 @@
 """Continuous-batching decode engine over a slotted KV pool (port of
-``repro.serve.engine``: greedy decoding, no mesh; sampling is a later
-slice).
+``repro.serve.engine``, no mesh).
 
 The engine owns ``n_slots`` decode lanes backed by one
 :class:`repro_torch.serve.cache.CachePool` allocation — or, with
@@ -28,10 +27,14 @@ KV memory is allocated page by page as sequences grow. Every
    (width 1, or the prefill chunk when some lane feeds more than one
    token) advances every scheduled lane. Its numpy inputs are staged
    into static buffers of that width (one packed host-to-device copy);
-   on CUDA the step is a CUDA graph, captured lazily per width the way
-   the reference compiles one executable per width, and replayed; the
-   read of the sampled tokens is the step's only sync. On the CPU the
-   step function runs eagerly on the same buffers;
+   on CUDA the step is a CUDA graph, captured lazily per (width,
+   with_logits) the way the reference compiles one executable per
+   variant, and replayed. A step in which some lane keeps a token at
+   ``temperature > 0`` takes the logits-returning variant; its sampling
+   lanes are re-decided on the device from the logits the step leaves in
+   its output buffer (:mod:`repro_torch.serve.sampling`), and the read of
+   the tokens is the step's only sync. On the CPU the step function runs
+   eagerly on the same buffers;
 4. **evict** — lanes whose token completed a sequence (EOS or
    ``max_new_tokens``) release their slot (and one reference per mapped
    page), which the next iteration's admission refills mid-flight. Lanes
@@ -68,6 +71,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels import launch_counts
+from repro_torch.serve import sampling
 from repro_torch.serve.cache import CachePool
 from repro_torch.serve.paged import PagedCachePool
 from repro_torch.train.step import make_serve_step
@@ -102,9 +106,10 @@ def _not_full_context_attention(cfg, max_len: int) -> Optional[str]:
 class Request:
     """One generation request. ``prompt`` is a 1-D i32 token array.
 
-    The port decodes greedily (``submit`` refuses ``temperature > 0``);
-    the sampling fields are the reference's, for the sampling slice. The
-    two ``*_step`` fields are engine-internal carry: recompute preemption
+    ``temperature == 0`` (default) decodes greedily; ``temperature > 0``
+    samples with optional top-k / top-p filtering, deterministically per
+    ``(seed, rid)`` (see :mod:`repro_torch.serve.sampling`). The two
+    ``*_step`` fields are engine-internal carry: recompute preemption
     re-queues the request with its *original* admission/first-token
     steps, so TTFT accounting spans the preemption instead of restarting
     at it.
@@ -169,9 +174,9 @@ class EngineStats:
 
 @dataclasses.dataclass
 class GraphStats:
-    """One token width's CUDA graph: how often it was replayed, and the
-    hand-written kernels it launches per replay (their wrappers' counts
-    while it was captured)."""
+    """One step variant's CUDA graph (a token width, with or without the
+    logits): how often it was replayed, and the hand-written kernels it
+    launches per replay (their wrappers' counts while it was captured)."""
     replays: int = 0
     kernels: dict = dataclasses.field(default_factory=dict)
 
@@ -225,6 +230,10 @@ class _Slot:
     first_token_step: int = -1
     published: bool = False       # prompt prefix pushed to the index
     generated: list = dataclasses.field(default_factory=list)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
 
 
 class Engine:
@@ -293,15 +302,18 @@ class Engine:
         else:
             self.pool = CachePool(params, cfg, policy, n_slots=n_slots,
                                   max_len=max_len)
-        # one step function per token width: 1, and the chunk when C > 1;
-        # on CUDA each is captured as a graph at its first step
-        self._fns = {w: make_serve_step(cfg, policy, fused_decode=fused_decode,
-                                        paged=self.paged, chunk=w)
+        # one step function per (token width, with_logits): the greedy
+        # variants of widths 1 and C now, a logits variant at the first
+        # step that samples at its width; on CUDA each is captured as a
+        # graph at its first step
+        self._fused_decode = fused_decode
+        self._fns = {(w, False): make_serve_step(cfg, policy, fused_decode=fused_decode,
+                                                 paged=self.paged, chunk=w)
                      for w in {1, self.prefill_chunk}}
-        self._staging: dict[int, _Staging] = {}
-        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, torch.Tensor]] = {}
+        self._staging: dict[tuple, _Staging] = {}
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, tuple]] = {}
         self._use_graphs = self.device.type == "cuda"
-        self.graphs: dict[int, GraphStats] = {}
+        self.graphs: dict[tuple, GraphStats] = {}
         # static width of the per-step copy-on-write list (the reference's
         # _max_copies): each scheduled lane's write range spans at most
         # (C-1)//P + 2 blocks
@@ -315,14 +327,26 @@ class Engine:
         self.stats.kv_capacity_tokens = (
             self.pool.capacity_tokens if paged else n_slots * max_len)
 
+    def _fn(self, width: int, with_logits: bool):
+        key = (width, with_logits)
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = make_serve_step(
+                self.cfg, self.policy, fused_decode=self._fused_decode, paged=self.paged,
+                chunk=width, return_logits=with_logits)
+        return fn
+
     # -- request intake -----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, *,
-               rid: Optional[int] = None, temperature: float = 0.0) -> int:
-        """Queue a greedy request; returns its rid. Admission happens in
-        step()."""
-        if temperature > 0:
-            raise ValueError("temperature > 0: sampling is ported with the "
-                             "sampling slice; the engine decodes greedily")
+               rid: Optional[int] = None, temperature: float = 0.0,
+               top_k: int = 0, top_p: float = 1.0, seed: int = 0) -> int:
+        """Queue a request; returns its rid. Admission happens in step().
+
+        ``temperature == 0`` decodes greedily (the bitwise-parity path);
+        ``temperature > 0`` samples with optional top-k/top-p,
+        deterministically per ``(seed, rid)`` — resubmitting the same
+        request with the same seed and rid reproduces its tokens.
+        """
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -332,6 +356,7 @@ class Engine:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the pool max_len ({self.pool.max_len})")
+        sampling.validate_sampling(temperature, top_k, top_p)
         if rid is None:
             rid = self._next_rid
         else:
@@ -342,7 +367,9 @@ class Engine:
                     f"rid {rid} collides with a pending or in-flight "
                     "request (completions would be ambiguous)")
         self._next_rid = max(self._next_rid, rid) + 1
-        self._pending.append(Request(rid, prompt, int(max_new_tokens)))
+        self._pending.append(Request(
+            rid, prompt, int(max_new_tokens), temperature=float(temperature),
+            top_k=int(top_k), top_p=float(top_p), seed=int(seed)))
         return rid
 
     def has_work(self) -> bool:
@@ -389,7 +416,9 @@ class Engine:
             self._slots[slot] = _Slot(
                 req.rid, req.prompt, req.max_new_tokens, admitted,
                 self._next_seq, fed=fed0,
-                first_token_step=req.first_token_step)
+                first_token_step=req.first_token_step,
+                temperature=req.temperature, top_k=req.top_k,
+                top_p=req.top_p, seed=req.seed)
             self._next_seq += 1
             reset[slot] = True
             if req.admitted_step < 0:   # first admission, not a re-entry
@@ -397,17 +426,18 @@ class Engine:
 
     def _preempt(self, victim: int, reset: np.ndarray) -> None:
         """Evict a lane to reclaim its pages; its request re-queues at the
-        front and — greedy decode being deterministic — regenerates the
-        same tokens on re-admission (vLLM's recompute preemption). The
-        original ``admitted_step``/``first_token_step`` ride along on the
-        re-queued request: TTFT and admission counts span the preemption
-        rather than restarting at re-admission."""
+        front and — decode and sampling keys both being deterministic —
+        regenerates the same tokens on re-admission (vLLM's recompute
+        preemption). The original ``admitted_step``/``first_token_step``
+        ride along on the re-queued request: TTFT and admission counts
+        span the preemption rather than restarting at re-admission."""
         s = self._slots[victim]
         self._slots[victim] = None
         self.pool.release(victim)
         reset[victim] = False   # nothing left to reset; slot is free again
         self._pending.appendleft(Request(
-            s.rid, s.prompt, s.max_new_tokens,
+            s.rid, s.prompt, s.max_new_tokens, temperature=s.temperature,
+            top_k=s.top_k, top_p=s.top_p, seed=s.seed,
             admitted_step=s.admitted_step,
             first_token_step=s.first_token_step))
         self.stats.preemptions += 1
@@ -471,6 +501,13 @@ class Engine:
         # 2. plan feeds (and, when paged, map blocks / CoW / preempt / park)
         feeds = self._plan(reset, page_reset, copies)
         width = C if C > 1 and int(feeds.max(initial=0)) > 1 else 1
+        # a lane samples iff it keeps a token this step (prompt exhausted
+        # after feeding) at temperature > 0; its key is that token's position
+        draws = [(i, s.temperature, s.top_k, s.top_p,
+                  sampling.request_key(s.seed, s.rid, s.prompt.size + len(s.generated)))
+                 for i, s in enumerate(self._slots)
+                 if s is not None and feeds[i] > 0 and s.temperature > 0
+                 and s.fed + int(feeds[i]) >= s.prompt.size]
         # 3. assemble slot-indexed inputs
         token = np.zeros((n, width), np.int32)
         pos = np.zeros((n,), np.int32)
@@ -502,7 +539,7 @@ class Engine:
             args["copy_dst"], args["copy_src"] = dst, src
         if width > 1:
             args["n_tok"] = feeds
-        sampled = self._serve(width, args).reshape(n)
+        sampled = self._serve((width, bool(draws)), args, draws).reshape(n)
         # 5. account, publish prefixes, evict
         self.stats.steps += 1
         self.stats.slot_steps += n
@@ -544,47 +581,65 @@ class Engine:
                                     if self.paged else 0)
         return done
 
-    def _serve(self, width: int, args: dict) -> np.ndarray:
-        """Run the width's serve step on ``args`` (numpy); its tokens.
+    def _serve(self, key: tuple, args: dict, draws: list) -> np.ndarray:
+        """Run the serve step variant ``key`` = (width, with_logits) on
+        ``args`` (numpy); its tokens, the lanes of ``draws`` sampled.
 
-        The inputs are staged into the width's static buffers. On the
-        CPU the step function runs on them eagerly. On CUDA the width's
+        The inputs are staged into the variant's static buffers. On the
+        CPU the step function runs on them eagerly. On CUDA the variant's
         first step runs eagerly on a side stream (it loads the kernels'
         libraries and sets their attributes, cuBLAS's handles and
         workspaces) and its tokens are that step's; the step is then
         captured as a graph over the same buffers, the params and the KV
         pool (both updated in place, never reallocated), and every later
-        step of the width is a replay. A failed capture raises."""
-        staging = self._staging.get(width)
+        step of the variant is a replay. A failed capture raises."""
+        staging = self._staging.get(key)
         if staging is None:
-            staging = self._staging[width] = _Staging(args, self.device)
+            staging = self._staging[key] = _Staging(args, self.device)
         inputs = staging.load(args)
-        fn = self._fns[width]
+        fn = self._fn(*key)
         if not self._use_graphs:
             with torch.no_grad():
-                out, self.pool.cache = fn(self.params, self.pool.cache, **inputs)
-            return out.cpu().numpy()
+                *out, self.pool.cache = fn(self.params, self.pool.cache, **inputs)
+            return self._read(out, draws)
         with torch.cuda.device(self.device):
-            graph = self._graphs.get(width)
+            graph = self._graphs.get(key)
             if graph is not None:
                 graph[0].replay()
-                self.graphs[width].replays += 1
-                return graph[1].cpu().numpy()
+                self.graphs[key].replays += 1
+                return self._read(graph[1], draws)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.no_grad(), torch.cuda.stream(side):
-                out, _ = fn(self.params, self.pool.cache, **inputs)
-                tokens = out.cpu().numpy()
+                *out, _ = fn(self.params, self.pool.cache, **inputs)
+                tokens = self._read(out, draws)
             torch.cuda.current_stream().wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             before = launch_counts()
             with torch.no_grad(), torch.cuda.graph(graph):
-                captured, _ = fn(self.params, self.pool.cache, **inputs)
+                *captured, _ = fn(self.params, self.pool.cache, **inputs)
             after = launch_counts()
-        self._graphs[width] = (graph, captured)
-        self.graphs[width] = GraphStats(kernels={
+        self._graphs[key] = (graph, tuple(captured))
+        self.graphs[key] = GraphStats(kernels={
             k: after[k] - before[k] for k in after if after[k] != before[k]})
         return tokens
+
+    def _read(self, out, draws: list) -> np.ndarray:
+        """The step's tokens on the host: ``out`` is (tokens,) or (tokens,
+        logits) on the device; the lanes of ``draws`` are sampled from
+        their logits rows first, on the device."""
+        tokens = out[0]
+        if draws:
+            tokens = self._sample(tokens, out[1], draws)
+        return tokens.cpu().numpy()
+
+    def _sample(self, tokens: torch.Tensor, logits: torch.Tensor, draws: list) -> torch.Tensor:
+        """``tokens`` with each lane of ``draws`` (lane, temperature,
+        top_k, top_p, key) replaced by its draw from its logits row."""
+        lanes, temperature, top_k, top_p, keys = (list(c) for c in zip(*draws))
+        idx = sampling.to_device(lanes, torch.int64, tokens.device)
+        drawn = sampling.sample(logits.index_select(0, idx), temperature, top_k, top_p, keys)
+        return tokens.index_copy(0, idx, drawn.to(tokens.dtype)[:, None])
 
     def run(self, max_steps: Optional[int] = None) -> list[Completion]:
         """Step until drained (or ``max_steps`` *further* iterations —

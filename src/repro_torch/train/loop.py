@@ -1,80 +1,297 @@
-"""Training loop (port of ``repro.train.loop``: ``TrainLoopConfig`` and
-``run_training``, single process).
+"""Fault-tolerant training loop (port of ``repro.train.loop``, single
+process).
 
 Runs the train step to ``total_steps`` over a step-keyed batch stream,
-with straggler telemetry (a per-step wall-time EWMA; steps slower than
-``straggler_factor ×`` it are counted and logged) and a bounded metrics
-history. Each step's loss is read back to the host, which ends the step
-on the device, so the measured step time is the device's too.
+with
 
-Checkpointing, resume, the loss-spike rollback, SIGTERM handling and
-multi-host runs belong to the checkpointed-training slice (ROADMAP A);
-asking for them raises. The reference's retry of a failed step is left
-out as well: the port's optimizers update the state in place, so a step
-that fails part-way cannot be replayed from the state it started from.
+* resume from the latest checkpoint on startup (``ckpt_dir``), the batch
+  stream requested at the restored step;
+* periodic atomic checkpoints, committed on a background thread
+  (``async_saves``); every exit path drains the writer;
+* SIGTERM preemption: at the next step boundary, force-save, drain and
+  return ``preempted=True``;
+* a bounded retry of the step's gradient phase (``fault_hook(step)``
+  lets tests inject failures);
+* a loss-spike monitor (``spike_factor``) that rolls the run back to the
+  last good checkpoint and widens the checkpoint cadence, instead of
+  checkpointing over it with poisoned state;
+* straggler telemetry: a per-step wall-time EWMA; steps slower than
+  ``straggler_factor ×`` it are counted and logged, and the checkpoint
+  cadence tightens while they persist.
+
+Each step's metrics are read back to the host, which ends the step on
+the device, so the measured step time is the device's too.
+
+**The retry differs from the reference's.** The reference's step is a
+pure function, so it retries the whole step on the state it started
+from. The port's optimizers update the state in place, and copying the
+state every step would cost as much memory again (24.7 GB at full width).
+So the step comes in two phases (``train_step.phases``, see
+:func:`repro_torch.train.step.make_train_step`): the gradient phase reads
+the state without touching it and ends in a sync, and the update phase
+writes the state. A failure of the gradient phase is retried on the
+untouched state and the same batch; once retries are exhausted the
+pre-step state is checkpointed and the error raised, as in the
+reference. A failure once the update has begun leaves the in-memory state
+torn: it is neither retried nor checkpointed, the loop raises, and the
+last committed checkpoint is the resume point. A step function without
+``phases`` is taken as pure (it must not modify the state it is given):
+the whole call is retried, as in the reference.
+
+The multi-host loop (collective snapshots, agreed restore steps, the
+polled SIGTERM agreement) and gradient-wire residuals are ported with the
+dist slice (ROADMAP A5); ``preempt_poll_every`` is accepted and, in a
+single process as in the reference, has no effect.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import signal
 import time
 from typing import Callable, Iterator, Union
 
+from repro_torch.train.checkpoint import CheckpointManager, flatten, latest_step, manifest
 from repro_torch.train.train_state import TrainState
+from repro_torch.tree import tree_leaves
 
 __all__ = ["TrainLoopConfig", "run_training"]
 
 # ``batches``: either a plain iterator, or a callable mapping the start
-# step to an iterator, called with the state's step
+# step to an iterator — the loop calls it after restore (and again after
+# a rollback) so the stream begins at the batch the run actually needs.
 Batches = Union[Iterator, Callable[[int], Iterator]]
-
-_LATER = "is ported with the checkpointed-training slice (ROADMAP A)"
 
 
 @dataclasses.dataclass
 class TrainLoopConfig:
     total_steps: int
+    ckpt_dir: str | None = None
+    ckpt_every: int = 100
+    keep_n: int = 3
+    max_retries_per_step: int = 2
     straggler_factor: float = 3.0
     log_every: int = 10
     seed: int = 0
     # most-recent metrics rows kept in host memory (the returned
     # ``history``); None keeps everything
     history_cap: int | None = 10_000
-    ckpt_dir: str | None = None
+    # serialize and commit checkpoints on a background thread; the step
+    # pays only the snapshot. At most max_pending_saves snapshots queue
+    # (a save blocks beyond that)
+    async_saves: bool = True
+    max_pending_saves: int = 2
+    # loss-spike monitor: after ``spike_patience`` consecutive steps with
+    # a non-finite loss or loss > ``spike_factor ×`` its EWMA, roll back
+    # to the last good checkpoint and multiply the checkpoint cadence by
+    # ``rollback_widen``. None disables. Requires ckpt_dir
     spike_factor: float | None = None
+    spike_patience: int = 2
+    max_rollbacks: int = 2
+    rollback_widen: int = 2
+    # multi-host only in the reference: no effect in a single process
+    preempt_poll_every: int = 10
+
+
+def _phases(train_step: Callable) -> tuple[Callable, Callable]:
+    """(gradient phase, update phase) of a step; a step without phases is
+    one pure call, retried whole."""
+    phases = getattr(train_step, "phases", None)
+    if phases is not None:
+        return phases
+    return train_step, lambda state, out, seed: out
+
+
+def _restore(mgr: CheckpointManager, state: TrainState, *, step: int | None = None):
+    """Restore ``state`` in place from ``mgr``'s checkpoint at ``step``
+    (LATEST when None); a checkpoint that carries gradient-wire residuals
+    is refused."""
+    man = manifest(mgr.directory, step=step)
+    params = tree_leaves(state.params)
+    # the reference stores one (wire replicas, *param shape) buffer per
+    # parameter leaf after the rest of the state
+    tail = man["shapes"][len(flatten(state)):]
+    residuals = len(tail) == len(params) and all(
+        s[1:] == list(p.shape) and len(s) == p.dim() + 1 for s, p in zip(tail, params))
+    if residuals or (man.get("extra") or {}).get("wire_format"):
+        raise ValueError("the checkpoint carries gradient-wire residuals; they are "
+                         "ported with the dist slice (ROADMAP A5)")
+    return mgr.restore_latest(state, step=step)
 
 
 def run_training(state: TrainState, train_step: Callable, batches: Batches,
-                 cfg: TrainLoopConfig, *, log: Callable[[str], None] = print
+                 cfg: TrainLoopConfig, *, log: Callable[[str], None] = print,
+                 fault_hook: Callable[[int], None] | None = None
                  ) -> tuple[TrainState, dict]:
-    """Run from ``state.step`` to ``cfg.total_steps``. Returns the final
-    state and ``{"history", "stragglers", "preempted", "rollbacks"}``."""
-    if cfg.ckpt_dir is not None:
-        raise ValueError(f"checkpointing (ckpt_dir) {_LATER}")
+    """Run from ``state.step`` (or the latest checkpoint under
+    ``cfg.ckpt_dir``) to ``cfg.total_steps``. Returns the final state and
+    ``{"history", "stragglers", "preempted", "rollbacks"}``.
+
+    ``batches`` may be a callable ``start_step -> iterator``: the loop
+    calls it after the resume (and after a rollback), so the stream
+    continues at the restored step. A plain iterator is accepted too; the
+    caller then advances it past trained steps (the spike monitor needs
+    the callable form: a rollback rewinds the stream). The stream is
+    pulled once per step, before the retries: a retried step replays the
+    same batch. ``fault_hook(step)`` runs at the start of each attempt of
+    the gradient phase and may raise to simulate a failure.
+    """
+    mgr = CheckpointManager(cfg.ckpt_dir, every_steps=cfg.ckpt_every, keep_n=cfg.keep_n,
+                            async_saves=cfg.async_saves,
+                            max_pending=cfg.max_pending_saves) if cfg.ckpt_dir else None
+    batches_fn = batches if callable(batches) else None
     if cfg.spike_factor is not None:
-        raise ValueError(f"the loss-spike monitor (spike_factor) {_LATER}")
-    step = int(state.step)
-    stream = batches(step) if callable(batches) else batches
-    warm_until = step + 2        # the first steps carry warm-up; keep them out of the EWMA
+        if mgr is None:
+            raise ValueError("spike_factor requires ckpt_dir "
+                             "(rollback needs a checkpoint to return to)")
+        if batches_fn is None:
+            raise ValueError("spike_factor requires callable batches "
+                             "(a rollback must rewind the data stream)")
+    if mgr:
+        mgr.drain()
+        if latest_step(mgr.directory) is not None:
+            state, at = _restore(mgr, state)
+            log(f"[loop] resumed from checkpoint at step {at}")
+    gradients, update = _phases(train_step)
+
+    stop = {"preempted": False}
+
+    def _sigterm(sig, frame):
+        stop["preempted"] = True
+    old = None
+    try:
+        old = signal.signal(signal.SIGTERM, _sigterm)
+    except ValueError:
+        pass      # not on the main thread
+
     ewma = None
     stragglers = 0
     history: list[dict] = []
-    while step < cfg.total_steps:
-        batch = next(stream)
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batch, cfg.seed)
-        row = {k: float(v) for k, v in metrics.items()}    # syncs the device
-        dt = time.perf_counter() - t0
-        straggling = step >= warm_until and ewma is not None and dt > cfg.straggler_factor * ewma
-        if step >= warm_until and not straggling:
-            ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
-        if straggling:
-            stragglers += 1
-            log(f"[loop] straggler: step {step} took {dt:.2f}s (ewma {ewma:.2f}s)")
-        history.append(row)
+    suspect: list[dict] = []     # rows of steps under spike suspicion
+
+    def _record(rows):
+        history.extend(rows)
         if cfg.history_cap is not None and len(history) > cfg.history_cap:
             del history[:len(history) - cfg.history_cap]
-        if step % cfg.log_every == 0:
-            log(f"[loop] step {step} loss {row['loss']:.4f} ({dt * 1e3:.0f} ms)")
-        step += 1
+
+    def _save(at: int, *, force: bool = False):
+        # at most one commit of a step's state (a cadence save and the
+        # preemption save can name the same step)
+        if saved_at[0] != at and mgr.maybe_save(at, state, force=force) is not None:
+            saved_at[0] = at
+
+    saved_at = [None]
+    step = int(state.step)
+    stream = batches_fn(step) if batches_fn else batches
+    warm_until = step + 2     # the first steps carry warm-up; keep them out of the EWMA
+    loss_ewma = None
+    spike_run = 0
+    rollbacks = 0
+    try:
+        while step < cfg.total_steps:
+            batch = next(stream)
+            t0 = time.perf_counter()
+            attempt = 0
+            while True:
+                try:
+                    if fault_hook is not None:
+                        fault_hook(step)
+                    out = gradients(state, batch, cfg.seed)
+                    break
+                except Exception as e:          # noqa: BLE001 — retry wall
+                    attempt += 1
+                    if attempt > cfg.max_retries_per_step:
+                        if mgr:
+                            # the gradient phase never touches the state:
+                            # this is the state the step started from
+                            _save(step, force=True)
+                            log(f"[loop] step {step} failed {attempt}×; "
+                                f"checkpointed for external restart: {e}")
+                        raise
+                    log(f"[loop] step {step} retry {attempt} after {type(e).__name__}")
+            try:
+                state, metrics = update(state, out, cfg.seed)
+                row = {k: float(v) for k, v in metrics.items()}    # syncs the device
+            except Exception as e:
+                log(f"[loop] step {step} failed in the update phase; the state is torn, "
+                    f"so it is neither retried nor checkpointed: resume from the last "
+                    f"committed checkpoint: {e}")
+                raise
+            del out
+            dt = time.perf_counter() - t0
+
+            if cfg.spike_factor is not None:
+                loss = row["loss"]
+                spiked = not math.isfinite(loss) or (
+                    loss_ewma is not None and loss > cfg.spike_factor * loss_ewma)
+                if spiked:
+                    spike_run += 1
+                else:
+                    spike_run = 0
+                    loss_ewma = loss if loss_ewma is None else 0.9 * loss_ewma + 0.1 * loss
+                if spike_run >= cfg.spike_patience:
+                    mgr.drain()
+                    at_step = latest_step(mgr.directory)
+                    if at_step is None:
+                        raise RuntimeError(f"loss diverged at step {step} (loss {loss:g}) "
+                                           f"with no checkpoint to roll back to")
+                    if rollbacks >= cfg.max_rollbacks:
+                        # not checkpointed: LATEST keeps naming the last good state
+                        raise RuntimeError(f"loss diverged at step {step} after "
+                                           f"{rollbacks} rollbacks; giving up")
+                    state, at = _restore(mgr, state, step=at_step)
+                    saved_at[0] = None
+                    rollbacks += 1
+                    mgr.every_steps = cfg.ckpt_every * cfg.rollback_widen ** rollbacks
+                    log(f"[loop] loss spike at step {step} (loss {loss:.4g}, ewma "
+                        f"{loss_ewma if loss_ewma is None else round(loss_ewma, 4)}); "
+                        f"rolled back to step {at}; ckpt_every -> {mgr.every_steps}")
+                    suspect.clear()     # rows of the discarded trajectory
+                    step = at
+                    warm_until = at + 2
+                    loss_ewma, spike_run = None, 0
+                    stream = batches_fn(at)
+                    continue            # the spiked state is never checkpointed
+
+            straggling = step >= warm_until and ewma is not None and \
+                dt > cfg.straggler_factor * ewma
+            if step >= warm_until and not straggling:
+                ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+            if straggling:
+                stragglers += 1
+                log(f"[loop] straggler: step {step} took {dt:.2f}s (ewma {ewma:.2f}s)")
+            if mgr and spike_run == 0:
+                # a step under spike suspicion is never committed: the
+                # rollback target must predate the first suspicious update
+                base = cfg.ckpt_every * cfg.rollback_widen ** rollbacks
+                mgr.every_steps = max(base // (2 if stragglers > 3 else 1), 1)
+                _save(step + 1)
+            if spike_run > 0:
+                suspect.append(row)     # dropped if the run rolls back
+            else:
+                _record(suspect + [row])    # suspicion cleared: those updates stay
+                suspect.clear()
+            if step % cfg.log_every == 0:
+                log(f"[loop] step {step} loss {row['loss']:.4f} ({dt * 1e3:.0f} ms)")
+            if stop["preempted"]:
+                if mgr:
+                    _save(step + 1, force=True)
+                log(f"[loop] preempted at step {step}; checkpointed and exiting")
+                break
+            step += 1
+    except BaseException:
+        if mgr:
+            try:
+                mgr.drain()     # the crash checkpoint must reach the disk
+            except Exception as e2:  # noqa: BLE001 — the original error wins
+                log(f"[loop] checkpoint drain failed during unwind: {e2}")
+        raise
+    finally:
+        if old is not None:
+            signal.signal(signal.SIGTERM, old)
+    # a run that ends under unresolved suspicion kept those updates
+    _record(suspect)
+    if mgr:
+        mgr.drain()             # preemption and final saves committed before return
     return state, {"history": history, "stragglers": stragglers,
-                   "preempted": False, "rollbacks": 0}
+                   "preempted": stop["preempted"], "rollbacks": rollbacks}

@@ -13,7 +13,7 @@ slice.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -27,7 +27,8 @@ from repro_torch.serve import cache as SC
 from repro_torch.train.train_state import TrainState, softmax_xent
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["compute_params", "make_train_step", "make_eval_step", "make_serve_step"]
+__all__ = ["Gradients", "compute_params", "make_train_step", "make_eval_step",
+           "make_serve_step"]
 
 PyTree = Any
 
@@ -55,6 +56,13 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
     return [{name: x.chunk(k)[i] for name, x in batch.items()} for i in range(k)]
 
 
+class Gradients(NamedTuple):
+    """What the gradient phase of a train step hands its update phase."""
+    grads: PyTree               # in the compute dtype, shaped like the params
+    loss: torch.Tensor          # f32
+    grad_norm: torch.Tensor     # f32
+
+
 def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
                     remat: bool = True, attn_chunk: int = 1024,
                     loss_fn: Callable | None = None, pspecs=None, placement=None,
@@ -67,6 +75,15 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     ``StepKey(seed, state.step)``: one stream per parameter leaf. The
     params and optimizer state of ``state`` are updated in place and
     returned in the new state.
+
+    The step is two phases, exposed as ``train_step.phases = (gradients,
+    update)`` for :func:`repro_torch.train.loop.run_training`:
+    ``gradients(state, batch, seed) -> Gradients`` reads the state and
+    does not touch it, and ends in a read of the gradient norm (a sync),
+    so a device fault of its kernels surfaces inside it; ``update(state,
+    gradients, seed) -> (state, metrics)`` writes the new weights and
+    optimizer state in place. ``train_step`` is ``update`` after
+    ``gradients``.
     """
     for name, given in (("transport", transport), ("pspecs", pspecs),
                         ("placement", placement)):
@@ -88,8 +105,7 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), list(grads)
 
-    def train_step(state: TrainState, batch, seed) -> tuple[TrainState, dict]:
-        key = StepKey(int(seed), int(state.step))
+    def gradients(state: TrainState, batch, seed) -> Gradients:
         # the working copy, as fresh autograd leaves sharing its storage
         wc = compute_params(state.params, policy)
         leaves = [w.detach().requires_grad_(True) for w in tree_leaves(wc)]
@@ -113,13 +129,22 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
             loss, grads = _micro_grads(wc, leaves, batch)
         del wc, leaves
         grads = tree_unflatten(state.params, grads)
-        lr = lr_schedule(state.step)
         grad_norm = _global_norm(grads)
-        new_params, new_opt = optimizer.update(grads, state.opt_state, state.params,
+        float(grad_norm)    # the sync: a device fault of this phase surfaces here
+        return Gradients(grads, loss.to(torch.float32), grad_norm)
+
+    def update(state: TrainState, g: Gradients, seed) -> tuple[TrainState, dict]:
+        key = StepKey(int(seed), int(state.step))
+        lr = lr_schedule(state.step)
+        new_params, new_opt = optimizer.update(g.grads, state.opt_state, state.params,
                                                step=state.step, key=key, lr=lr)
-        metrics = {"loss": loss.to(torch.float32), "lr": lr, "grad_norm": grad_norm}
+        metrics = {"loss": g.loss, "lr": lr, "grad_norm": g.grad_norm}
         return TrainState(state.step + 1, new_params, new_opt, None), metrics
 
+    def train_step(state: TrainState, batch, seed) -> tuple[TrainState, dict]:
+        return update(state, gradients(state, batch, seed), seed)
+
+    train_step.phases = (gradients, update)
     return train_step
 
 
@@ -147,7 +172,7 @@ def make_eval_step(cfg, policy: PrecisionPolicy, *, attn_chunk: int = 1024):
 def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                     paged: bool = False, chunk: int = 1,
                     return_logits: bool = False):
-    """Slot-indexed greedy decode step:
+    """Slot-indexed decode step:
     ``(params, cache, token, pos[, active, reset, ...]) → (next_token, cache)``.
 
     token (N,C) int, pos (N,) i32 per-slot depths; ``reset`` ((N,) bool)
@@ -181,10 +206,14 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     returned token is the model output of each lane's *last real* token
     (reference ``step.py:260-387``); only that row reaches the logits
     product, which the reference computes for every row and then indexes.
-    The logits-returning sampling variant is a later slice.
+
+    ``return_logits=True`` is the *sampling* variant: ``(next_token,
+    logits, cache)`` with ``logits`` the f32 (N, V) row each lane's token
+    was argmaxed from (its last real row). The token path is the greedy
+    variant's op for op, so greedy lanes keep their bits next to sampling
+    lanes, which :mod:`repro_torch.serve.sampling` re-decides from the
+    logits.
     """
-    if return_logits:
-        raise ValueError("the logits-returning step is ported with the sampling slice")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     qa = QArith(policy)
@@ -219,6 +248,8 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
             if active is not None:
                 new_cache = SC.keep_active(active, new_cache, cache)
                 next_token = torch.where(active, next_token, -1)
+            if return_logits:
+                return next_token[:, None], logits[:, -1, :].to(torch.float32), new_cache
             return next_token[:, None], new_cache
 
     return serve_step

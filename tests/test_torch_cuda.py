@@ -101,14 +101,14 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 def _run_launches(eng, name, counted):
     """Launches of kernel ``name`` a serve run really made: the wrapper's
-    count (each width's eager first step and its capture) less the
+    count (each step variant's eager first step and its capture) less the
     captures, plus each graph's replays times the launches it holds."""
     per = {w: g.kernels.get(name, 0) for w, g in eng.graphs.items()}
     return counted - sum(per.values()) + sum(g.replays * per[w] for w, g in eng.graphs.items())
 
 
-def _width_steps(eng, width):
-    g = eng.graphs.get(width)
+def _width_steps(eng, width, with_logits=False):
+    g = eng.graphs.get((width, with_logits))
     return 0 if g is None else 1 + g.replays
 
 
@@ -122,10 +122,11 @@ def test_engine_matches_generate_on_the_card(cuda):
         eng.submit(rng.integers(0, cfg.vocab, size=s), g)
     before = DA.LAUNCHES
     done = eng.run()
-    assert eng.graphs[1].replays == eng.stats.steps - 1       # the first step is eager
+    assert set(eng.graphs) == {(1, False)}                    # greedy: no logits graph
+    assert eng.graphs[1, False].replays == eng.stats.steps - 1   # the first step is eager
     # the serve step's kernels: decode attention per layer, qmatmul for its
     # seven products, row_mean_sq under its two norms and the final one
-    assert eng.graphs[1].kernels == {"decode_attention": cfg.n_layers,
+    assert eng.graphs[1, False].kernels == {"decode_attention": cfg.n_layers,
                                      "qmatmul": 7 * cfg.n_layers,
                                      "row_mean_sq": 2 * cfg.n_layers + 1}
     assert _run_launches(eng, "decode_attention", DA.LAUNCHES - before) \
@@ -262,7 +263,7 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
         before = DA.PAGED_LAUNCHES
         done = eng.run()
         launched = _run_launches(eng, "paged_decode_attention", DA.PAGED_LAUNCHES - before)
-        steps = sum(_width_steps(eng, w) for w in eng.graphs)
+        steps = sum(_width_steps(eng, *key) for key in eng.graphs)
         return {c.rid: c.tokens for c in done}, eng, launched, steps
 
     for chunk in (1, 4):
@@ -310,7 +311,7 @@ def test_graph_engine_equals_the_eager_step(cuda, config):
     want, eager = run(False)
     assert eager.graphs == {} and eng.stats == eager.stats
     widths = {1, ENGINES[config].get("prefill_chunk", 1)}
-    assert set(eng.graphs) == widths
+    assert set(eng.graphs) == {(w, False) for w in widths}
     assert sum(_width_steps(eng, w) for w in widths) == eng.stats.steps
     assert all(g.replays > 0 for g in eng.graphs.values())
     for rid in want:
@@ -336,13 +337,89 @@ def test_chunk_32_graph_engine_equals_chunk_1(cuda, paged):
         for p, g in stream:
             eng.submit(p, g)
         done = {c.rid: c.tokens for c in eng.run()}
-        assert set(eng.graphs) == {1, chunk}
+        assert set(eng.graphs) == {(1, False), (chunk, False)}
         return done, eng
 
     (want, one), (got, chunked) = run(1), run(32)
     assert chunked.stats.steps < one.stats.steps
     for rid in want:
         assert np.array_equal(got[rid], want[rid]), rid
+
+
+def _mixed_stream(cfg, seed):
+    """Six requests behind a shared prefix; every other one sampled."""
+    rng = np.random.default_rng(seed)
+    common = rng.integers(0, cfg.vocab, 16)
+    stream = [(np.concatenate([common, rng.integers(0, cfg.vocab, s)]), g)
+              for s, g in zip((5, 9, 14, 3, 11, 7), (8, 6, 12, 9, 5, 10))]
+    knobs = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1) if i % 2 else {}
+             for i in range(len(stream))]
+    return stream, knobs
+
+
+@pytest.mark.parametrize("kw", [{}, dict(paged=True, page_size=4, n_pages=20, prefill_chunk=4)],
+                         ids=["contiguous", "paged, chunk 4"])
+def test_sampling_graph_engine_equals_the_eager_step(cuda, kw):
+    """Sampled lanes beside greedy ones: the graph engine (a logits graph
+    beside the greedy graph of each width) gives the eager step's tokens,
+    and the sampler launches the Philox fill for each sampled token."""
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    stream, knobs = _mixed_stream(cfg, 4)
+
+    def run(graphs):
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=48, fused_decode=True, **kw)
+        eng._use_graphs = graphs
+        for (p, g), k in zip(stream, knobs):
+            eng.submit(p, g, **k)
+        before = PH.LAUNCHES
+        done = eng.run()
+        return {c.rid: c.tokens for c in done}, eng, PH.LAUNCHES - before
+
+    got, eng, fills = run(True)
+    want, _, _ = run(False)
+    assert {with_logits for _, with_logits in eng.graphs} == {False, True}
+    # one fill per sampled token (more where a preemption regenerates some)
+    assert fills >= sum(g for (_, g), k in zip(stream, knobs) if k)
+    for rid in want:
+        assert np.array_equal(got[rid], want[rid]), rid
+
+
+def test_sampled_tokens_survive_preemption_and_chunking_on_the_card(cuda):
+    """On the card a chunk step gives a row the single-token bits (C10),
+    so tight pages with chunk 4 draw the tokens of roomy pages with chunk 1."""
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    stream, knobs = _mixed_stream(cfg, 5)
+    outs = []
+    for n_pages, chunk in ((14, 4), (None, 1)):
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=48, fused_decode=True,
+                     paged=True, page_size=4, n_pages=n_pages, prefill_chunk=chunk)
+        for (p, g), k in zip(stream, knobs):
+            eng.submit(p, g, **k)
+        outs.append({c.rid: c.tokens.tolist() for c in eng.run()})
+        if chunk == 4:
+            assert eng.stats.preemptions >= 1
+    assert outs[0] == outs[1]
+
+
+def test_sampler_on_the_card_matches_the_cpu(cuda):
+    """The same logits and keys: the card's noise words are the CPU's, and
+    the draws agree but for last-ulp differences of f32 ``log``."""
+    from repro_torch.serve import sampling
+    logits = torch.randn((1, 4096), generator=torch.Generator().manual_seed(6)) * 2
+    n = 2000
+    keys = [sampling.request_key(1, 0, p) for p in range(n)]
+    rows = logits.expand(n, -1)
+    args = ([0.8] * n, [50] * n, [0.95] * n, keys)
+    card = sampling.sample(rows.to(cuda), *args).cpu()
+    cpu = sampling.sample(rows, *args)
+    assert float((card == cpu).float().mean()) >= 0.999
+    noise = sampling.gumbel(keys[:4], 4096, cuda).cpu()
+    assert torch.isfinite(noise).all()
+    torch.testing.assert_close(noise, sampling.gumbel(keys[:4], 4096, "cpu"), atol=0, rtol=1e-12)
 
 
 def test_chunk_step_equals_single_token_steps_on_the_card(cuda):

@@ -162,11 +162,17 @@ def test_later_slice_features_raise():
     params = R.init(cfg, 0, NEAREST.param_dtype, device="cpu")
     paged = Engine(params, cfg, NEAREST, paged=True, prefill_chunk=4, device="cpu")
     assert paged.paged and paged.prefill_chunk == 4 and paged.prefix_cache
-    with pytest.raises(ValueError, match="sampling"):
-        make_serve_step(cfg, NEAREST, return_logits=True)
+    # sampling is ported (tests/test_torch_sampling.py): the logits variant
+    # of the serve step and sampled requests work
+    step = make_serve_step(cfg, NEAREST, return_logits=True)
+    cache = R.make_cache(params, cfg, batch_size=1, max_len=4, dtype=NEAREST.compute_dtype)
+    with torch.no_grad():
+        tok, logits, _ = step(params, cache, torch.zeros((1, 1), dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32))
+    assert logits.shape == (1, cfg.vocab) and tok.shape == (1, 1)
     eng = Engine(params, cfg, NEAREST, n_slots=1, max_len=16, device="cpu")
-    with pytest.raises(ValueError, match="sampling"):
-        eng.submit(np.arange(3), 2, temperature=0.7)
+    rid = eng.submit(np.arange(3), 2, temperature=0.7)
+    assert eng.run()[0].rid == rid
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.arange(10), 10)
     with pytest.raises(NotImplementedError, match="not ported yet"):
