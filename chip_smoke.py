@@ -150,7 +150,24 @@ Phases, each printing its lines (a failed check exits non-zero):
     replayed step of each (width, with_logits), the sampler's ms per step
     (CUDA events), tok/s beside the greedy stream's, device memory after
     capture;
-13. ckpt (main path of checkpointed training; it runs last): the train
+13. paper (main path of the paper's experiments): the eight sections of
+    ``repro_torch.benchmarks`` (fig2, table3, table4, fig5, fig9, fig10,
+    fig11, fig12) in this process at the reference's step counts, their
+    CSV rows after a line with the card's name and power limit; first one
+    ``bf16_sr`` SGD step of the DLRM (13 leaves, the tables 8 × 1000 × 16)
+    through ``sr_cast`` ``torch.equal`` to the same step through its plain
+    version on the same Philox bits; ``sr_cast`` and ``philox`` counted
+    over the sections; the reference's conclusions, with margins set from
+    its CPU rows: fig2 nearest-on-updates MSE ≥ 5 × exact and
+    nearest-on-fwd/bwd ≤ 1.5 × exact; table3 ablation gap < standard gap;
+    table4 DLRM AUC of SR and Kahan within 0.01 of fp32, standard ≥ 0.03
+    below; table4 LM SR and Kahan gaps to fp32 each under half the
+    standard gap; fig9 0 < early < late < 1; fig12 fp16 range probe NaN or
+    > 1e3 × bf16's, bf16's finite; every fig5, fig10, fig11 and fig12 row
+    finite, fig11's DLRM AUC within 0.01 of table4's fp32; a second
+    ``bf16_sr`` DLRM run bitwise equal to table4's (losses and AUC); µs
+    per step of every run and the phase's wall time;
+14. ckpt (main path of checkpointed training; it runs last): the train
     cell cut to 2 layers (465 M parameters) through the launcher's
     ``build`` and ``train`` with ``--ckpt-every 2``, keep-N 2, under a
     temporary directory removed at the end (its free space printed first):
@@ -2118,6 +2135,194 @@ def phase_parity(run, state, card: str) -> dict:
     return launches
 
 
+def _hold_sr_update(tag: str, update, n_leaves: int) -> list:
+    """``update()`` (one SR optimizer step on fresh copies, returning its
+    output leaves) through the ``philox`` fill and ``sr_cast``, then again
+    with both swapped for their plain versions in the optimizers: each
+    kernel must launch once per leaf in the first run and never in the
+    second, and every leaf must be ``torch.equal``. Returns the kernel's
+    leaves."""
+    import math
+    import torch
+    from repro_torch.optim import base as OB
+    SC, PH = kernel_module("sr_cast"), kernel_module("philox")
+    SC.LAUNCHES = PH.LAUNCHES = 0
+    kernel = update()
+    check(SC.LAUNCHES == PH.LAUNCHES == n_leaves,
+          f"[paper] {tag}: sr_cast launched {SC.LAUNCHES} and philox {PH.LAUNCHES} times "
+          f"for {n_leaves} leaves")
+    real = OB.sr_cast, OB.philox_bits
+    OB.sr_cast = SC.sr_cast_ref
+    OB.philox_bits = lambda seed, shape, device: PH.philox_bits_ref(
+        seed, math.prod(int(s) for s in shape), device).reshape(shape)
+    try:
+        plain = update()
+    finally:
+        OB.sr_cast, OB.philox_bits = real
+    check(SC.LAUNCHES == PH.LAUNCHES == n_leaves,
+          f"[paper] {tag}: a kernel launched in the plain run (sr_cast {SC.LAUNCHES}, "
+          f"philox {PH.LAUNCHES} after {n_leaves} each)")
+    check(len(kernel) == len(plain), f"[paper] {tag}: {len(kernel)} against {len(plain)} leaves")
+    for i, (a, b) in enumerate(zip(kernel, plain)):
+        check(torch.equal(a, b), f"[paper] {tag}: output leaf {i} {tuple(a.shape)} through "
+                              f"philox + sr_cast differs from the plain versions")
+    return kernel
+
+
+def _paper_parity(card: str):
+    """``philox`` + ``sr_cast`` against their plain versions on the paper
+    path's own leaves: one ``bf16_sr`` SGD step of the DLRM (13 leaves, 1
+    to 128,000 elements) and one ``bf16_sr`` AdamW step of the reduced
+    qwen2.5-3b of ``train_tiny_lm`` (14 leaves), each from its first
+    gradient."""
+    import torch
+    from repro_torch.benchmarks.common import dlrm_loss
+    from repro_torch.core.policy import get_policy
+    from repro_torch.core.qarith import QArith
+    from repro_torch.data.synthetic import dlrm_batches, lm_batches
+    from repro_torch.models import registry as R
+    from repro_torch.models.dlrm import DLRM_KAGGLE_SMALL, dlrm_init
+    from repro_torch.optim import StepKey, adamw, constant, sgd
+    from repro_torch.optim.base import init_params_for_policy
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import make_train_state
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    policy = get_policy("bf16_sr")
+    params = init_params_for_policy(tree_map(lambda w: w.cuda(), dlrm_init(
+        torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL)), policy)
+    leaves = [w.detach().requires_grad_(True) for w in tree_leaves(params)]
+    batch = next(dlrm_batches(DLRM_KAGGLE_SMALL, 128, seed=1, device="cuda"))
+    grads = tree_unflatten(params, list(torch.autograd.grad(
+        dlrm_loss(QArith(policy), tree_unflatten(params, leaves), batch), leaves)))
+    opt = sgd(policy, momentum=0.0)
+
+    def dlrm_step():
+        w = tree_map(torch.clone, params)
+        out, _ = opt.update(grads, opt.init(w), w, step=0, key=StepKey(5, 0), lr=0.1)
+        return tree_leaves(out)
+
+    kernel = tree_unflatten(params, _hold_sr_update("DLRM SGD step", dlrm_step,
+                                                    len(leaves)))
+    moved = int((kernel["tables"] != params["tables"]).sum())
+    sizes = sorted(w.numel() for w in leaves)
+    print(f"[paper] one bf16_sr SGD step of the DLRM from its first gradient: every leaf "
+          f"({len(leaves)}, {sizes[0]} to {sizes[-1]} elements) through philox + sr_cast "
+          f"torch.equal to the plain versions (tables {tuple(params['tables'].shape)}: "
+          f"{moved} of {params['tables'].numel()} weights moved)")
+    del params, leaves, grads, kernel
+
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    lm = init_params_for_policy(tree_map(lambda w: w.cuda(), R.init(
+        cfg, 0, torch.float32, device="cpu")), policy)
+    lm_opt = adamw(policy, b2=0.997)
+    gradients, update = make_train_step(cfg, policy, lm_opt, constant(3e-3),
+                                        attn_chunk=8).phases
+    state = make_train_state(lm, lm_opt)
+    g = gradients(state, next(lm_batches(cfg.vocab, 8, 32, seed=0, device="cuda")), 0)
+
+    def lm_step():
+        fresh = make_train_state(tree_map(torch.clone, lm), lm_opt)
+        new, _ = update(fresh, g, 0)
+        return tree_leaves(new.params) + [x for part in new.opt_state if part is not None
+                                          for x in tree_leaves(part)]
+
+    n = len(tree_leaves(lm))
+    kernel = _hold_sr_update("reduced-qwen AdamW step", lm_step, n)
+    sizes = sorted(w.numel() for w in tree_leaves(lm))
+    print(f"[paper] one bf16_sr AdamW step of the reduced qwen2.5-3b from its first "
+          f"gradient: every leaf ({n}, {sizes[0]} to {sizes[-1]} elements) and the "
+          f"optimizer state ({len(kernel) - n} tensors) through philox + sr_cast "
+          f"torch.equal to the plain versions on {card}")
+
+
+def phase_paper(card: str) -> dict:
+    """The paper's eight sections (``repro_torch.benchmarks``) in this
+    process on the card at the reference's step counts: their CSV rows,
+    the conclusions the reference draws (margins from its CPU rows, see
+    PERF.md), ``sr_cast`` held bitwise to its plain version on one SR SGD
+    step of the DLRM tables, and a bitwise rerun of table4's ``bf16_sr``
+    DLRM. Returns the sections' ``sr_cast`` and ``philox`` launches."""
+    import math
+    import torch
+    from repro_torch.benchmarks import run as BR
+    from repro_torch.benchmarks.common import train_dlrm
+    SC = kernel_module("sr_cast")
+    PH = kernel_module("philox")
+
+    _paper_parity(card)
+
+    sections = [name for name, mod in BR.SECTIONS if not mod.startswith("ROADMAP")]
+    print(card)
+    print("name,us_per_call,derived", flush=True)
+    SC.LAUNCHES = PH.LAUNCHES = 0
+    res, took = {}, {}
+    t0 = time.perf_counter()
+    for name in sections:
+        t = time.perf_counter()
+        res[name] = BR.run_section(name, device="cuda")
+        took[name] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"sr_cast": SC.LAUNCHES, "philox": PH.LAUNCHES}
+    print(f"[paper] {len(sections)} sections in {wall:.1f}s on {card} ("
+          + ", ".join(f"{n} {s:.1f}s" for n, s in took.items())
+          + f"); launches {launches}")
+
+    f2, t3, t4 = res["fig2_theory"], res["table3_bottleneck"], res["table4_accuracy"]
+    f9, f12 = res["fig9_cancellation"], res["fig12_fp16"]
+    check(f2["updates"] >= 5 * f2["exact"] and f2["fwdbwd"] <= 1.5 * f2["exact"],
+          f"[paper] fig2: MSE exact {f2['exact']:.4e}, nearest on updates "
+          f"{f2['updates']:.4e} (needs >= 5x), on fwd/bwd {f2['fwdbwd']:.4e} (needs <= 1.5x)")
+    check(t3["gap_ablation"] < t3["gap_standard"],
+          f"[paper] table3: ablation gap {t3['gap_ablation']:+.4f} not below the standard "
+          f"gap {t3['gap_standard']:+.4f}")
+    dl = t4["dlrm"]
+    check(abs(dl["bf16_sr"] - dl["fp32"]) <= 0.01 and abs(dl["bf16_kahan"] - dl["fp32"]) <= 0.01
+          and dl["bf16_standard"] <= dl["fp32"] - 0.03,
+          f"[paper] table4 DLRM AUC {dl}: SR and Kahan must lie within 0.01 of fp32, "
+          f"standard at least 0.03 below")
+    lm = t4["lm"]
+    gap = {p: lm[p] - lm["fp32"] for p in ("bf16_sr", "bf16_kahan", "bf16_standard")}
+    check(max(abs(gap["bf16_sr"]), abs(gap["bf16_kahan"])) < 0.5 * gap["bf16_standard"],
+          f"[paper] table4 LM gaps to fp32 {gap}: SR and Kahan must be under half the "
+          f"standard gap")
+    check(0 < f9["early"] < f9["late"] < 1,
+          f"[paper] fig9: cancellation early {f9['early']:.4f}, late {f9['late']:.4f}")
+    check(math.isfinite(f12["probe_bf16"]) and (math.isnan(f12["probe_fp16"])
+                                                or f12["probe_fp16"] > 1e3 * f12["probe_bf16"]),
+          f"[paper] fig12 range probe: bf16 {f12['probe_bf16']:.4e}, fp16 "
+          f"{f12['probe_fp16']:.4e}")
+    finite = [res["fig5_tradeoff"][k]["auc"] for k in res["fig5_tradeoff"]]
+    finite += [v for c in res["fig10_sub16"].values() for v in (c["auc"], c["final_loss"])]
+    finite += [res["fig11_combined"]["lm"], res["fig11_combined"]["dlrm"]]
+    finite += list(f12["lm"].values())
+    check(all(math.isfinite(v) for v in finite), f"[paper] a fig5/10/11/12 row is not "
+                                                  f"finite: {finite}")
+    check(abs(res["fig11_combined"]["dlrm"] - dl["fp32"]) <= 0.01,
+          f"[paper] fig11 DLRM AUC {res['fig11_combined']['dlrm']:.4f} is not within 0.01 "
+          f"of table4's fp32 {dl['fp32']:.4f}")
+    losses, auc, _, us = train_dlrm("bf16_sr", steps=400, device="cuda")
+    check(losses == t4["dlrm_losses"]["bf16_sr"] and auc == dl["bf16_sr"],
+          f"[paper] a second bf16_sr DLRM run differs: AUC {auc} against {dl['bf16_sr']}, "
+          f"{sum(a != b for a, b in zip(losses, t4['dlrm_losses']['bf16_sr']))} of 400 "
+          f"losses")
+    print(f"[paper] conclusions hold on {card}: fig2 updates/exact "
+          f"{f2['updates'] / f2['exact']:.2f}x, fwdbwd/exact {f2['fwdbwd'] / f2['exact']:.4f}x; "
+          f"table3 gaps standard {t3['gap_standard']:+.4f}, ablation {t3['gap_ablation']:+.4f}; "
+          f"table4 DLRM AUC {({k: round(v, 4) for k, v in dl.items()})}, LM gaps "
+          f"{({k: round(v, 4) for k, v in gap.items()})}; fig9 {f9['early']:.4f} -> "
+          f"{f9['late']:.4f}; fig12 probe bf16 {f12['probe_bf16']:.4e}, fp16 "
+          f"{f12['probe_fp16']:.4e}; a second bf16_sr DLRM run is bitwise the first "
+          f"({us:.1f} us per step)")
+    print(f"[paper] us per step, LM: table3 {t3['us']}, table4 {t4['lm_us']}, fig11 "
+          f"{res['fig11_combined']['lm_us']:.1f}, fig12 {f12['lm_us']}; DLRM: table4 "
+          f"{t4['dlrm_us']}, fig5 {({k: v['us'] for k, v in res['fig5_tradeoff'].items()})}, "
+          f"fig9 {f9['us']:.1f}, fig10 {({k: v['us'] for k, v in res['fig10_sub16'].items()})}, "
+          f"fig11 {res['fig11_combined']['dlrm_us']:.1f}; fig2 {f2['us']:.1f} us per 50 steps")
+    return launches
+
+
 def phase_ckpt(card: str):
     """Checkpointed training through ``launch/train.py::build`` and
     ``run_training`` at full width, depth cut to ``CKPT_LAYERS``: (a) two
@@ -2319,11 +2524,12 @@ def main():
     state = phase_train_profile(run, state, card)
     phase_f32_products(run.cfg, state.params["embed"]["embedding"], card)
     parity = phase_parity(run, state, card)
-    for name in ("sr_cast", "fused_sgd"):
-        launches[name] = parity[name]
-    launches["philox"] = parity["philox"] + sample_fills
     del run, state
     torch.cuda.empty_cache()
+    paper = phase_paper(card)
+    launches["fused_sgd"] = parity["fused_sgd"]
+    launches["sr_cast"] = parity["sr_cast"] + paper["sr_cast"]
+    launches["philox"] = parity["philox"] + sample_fills + paper["philox"]
     phase_ckpt(card)
     print(f"[smoke] qmatmul launches: {launches['qmatmul']} on the serve main path, "
           f"{op_launches} through the op layer")

@@ -18,7 +18,7 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.sgd import SGDState
 from repro_torch.train.train_state import TrainState
 
-__all__ = ["from_jax_params", "from_jax_train_state"]
+__all__ = ["from_jax_dlrm_params", "from_jax_params", "from_jax_train_state"]
 
 _DENSE_LM = {
     "embed": {"embedding": None},
@@ -55,6 +55,23 @@ def from_jax_params(tree: Any, *, device=None) -> dict:
     through ``np.asarray``) → the port's params on ``device`` (CUDA unless
     ``"cpu"``). Raises on a leaf the ported dense LM does not have."""
     return _convert(tree, _DENSE_LM, "", resolve_device(device))
+
+
+def from_jax_dlrm_params(tree: Any, *, device=None) -> dict:
+    """The reference's DLRM tree (``repro.models.dlrm.dlrm_init`` passed
+    through ``np.asarray``) → the port's on ``device`` (CUDA unless
+    ``"cpu"``): ``bottom`` and ``top`` lists of ``{kernel, bias}``,
+    ``tables`` (T, V, E), each dtype kept."""
+    dev = resolve_device(device)
+    unknown = set(tree) - {"bottom", "tables", "top"}
+    if unknown:
+        raise KeyError(f"params: leaves not in the DLRM: {sorted(unknown)}")
+
+    def mlp(layers):
+        return [{k: _tensor(p[k], dev) for k in ("kernel", "bias")} for p in layers]
+
+    return {"bottom": mlp(tree["bottom"]), "tables": _tensor(tree["tables"], dev),
+            "top": mlp(tree["top"])}
 
 
 def from_jax_train_state(state: Any, *, device=None) -> TrainState:

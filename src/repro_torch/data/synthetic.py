@@ -1,5 +1,5 @@
-"""Deterministic synthetic LM stream (port of ``repro.data.synthetic``:
-``TokenStream`` and ``lm_batches``).
+"""Deterministic synthetic datasets (port of ``repro.data.synthetic``:
+``TokenStream``, ``lm_batches`` and ``dlrm_batches``).
 
 The stream is seeded, keyed by (seed, step) and *learnable*: an order-2
 hash grammar over a Zipf unigram prior, so cross-entropy has real
@@ -8,7 +8,9 @@ reference's (the same numpy draws from ``seed``, the same int32 hash with
 wrap-around); the per-batch uniforms come from numpy's generator keyed by
 (seed, step) instead of ``jax.random``, so the tokens differ from the
 reference's. Fed the reference's uniforms, :meth:`TokenStream.from_uniform`
-gives its tokens exactly.
+gives its tokens exactly. The DLRM click stream is drawn with numpy
+alone, as the reference draws it, so its batches are the reference's bit
+for bit.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["TokenStream", "lm_batches"]
+__all__ = ["TokenStream", "dlrm_batches", "lm_batches"]
 
 
 @dataclasses.dataclass
@@ -76,4 +78,26 @@ def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
     while True:
         toks = torch.from_numpy(stream.batch((seed, i), batch, seq)).to(dev)
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        i += 1
+
+
+def dlrm_batches(cfg: dict, batch: int, *, seed: int = 0, device=None) -> Iterator[dict]:
+    """Click model on ``device`` (CUDA unless ``"cpu"``): y ~ Bernoulli(σ(w·dense
+    + Σ table_effects)). Yields ``dense`` f32 (B, n_dense), ``sparse`` int32
+    (B, n_sparse) and ``labels`` f32 (B,): the reference's numbers."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=cfg["n_dense"]) / np.sqrt(cfg["n_dense"])
+    table_fx = rng.normal(size=(cfg["n_sparse"], cfg["vocab_per_table"])) * 0.5
+    i = 0
+    while True:
+        r = np.random.default_rng(seed * 1000003 + i)
+        dense = r.normal(size=(batch, cfg["n_dense"])).astype(np.float32)
+        sparse = r.integers(0, cfg["vocab_per_table"],
+                            size=(batch, cfg["n_sparse"]), dtype=np.int32)
+        logit = dense @ w + table_fx[np.arange(cfg["n_sparse"])[None, :], sparse].sum(-1)
+        y = (r.uniform(size=batch) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+        yield {"dense": torch.from_numpy(dense).to(dev),
+               "sparse": torch.from_numpy(sparse).to(dev),
+               "labels": torch.from_numpy(y).to(dev)}
         i += 1

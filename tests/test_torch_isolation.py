@@ -1,4 +1,6 @@
-"""The PyTorch port and its chip check import no JAX and nothing of ``repro``."""
+"""The PyTorch port and its chip check import no JAX, nothing of ``repro``
+and nothing of the reference's ``benchmarks`` package (which imports
+``repro``)."""
 import ast
 from pathlib import Path
 
@@ -6,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported(tree: ast.AST):
