@@ -1,13 +1,18 @@
 """Parameter and train-state conversion from the reference's layout.
 
-The reference stores the dense LM as a stacked tree: every leaf under
-``layers.b0`` carries a leading layer dim L. The port keeps that layout,
+The reference stores a decoder-only LM as a stacked tree: every leaf under
+``layers.b<i>`` carries a leading group dim, and a hybrid pattern's
+remainder sits unstacked under ``rem.b<i>``. The port keeps that layout,
 so conversion maps leaf for leaf and keeps each dtype (a bf16 leaf stays
-bf16). It takes numpy — the caller runs ``np.asarray`` on the JAX side —
-so this module needs no JAX.
+bf16; the f32 ``router``, ``A_log``, ``D_skip`` and ``lambda`` of a bf16
+tree stay f32). Every node is checked against the schema of the ported
+families — dense attention, MoE, Mamba and RG-LRU blocks — so a leaf the
+port does not have raises. It takes numpy — the caller runs
+``np.asarray`` on the JAX side — so this module needs no JAX.
 """
 from __future__ import annotations
 
+import re
 from typing import Any
 
 import numpy as np
@@ -20,16 +25,24 @@ from repro_torch.train.train_state import TrainState
 
 __all__ = ["from_jax_dlrm_params", "from_jax_params", "from_jax_train_state"]
 
-_DENSE_LM = {
-    "embed": {"embedding": None},
-    "final_norm": {"scale": None},
-    "layers": {"b0": {
-        "ln1": {"scale": None},
-        "ln2": {"scale": None},
-        "mixer": {w: {"kernel": None, "bias": None} for w in ("wq", "wk", "wv", "wo")},
-        "ffn": {"w_gate": None, "w_up": None, "w_down": None},
-    }},
-}
+_DENSE = {"kernel": None, "bias": None}
+_NORM = {"scale": None, "bias": None}
+_CONV = {"w": None, "b": None}
+_MLP = {"w_gate": None, "w_up": None, "w_down": None}
+# a block's mixer and ffn: one of these schemas each (tuples are alternatives)
+_MIXERS = (
+    {w: _DENSE for w in ("wq", "wk", "wv", "wo")},                       # attention
+    {"in_proj": _DENSE, "conv": _CONV, "x_proj": _DENSE, "dt_proj": _DENSE,
+     "out_proj": _DENSE, "A_log": None, "D_skip": None},                  # Mamba
+    {"in_x": _DENSE, "in_gate": _DENSE, "conv": _CONV, "w_r": _DENSE, "w_i": _DENSE,
+     "out": _DENSE, "lambda": None},                                      # RG-LRU
+)
+_FFNS = (_MLP, {"router": None, "we_gate": None, "we_up": None, "we_down": None,
+                "shared": _MLP})
+_BLOCK = {"ln1": _NORM, "ln2": _NORM, "mixer": _MIXERS, "ffn": _FFNS}
+_BLOCKS = {r"b\d+": _BLOCK}              # b0 .. b{P-1}: a pattern group's blocks
+_LM = {"embed": {"embedding": None}, "final_norm": _NORM, "lm_head": _DENSE,
+       "layers": _BLOCKS, "rem": _BLOCKS}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -39,22 +52,33 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _sub(schema: dict, key: str, path: str):
+    """The schema of child ``key``: by name, or by a pattern key."""
+    if key in schema:
+        return schema[key]
+    for pat, sub in schema.items():
+        if re.fullmatch(pat, key):
+            return sub
+    raise KeyError(f"{path or 'params'}: leaf {key!r} is not in the ported decoder-only LM")
+
+
 def _convert(tree, schema, path: str, device):
     if schema is None:
         return _tensor(tree, device)
-    unknown = set(tree) - set(schema)
-    if unknown:
-        raise KeyError(f"{path or 'params'}: leaves not in the ported dense LM: "
-                       f"{sorted(unknown)}")
-    return {k: _convert(v, schema[k], f"{path}.{k}".lstrip("."), device)
+    if isinstance(schema, tuple):          # the alternative that has every child
+        fits = [s for s in schema if set(tree) <= set(s)]
+        if not fits:
+            raise KeyError(f"{path}: leaves {sorted(tree)} match no ported block layout")
+        schema = fits[0]
+    return {k: _convert(v, _sub(schema, k, path), f"{path}.{k}".lstrip("."), device)
             for k, v in tree.items()}
 
 
 def from_jax_params(tree: Any, *, device=None) -> dict:
     """Nested dict of numpy arrays (the reference's ``R.init`` tree passed
     through ``np.asarray``) → the port's params on ``device`` (CUDA unless
-    ``"cpu"``). Raises on a leaf the ported dense LM does not have."""
-    return _convert(tree, _DENSE_LM, "", resolve_device(device))
+    ``"cpu"``). Raises on a leaf the ported decoder-only LM does not have."""
+    return _convert(tree, _LM, "", resolve_device(device))
 
 
 def from_jax_dlrm_params(tree: Any, *, device=None) -> dict:
@@ -85,7 +109,7 @@ def from_jax_train_state(state: Any, *, device=None) -> TrainState:
         raise ValueError("wire residuals are ported with the dist slice (ROADMAP A5)")
 
     def tree(t):
-        return None if t is None else _convert(t, _DENSE_LM, "", dev)
+        return None if t is None else _convert(t, _LM, "", dev)
 
     opt = state.opt_state
     if hasattr(opt, "v"):

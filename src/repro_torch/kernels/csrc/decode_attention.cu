@@ -72,6 +72,16 @@
 // The block holds only its share of the score row, ceil(Sc/8) keys, so a
 // view of 32768 keys fits (smem_bytes below; the wrapper mirrors it).
 //
+// A block holds at most kRows = 8 query rows. A group of G > 8 query heads
+// (up to kMaxGroup = 16: recurrentgemma's 10 on one kv head) is split into
+// n_sub = ceil(G / 8) even parts of ceil(G / n_sub) rows, each run by its
+// own cluster over the same K/V rows (the second read mostly hits L2). A
+// row's arithmetic does not depend on which slot of its block it sits in or
+// on how many rows share the block: its scores reduce over the same lane
+// tree, its max, sum and PV over the same threads in the same order, and the
+// visible range and its split depend on the positions only. So a query
+// head gets the same bits whatever G is.
+//
 // Plain C entry points, loaded with ctypes: launch on the caller's stream,
 // allocate nothing, return the launch's CUDA error. A refused cluster launch
 // is returned, never retried another way.
@@ -90,7 +100,8 @@ constexpr int kThreads = 256;               // mirrored in decode_attention.py
 constexpr int kWarps = kThreads / 32;
 constexpr int kCluster = 8;                 // blocks per (lane, kv-head); portable max
 constexpr int kScan = 8;                    // positions in flight per thread
-constexpr int kRows = 8;                    // query heads per kv head, at most: the layouts' rows
+constexpr int kRows = 8;                    // query rows of a block, at most: the layouts' rows
+constexpr int kMaxGroup = 16;               // query heads per kv head, at most (mirrored)
 // range (+pad), max and sum exchanges, warp partials, row max/sum
 constexpr int kStatWords = 4 + 2 * kCluster * kRows + kWarps * kRows + kRows;
 constexpr int kRingBytes = 65536;           // K or V bytes in flight per block
@@ -208,23 +219,31 @@ __host__ __device__ constexpr int ring_bytes(int D) {
   return kRingBytes > kWarps * kRows * D * 4 ? kRingBytes : kWarps * kRows * D * 4;
 }
 
-// Dynamic shared memory of one block: the ring, then 4-byte words q rows
-// [G][D] | PV sums of the cluster's blocks for this rank's columns
-// [kCluster][G][D/kCluster] | stats | scores key-major [cap][kRows] | per
-// key its row, or ~row when masked [cap].
-size_t smem_bytes(int G, int D, int Sc) {
-  return (size_t)ring_bytes(D) +
-         4 * (2 * (size_t)G * D + kStatWords + (size_t)(kRows + 1) * share_cap(Sc));
+// The parts a group of G query heads is split into, and the rows of a part.
+__host__ __device__ __forceinline__ int n_parts(int G) { return (G + kRows - 1) / kRows; }
+__host__ __device__ __forceinline__ int part_rows(int G) {
+  return (G + n_parts(G) - 1) / n_parts(G);
 }
 
-// grid (kCluster*B, Hkv), clusters of kCluster blocks along x, kThreads
-// threads: cluster rank r of lane b = blockIdx.x / kCluster, kv-head h.
+// Dynamic shared memory of one block: the ring, then 4-byte words q rows
+// [Gb][D] | PV sums of the cluster's blocks for this rank's columns
+// [kCluster][Gb][D/kCluster] | stats | scores key-major [cap][kRows] | per
+// key its row, or ~row when masked [cap]; Gb = part_rows(G) <= kRows.
+size_t smem_bytes(int G, int D, int Sc) {
+  return (size_t)ring_bytes(D) +
+         4 * (2 * (size_t)part_rows(G) * D + kStatWords + (size_t)(kRows + 1) * share_cap(Sc));
+}
+
+// grid (kCluster*B, Hkv*n_parts(G)), clusters of kCluster blocks along x,
+// kThreads threads: cluster rank r of lane b = blockIdx.x / kCluster, kv-head
+// h = blockIdx.y / n_parts(G), and the part of its group blockIdx.y %
+// n_parts(G): query heads [part*Gb, part*Gb + G) of the group below.
 template <typename T, int D, typename Rows>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ k_pos,
                         const int* __restrict__ q_pos, float* __restrict__ out,
-                        Rows rows, int Sc, int Hkv, int G, float scale,
+                        Rows rows, int Sc, int Hkv, int G_all, float scale,
                         int window, float softcap, int round_p) {
   constexpr int L = D / 8;                       // lanes per key
   constexpr int kSlots = 32 / L;                 // keys per warp at once
@@ -235,9 +254,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / kCluster, h = blockIdx.y;
+  const int b = blockIdx.x / kCluster, h = blockIdx.y / n_parts(G_all);
+  const int g0 = (blockIdx.y % n_parts(G_all)) * part_rows(G_all);   // first row of the part
+  const int G = min(part_rows(G_all), G_all - g0);                  // this block's rows
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long row0 = (long long)b * Hkv * G + (long long)h * G;  // first q head
+  const long long row0 = (long long)b * Hkv * G_all + (long long)h * G_all + g0;  // first q head
   float* out_rows = out + row0 * D;                                  // [G][D]
   const int qp = q_pos[b];
   if (qp < 0) {  // parked lane: zeros, no K/V traffic; the whole cluster leaves
@@ -565,7 +586,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 bool bad_shape(int G, int D, int Sc) {
-  return G < 1 || G > kRows || (D != 32 && D != 64 && D != 128 && D != 256) || Sc < 1 ||
+  return G < 1 || G > kMaxGroup || (D != 32 && D != 64 && D != 128 && D != 256) || Sc < 1 ||
          smem_bytes(G, D, Sc) > (size_t)kMaxSmem;
 }
 
@@ -582,7 +603,7 @@ int launch(const void* q, const void* k, const void* v, const int* k_pos,
     smem_opt_in = true;
   }
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(kCluster * B, Hkv);
+  config.gridDim = dim3(kCluster * B, Hkv * n_parts(G));
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem_bytes(G, D, Sc);
   config.stream = stream;

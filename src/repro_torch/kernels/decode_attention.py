@@ -29,7 +29,10 @@ normalisation, as the reference does: a flash-decoding merge of
 unnormalised partial sums would never round the normalised p, and so
 computes another function. Every sum runs in a fixed order, so repeated
 calls are bitwise equal. A block holds only its share of the score row,
-so views of up to :func:`max_keys` keys fit (35072 at G = 8, D = 128).
+so views of up to :func:`max_keys` keys fit (35072 at G = 8, D = 128). A
+block holds at most 8 query rows; a group of up to 16 heads (recurrentgemma's
+10 on one kv head) is split evenly over ceil(G / 8) clusters that read the
+same K/V rows (:func:`part_rows`), and a head's bits do not depend on G.
 
 By its bytes the kernel would be bound by HBM, far below the tensor cores'
 ridge; it does its arithmetic on CUDA cores, and on the card that
@@ -58,15 +61,16 @@ from repro_torch.kernels import _build
 
 __all__ = ["LAUNCHES", "PAGED_LAUNCHES", "decode_attention_ref", "fused_decode_attention",
            "paged_decode_attention_ref", "fused_paged_decode_attention", "smem_bytes",
-           "max_keys"]
+           "max_keys", "part_rows"]
 
 NEG_INF = -1e30
 # mirrors of the constants of csrc/decode_attention.cu
 THREADS = 256          # kThreads: threads per block
 CLUSTER = 8            # kCluster: blocks per (lane, kv head), one cluster
-MAX_GROUP = 8          # kRows: query heads per kv head, at most; the layouts' rows
+ROWS = 8               # kRows: query rows of a block, at most; the layouts' rows
+MAX_GROUP = 16         # kMaxGroup: query heads per kv head, at most
 HEAD_DIMS = (32, 64, 128, 256)   # the D the kernel is built for
-STAT_WORDS = 4 + 2 * CLUSTER * MAX_GROUP + (THREADS // 32) * MAX_GROUP + MAX_GROUP   # kStatWords
+STAT_WORDS = 4 + 2 * CLUSTER * ROWS + (THREADS // 32) * ROWS + ROWS   # kStatWords
 RING_BYTES = 65536     # kRingBytes: K or V bytes in flight per block
 MAX_SMEM = 232448      # kMaxSmem: the 227 KB of shared memory a block may opt into
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -210,28 +214,37 @@ def _scalars(D, window, softcap, p_dtype, dtype):
             _DTYPES[dtype])
 
 
+def part_rows(G: int) -> int:
+    """Query rows of one block (``part_rows`` of the CUDA source): a group
+    of G > ROWS heads is split into ceil(G / ROWS) even parts, each run by
+    its own cluster over the same K/V rows; a head's bits do not depend on
+    the split."""
+    parts = -(-G // ROWS)
+    return -(-G // parts)
+
+
 def _fixed_bytes(G: int, D: int) -> int:
     """Shared memory that does not grow with the view: the threads' K/V
-    staging rings (which later hold the warps' PV partials), the q rows and
-    the PV sums (f32), the stats words."""
-    ring = max(RING_BYTES, (THREADS // 32) * MAX_GROUP * D * 4)
-    return ring + 4 * (2 * G * D + STAT_WORDS)
+    staging rings (which later hold the warps' PV partials), the block's q
+    rows and PV sums (f32), the stats words."""
+    ring = max(RING_BYTES, (THREADS // 32) * ROWS * D * 4)
+    return ring + 4 * (2 * part_rows(G) * D + STAT_WORDS)
 
 
 def smem_bytes(n_keys: int, G: int, D: int) -> int:
     """Dynamic shared memory of one block for a view of ``n_keys`` keys
     (``smem_bytes`` of ``csrc/decode_attention.cu``): beside
     :func:`_fixed_bytes`, the block's share of the score row — ceil(n_keys
-    / CLUSTER) keys rounded up to 4, each with MAX_GROUP f32 scores and
-    its row index. It depends on the view length, G and D only, never on
-    the data or on the layout of the pool."""
+    / CLUSTER) keys rounded up to 4, each with ROWS f32 scores and its
+    row index. It depends on the view length, G and D only, never on the
+    data or on the layout of the pool."""
     share = (-(-n_keys // CLUSTER) + 3) // 4 * 4
-    return _fixed_bytes(G, D) + 4 * (MAX_GROUP + 1) * share
+    return _fixed_bytes(G, D) + 4 * (ROWS + 1) * share
 
 
 def max_keys(G: int, D: int) -> int:
     """The longest view the kernel takes at this G and D."""
-    share = (MAX_SMEM - _fixed_bytes(G, D)) // (4 * (MAX_GROUP + 1)) // 4 * 4
+    share = (MAX_SMEM - _fixed_bytes(G, D)) // (4 * (ROWS + 1)) // 4 * 4
     return CLUSTER * share
 
 

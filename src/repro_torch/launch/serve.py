@@ -10,6 +10,13 @@ statistics. Runs on CUDA unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --policy bf16_standard --max-len 256 --fused-decode
 
+``--arch`` takes every decoder-only family of the registry; Mamba and the
+RG-LRU hybrid decode one token per step (no ``--prefill-chunk``, no
+prefix cache):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \\
+        --device cpu
+
 Paged KV pool + chunked prefill + prefix cache (the prefix cache is on by
 default with ``--paged``; ``--no-prefix-cache`` turns it off):
 

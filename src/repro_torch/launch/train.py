@@ -6,6 +6,11 @@
         --policy bf16_sr_kahan --fused-update --batch 2 --seq 2048 --steps 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --steps 30 --ckpt-dir /tmp/run1 --ckpt-every 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
+        --reduced --device cpu --steps 30
+
+``--arch`` takes every decoder-only family of the registry (dense, MoE,
+Mamba, the RG-LRU hybrid).
 
 Runs on CUDA unless ``--device cpu``; without a card it raises. AdamW with
 β₂ = 0.997 (snapped to 0.99609375 in bf16) and weight decay 0.01 under a

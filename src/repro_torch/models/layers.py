@@ -25,8 +25,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
 from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.kernels.row_mean_sq import row_mean_sq
 
-__all__ = ["dense_init", "dense", "project", "embed_init", "norm_init", "norm_apply",
-           "rope", "flash_attention", "decode_attention", "attention_as_lanes",
+__all__ = ["dense_init", "dense", "project", "f32_rows_product", "embed_init", "norm_init",
+           "norm_apply", "rope", "flash_attention", "decode_attention", "attention_as_lanes",
            "paged_attention_as_lanes", "attention_init", "attention_apply",
            "copy_page_rows"]
 
@@ -103,6 +103,25 @@ def project(qa: QArith, x, w):
             y = qmatmul(xc.reshape(-1, x.shape[-1]).contiguous(), wc.contiguous())
             return y.reshape(*x.shape[:-1], w.shape[-1])
     return qa.einsum("...d,df->...f", x, w)
+
+
+ROW_BLOCK = 8     # rows of one f32 product call on the kernel route
+
+
+def f32_rows_product(a, b):
+    """``a`` (..., K) @ ``b`` (K, N), both taken in f32 and the result left
+    in f32: the reference's f32 einsums (the MoE router's, Mamba's
+    ``dt_proj``). cuBLAS picks its f32 kernel by the row count, so on the
+    kernel route this runs in fixed blocks of ROW_BLOCK rows (the last one
+    zero-padded), every call of one shape: a row's bits then depend neither
+    on the number of rows of the step nor on which rows share its block."""
+    rows = a.to(torch.float32).reshape(-1, a.shape[-1])
+    b = b.to(torch.float32)
+    M = rows.shape[0]
+    if M % ROW_BLOCK:
+        rows = torch.cat([rows, rows.new_zeros((-M % ROW_BLOCK, rows.shape[1]))])
+    out = torch.cat([torch.mm(blk, b) for blk in rows.split(ROW_BLOCK)])[:M]
+    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
 def dense(qa: QArith, p, x):

@@ -2,8 +2,11 @@
 (port of ``repro.models.registry``: ``get_config``, ``init``,
 ``forward_logits``, ``make_cache``, ``decode``).
 
-Only ``qwen2.5-3b`` (dense GQA with QKV bias, tied embeddings) is ported;
-every other architecture of the reference raises "not ported yet".
+Every decoder-only family of the reference is ported: dense GQA (qwen2.5,
+yi, mistral-nemo, command-r), mixture-of-experts (mixtral, llama4-scout),
+Mamba (falcon-mamba) and the RG-LRU hybrid (recurrentgemma). The
+encoder-decoder (whisper) and the M-RoPE backbone (qwen2-vl) raise "not
+ported yet" with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -24,15 +27,28 @@ ARCH_IDS = (
     "falcon-mamba-7b", "recurrentgemma-2b",
 )
 
-_MODULES = {"qwen2.5-3b": "qwen2_5_3b"}
+_MODULES = {
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "command-r-35b": "command_r_35b",
+    "yi-9b": "yi_9b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "mistral-nemo-12b": "mistral_nemo_12b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+# the architectures still to port, and the ROADMAP item that ports each
+_NOT_PORTED = {"whisper-base": "A4 item 5 (encoder-decoder)",
+               "qwen2-vl-7b": "A4 item 6 (M-RoPE)"}
 
 
 def get_config(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     if name not in _MODULES:
-        raise NotImplementedError(f"arch {name!r} is not ported yet; ported: "
-                                  f"{tuple(_MODULES)}")
+        raise NotImplementedError(f"arch {name!r} is not ported yet (ROADMAP "
+                                  f"{_NOT_PORTED[name]}); ported: {tuple(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}").CONFIG
 
 

@@ -184,9 +184,15 @@ def leafwise(fn: Callable, params: PyTree, *trees: PyTree | None, key) -> list[P
 
 
 def write_back(dst: torch.Tensor | None, src: torch.Tensor | None):
-    """Store a leaf's new value into its old tensor (the in-place update)."""
+    """Store a leaf's new value into its old tensor (the in-place update).
+    A new value of another dtype replaces the leaf instead, as in the
+    reference: an f32 leaf of a 16-bit tree (the MoE router, Mamba's
+    ``A_log``/``D_skip``, RG-LRU's ``lambda``) leaves its first update in
+    the storage dtype."""
     if dst is None:
         return None
+    if src.dtype != dst.dtype:
+        return src
     if src is not dst:
         dst.copy_(src)
     return dst

@@ -15,8 +15,13 @@ leaf's seed (the Philox stream that ``LeafNoise.bits`` fills), so they never
 pass through device memory; a ``GivenKey`` leaf's bits are read from its
 tensor. Fused SGD takes each leaf's bits from ``key.leaf(i).bits``, used
 and freed before the next leaf's. w, m, v, c are updated in place, so a
-step holds no second copy of the optimizer state. The shard-local mode of the
-reference (``mesh=``/``pspecs=``) is ported with the ``dist`` slice.
+step holds no second copy of the optimizer state. The kernels take 16-bit
+leaves: an f32 leaf of the tree (the MoE router, Mamba's ``A_log`` and
+``D_skip``, RG-LRU's ``lambda``) is cast to bf16 and updated as such, and
+its bf16 result replaces the leaf — what the reference's wrappers do
+(``repro/kernels/fused_adamw.py:105``: every operand padded as bf16). The
+shard-local mode of the reference (``mesh=``/``pspecs=``) is ported with
+the ``dist`` slice.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from repro_torch.kernels.fused_sgd import fused_sgd
 from repro_torch.optim.adamw import AdamWState, init_state, snap
 from repro_torch.optim.base import Optimizer, state_ops
 from repro_torch.optim.sgd import SGDState
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["fused_sgd_optimizer", "fused_adamw_optimizer"]
 
@@ -50,6 +55,12 @@ def _leaves(params, *trees):
     return list(zip(*cols))
 
 
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    """The leaf the kernel updates: ``w`` itself, or a bf16 copy of an f32
+    leaf (which then replaces it)."""
+    return w if w.dtype == torch.bfloat16 else w.to(torch.bfloat16)
+
+
 def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
                         weight_decay: float = 0.0, mesh=None,
                         pspecs=None) -> Optimizer:
@@ -64,15 +75,17 @@ def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
 
     def update(grads, state, params, *, step, key, lr):
         del step
+        new_w = []
         with torch.no_grad():
             for i, (w, g, m, c) in enumerate(_leaves(params, grads, state.momentum,
                                                      state.kahan_c)):
                 bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
-                fused_sgd(w, m, g.to(torch.bfloat16), c=c, bits=bits,
+                new_w.append(_bf16(w))
+                fused_sgd(new_w[-1], m, g.to(torch.bfloat16), c=c, bits=bits,
                           stochastic=stochastic, lr=lr, momentum=momentum,
                           wd=weight_decay)
                 del bits
-        return params, state
+        return tree_unflatten(params, new_w), state
 
     return Optimizer(f"fused_sgd[{policy.name}]", policy, init, update)
 
@@ -95,6 +108,7 @@ def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
             c1 = sops.q(sops.f32(state.c1) * b1q)
             c2 = sops.q(sops.f32(state.c2) * b2q)
             c1f, c2f = float(c1), float(c2)       # one host read per step
+            new_w = []
             for i, (w, g, m, v, c) in enumerate(_leaves(params, grads, state.m, state.v,
                                                         state.kahan_c)):
                 noise = dict()
@@ -102,10 +116,12 @@ def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
                     leaf = key.leaf(i)
                     noise = (dict(seed=leaf.seed) if leaf.seed is not None
                              else dict(bits=leaf.bits(w.shape, w.device)))
-                fused_adamw(w, m, v, g.to(torch.bfloat16), c=c, stochastic=stochastic,
-                            lr=lr, b1=b1q, b2=b2q, eps=eps, wd=weight_decay, c1=c1f,
-                            c2=c2f, **noise)
+                new_w.append(_bf16(w))
+                fused_adamw(new_w[-1], m, v, g.to(torch.bfloat16), c=c,
+                            stochastic=stochastic, lr=lr, b1=b1q, b2=b2q, eps=eps,
+                            wd=weight_decay, c1=c1f, c2=c2f, **noise)
                 del noise
-        return params, AdamWState(state.m, state.v, c1, c2, state.kahan_c)
+        return tree_unflatten(params, new_w), AdamWState(state.m, state.v, c1, c2,
+                                                         state.kahan_c)
 
     return Optimizer(f"fused_adamw[{policy.name}]", policy, init, update)

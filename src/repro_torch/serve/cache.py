@@ -1,21 +1,30 @@
-"""Slotted KV-cache pool and the per-slot and per-page primitives (port of
-``repro.serve.cache``, no mesh).
+"""Slotted decode-cache pool and the per-slot and per-page primitives
+(port of ``repro.serve.cache``, no mesh).
 
 The decode cache is built **once** for ``n_slots`` lanes and ``max_len``
-positions, and requests are mapped onto slots. A contiguous attention
-cache is a ``(k, v, k_pos)`` tuple — k/v ``(L, N, S_c, H_kv, hd)`` in the
-policy's value dtype and an i32 position map ``(L, N, S_c)`` whose −1
-cells are empty — so the slot axis is dim 1 under the stacked ``layers``
-root. A paged cache is a dict of :data:`PAGED_KEYS` — pages
-``(L, R, P, H_kv, hd)`` and positions ``(L, R, P)`` — whose dim 1 is the
-*page* axis; its lifecycle is page-granular (:func:`reset_pages`,
-:func:`copy_pages` and the pool's block tables,
-:mod:`repro_torch.serve.paged`), so the per-slot helpers skip it.
+positions, and requests are mapped onto slots. Its tree is what
+:func:`repro_torch.models.transformer.init_cache` builds: under the
+stacked ``layers`` root every leaf has a leading group dim, so the slot
+axis is dim 1; under the unstacked ``rem`` root it is dim 0. Per block:
 
-A slot (or page) is recycled by setting its positions to −1, which makes
-every stale KV cell unreachable (attention masks on the positions, never
-on the values); the KV values are never rewritten, yet a recycled slot
-decodes bitwise like a fresh one.
+* a contiguous attention cache ``(k, v, k_pos)`` — k/v ``(…, N, S_c,
+  H_kv, hd)`` in the policy's value dtype and an i32 position map whose −1
+  cells are empty (``S_c = min(max_len, window)`` for sliding-window and
+  local attention: a ring);
+* a paged attention cache, a dict of :data:`PAGED_KEYS` whose slot-dim is
+  the *page* axis; its lifecycle is page-granular (:func:`reset_pages`,
+  :func:`copy_pages` and the pool's block tables,
+  :mod:`repro_torch.serve.paged`), so the per-slot helpers skip it;
+* recurrent state, a dict of :data:`RECURRENT_KEYS` — Mamba ``conv (…, N,
+  W-1, d_inner)`` in the value dtype and ``h (…, N, d_inner, N_ssm)`` f32,
+  RG-LRU ``conv (…, N, W-1, W)`` and ``h (…, N, W)`` f32.
+
+A slot is recycled by setting its positions to −1, which makes every
+stale KV cell unreachable (attention masks on the positions, never on the
+values), and by zeroing its recurrent state; the KV values are never
+rewritten, yet a recycled slot decodes bitwise like a fresh one. A decode
+step rewrites recurrent state wholesale, garbage in parked lanes included,
+so the serve step keeps it per lane with :func:`keep_active`.
 """
 from __future__ import annotations
 
@@ -28,33 +37,41 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import registry as R
 from repro_torch.models.layers import copy_page_rows
 
-__all__ = ["CachePool", "PAGED_KEYS", "cache_dtype", "copy_pages", "keep_active",
-           "reset_pages", "reset_slots"]
+__all__ = ["CachePool", "PAGED_KEYS", "RECURRENT_KEYS", "cache_dtype", "copy_pages",
+           "keep_active", "reset_pages", "reset_slots"]
 
 PyTree = Any
 
-# Leaf names of the paged KV layout (see ``models.transformer.init_cache``).
+# Leaf names of the paged KV layout and of recurrent state (see
+# ``models.transformer.init_cache``).
 PAGED_KEYS = frozenset({"k_pages", "v_pages", "pos_pages"})
+RECURRENT_KEYS = frozenset({"conv", "h"})
 
 
 def cache_dtype(policy: PrecisionPolicy) -> torch.dtype:
-    """Value dtype for KV under ``policy``: its compute dtype (bf16 for
-    the 16-bit policies; f32 for fp32 and the simulated sub-16-bit grids).
-    Position maps are always i32."""
+    """Value dtype for KV and conv state under ``policy``: its compute
+    dtype (bf16 for the 16-bit policies; f32 for fp32 and the simulated
+    sub-16-bit grids). Position maps are always i32, recurrent ``h`` f32."""
     return policy.compute_dtype
 
 
-def _attention_leaves(cache: PyTree):
-    """(leaf, slot-or-page dim) of every attention cache: ``(k, v, k_pos)``
-    tuples and paged dicts; raises on state of families not ported yet."""
+def _blocks(cache: PyTree, kind: str):
+    """(block cache, slot-or-page dim) of every block of ``kind``:
+    ``"kv"`` contiguous attention tuples, ``"paged"`` paged dicts,
+    ``"recurrent"`` conv/h dicts. Walks ``layers`` (dim 1) and ``rem``
+    (dim 0); raises on a leaf of no known layout."""
     for root, blocks in cache.items():
         for name, leaf in blocks.items():
-            paged = isinstance(leaf, dict) and set(leaf) == PAGED_KEYS
-            if not (paged or isinstance(leaf, tuple)):
-                raise NotImplementedError(
-                    f"cache leaf {root}.{name} is recurrent state; only "
-                    "attention caches are ported")
-            yield leaf, 1 if root == "layers" else 0
+            if isinstance(leaf, tuple):
+                found = "kv"
+            elif isinstance(leaf, dict) and set(leaf) == PAGED_KEYS:
+                found = "paged"
+            elif isinstance(leaf, dict) and set(leaf) == RECURRENT_KEYS:
+                found = "recurrent"
+            else:
+                raise ValueError(f"cache leaf {root}.{name} has no known layout")
+            if found == kind:
+                yield leaf, 1 if root == "layers" else 0
 
 
 def _per(mask: torch.Tensor, leaf: torch.Tensor, dim: int) -> torch.Tensor:
@@ -66,12 +83,14 @@ def _per(mask: torch.Tensor, leaf: torch.Tensor, dim: int) -> torch.Tensor:
 
 def reset_slots(cache: PyTree, reset: torch.Tensor) -> PyTree:
     """Re-initialize the slots selected by ``reset`` ((N,) bool) in place:
-    their position maps go to −1. KV values stay (dead behind pos = −1);
-    paged leaves are left to :func:`reset_pages`."""
-    for leaf, sdim in _attention_leaves(cache):
-        if isinstance(leaf, tuple):
-            k_pos = leaf[2]
-            k_pos.masked_fill_(_per(reset, k_pos, sdim), -1)
+    their position maps go to −1 and their recurrent state to zero. KV
+    values stay (dead behind pos = −1); paged leaves are left to
+    :func:`reset_pages`."""
+    for leaf, sdim in _blocks(cache, "kv"):
+        leaf[2].masked_fill_(_per(reset, leaf[2], sdim), -1)
+    for state, sdim in _blocks(cache, "recurrent"):
+        for t in state.values():
+            t.masked_fill_(_per(reset, t, sdim), 0)
     return cache
 
 
@@ -79,12 +98,11 @@ def reset_pages(cache: PyTree, page_mask: torch.Tensor) -> PyTree:
     """Re-initialize the physical pages selected by ``page_mask`` ((R,)
     bool) in place: only their ``pos_pages`` rows go to −1, which makes
     every KV cell of a recycled page unreachable, so handing a freed page
-    to a new sequence never streams ``k_pages``/``v_pages``. Contiguous
+    to a new sequence never streams ``k_pages``/``v_pages``. Slot-indexed
     leaves pass through."""
-    for leaf, pdim in _attention_leaves(cache):
-        if isinstance(leaf, dict):
-            pos = leaf["pos_pages"]
-            pos.masked_fill_(_per(page_mask, pos, pdim), -1)
+    for leaf, pdim in _blocks(cache, "paged"):
+        pos = leaf["pos_pages"]
+        pos.masked_fill_(_per(page_mask, pos, pdim), -1)
     return cache
 
 
@@ -98,25 +116,35 @@ def copy_pages(cache: PyTree, dst: torch.Tensor, src: torch.Tensor) -> PyTree:
     content, positions included. ``dst``/``src`` are (K,) integer tensors
     of a static width; entries with ``dst`` ≥ the pool's row count are
     padding and copy nothing (:func:`repro_torch.models.layers
-    .copy_page_rows`). Contiguous leaves pass through."""
-    for leaf, pdim in _attention_leaves(cache):
-        if isinstance(leaf, dict):
-            for name in sorted(PAGED_KEYS):
-                copy_page_rows(leaf[name], dst, src, pdim)
+    .copy_page_rows`). Slot-indexed leaves pass through."""
+    for leaf, pdim in _blocks(cache, "paged"):
+        for name in sorted(PAGED_KEYS):
+            copy_page_rows(leaf[name], dst, src, pdim)
     return cache
 
 
-def keep_active(active: torch.Tensor, new: PyTree, old: PyTree) -> PyTree:
-    """Per-slot select of ``new`` where ``active``, else ``old``.
+def keep_active(active: Optional[torch.Tensor], new: PyTree, old: PyTree) -> PyTree:
+    """Per-slot select of the recurrent state, written into ``old`` in
+    place: ``where(active, new, old)`` ((N,) bool; every lane when
+    ``active`` is None). Returns ``old``.
 
-    The reference selects recurrent state here and passes attention
-    caches through: parked lanes never change them (their KV write is a
-    no-op, see ``models.layers.attention_apply``). The ported caches hold
-    attention caches only (``_attention_leaves`` raises on anything else),
-    so every leaf passes through."""
-    del active, old
-    list(_attention_leaves(new))
-    return new
+    A decode step rewrites recurrent state wholesale, parked lanes' garbage
+    included; this keeps their state. Attention caches pass through: the
+    step wrote them in place, and parked lanes never change them (their KV
+    write is a no-op, see ``models.layers.attention_apply``). Writing into
+    ``old`` keeps the state in the buffers a captured serve-step graph
+    reads."""
+    for root, blocks in old.items():
+        sdim = 1 if root == "layers" else 0
+        for name, state in blocks.items():
+            if not (isinstance(state, dict) and set(state) == RECURRENT_KEYS):
+                continue
+            for k, t in state.items():
+                n = new[root][name][k]
+                if n is t:
+                    continue
+                t.copy_(n if active is None else torch.where(_per(active, t, sdim), n, t))
+    return old
 
 
 class CachePool:
@@ -161,9 +189,11 @@ class CachePool:
 
 
 def nbytes(cache: PyTree) -> int:
-    """Bytes of every attention leaf of ``cache``, contiguous or paged."""
+    """Bytes of every leaf of ``cache``: attention, contiguous or paged,
+    and recurrent state."""
     total = 0
-    for leaf, _ in _attention_leaves(cache):
-        for t in (leaf.values() if isinstance(leaf, dict) else leaf):
-            total += t.numel() * t.element_size()
+    for kind in ("kv", "paged", "recurrent"):
+        for leaf, _ in _blocks(cache, kind):
+            for t in (leaf.values() if isinstance(leaf, dict) else leaf):
+                total += t.numel() * t.element_size()
     return total

@@ -178,8 +178,11 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     token (N,C) int, pos (N,) i32 per-slot depths; ``reset`` ((N,) bool)
     re-initializes slots before the step (how the engine admits into a
     recycled slot), ``active`` ((N,) bool) marks the lanes that decode —
-    parked lanes run at pos −1 (their KV writes change nothing) and report
-    token −1. The cache is updated in place and returned.
+    parked lanes run at pos −1 (their KV writes change nothing), keep their
+    recurrent state and report token −1. The cache is updated in place and
+    returned: attention by the model's writes, recurrent state by
+    :func:`repro_torch.serve.cache.keep_active`, so a captured step's
+    graph reads and writes the pool's own buffers.
 
     ``fused_decode=True`` runs the step inside
     :func:`repro_torch.kernels.dispatch.fused_decode`, so attention
@@ -245,8 +248,9 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                                          block_table=block_table if paged else None,
                                          out_rows=last)
             next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            # recurrent state back into the pool's buffers, per active lane
+            new_cache = SC.keep_active(active, new_cache, cache)
             if active is not None:
-                new_cache = SC.keep_active(active, new_cache, cache)
                 next_token = torch.where(active, next_token, -1)
             if return_logits:
                 return next_token[:, None], logits[:, -1, :].to(torch.float32), new_cache

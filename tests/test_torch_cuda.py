@@ -87,6 +87,35 @@ def test_kernel_matches_plain(cuda, dtype, shape, kw):
     torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kw", [{}, dict(window=64)])
+def test_kernels_take_ten_query_heads_per_kv_head(cuda, dtype, kw):
+    """recurrentgemma's group (G = 10 on 1 kv head, D = 256), split over
+    two clusters of 5 rows: contiguous and paged within 1e-2 of their
+    plain versions, paged == contiguous on the gathered view, a parked lane
+    exactly zero, and each head's output the bits of a call on its part
+    of the group alone (a head's arithmetic does not depend on G)."""
+    q, k, v, k_pos, q_pos = _inputs(cuda, B=4, Sc=300, Hkv=1, G=10, D=256, dtype=dtype)
+    q_pos[1] = -1                                          # a parked lane
+    before = (DA.LAUNCHES, DA.PAGED_LAUNCHES)
+    got = DA.fused_decode_attention(q, k, v, k_pos, q_pos, p_dtype=dtype, **kw)
+    want = DA.decode_attention_ref(q, k, v, k_pos, q_pos, p_dtype=dtype, **kw)
+    pages = lambda t: t.reshape(4 * 300 // 4, 4, *t.shape[2:])  # noqa: E731
+    table = torch.arange(300, device=cuda, dtype=torch.int32).reshape(4, -1)
+    paged = DA.fused_paged_decode_attention(q, pages(k), pages(v), pages(k_pos), table,
+                                            q_pos, p_dtype=dtype, **kw)
+    part = DA.fused_decode_attention(q[:, :, 5:].contiguous(), k, v, k_pos, q_pos,
+                                     p_dtype=dtype, **kw)
+    torch.cuda.synchronize()
+    assert (DA.LAUNCHES, DA.PAGED_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    assert bool((got[1] == 0).all())
+    assert torch.equal(paged, got)
+    assert torch.equal(part, got[:, :, 5:])
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    ratio = _rms_ratio(got, want, q_pos)
+    assert ratio <= REL_RMS, f"max |kernel - plain| / RMS(plain) = {ratio:.3e}"
+
+
 def test_kernel_rejects_what_it_cannot_take(cuda):
     # above the cap at G = 8, D = 128: 35072 keys (DA.max_keys)
     q, k, v, k_pos, q_pos = _inputs(cuda, Sc=36000, G=8, D=128)
@@ -97,6 +126,9 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         DA.fused_decode_attention(q, k, v, k_pos.long(), q_pos)
     with pytest.raises(ValueError, match="dtype"):
         DA.fused_decode_attention(q.half(), k.half(), v.half(), k_pos, q_pos)
+    q, k, v, k_pos, q_pos = _inputs(cuda, Hkv=1, G=17, D=32)   # above MAX_GROUP
+    with pytest.raises(ValueError, match="query heads per kv"):
+        DA.fused_decode_attention(q, k, v, k_pos, q_pos)
 
 
 def _run_launches(eng, name, counted):
@@ -277,6 +309,41 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
         assert launched == cfg.n_layers * steps
         for rid in want:
             assert np.array_equal(got[rid], want[rid]), (chunk, rid)
+
+
+@pytest.mark.parametrize("arch,kw", [("mixtral-8x22b", {}), ("llama4-scout-17b-a16e", {}),
+                                     ("falcon-mamba-7b", {}), ("recurrentgemma-2b", {}),
+                                     ("recurrentgemma-2b", dict(paged=True, page_size=4)),
+                                     ("command-r-35b", dict(paged=True, page_size=4))])
+def test_family_graph_engine_equals_eager_and_generate(cuda, arch, kw):
+    """A reduced family served as CUDA graphs (7 requests on 3 slots, so
+    slots are recycled and lanes park) == the eager step == ``generate`` at
+    3 rows through the same kernels; its recurrent state stays in the
+    pool's buffers across replays."""
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config(arch).reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    rng = np.random.default_rng(2)
+    stream = [(rng.integers(0, cfg.vocab, s), g)
+              for s, g in zip((5, 9, 5, 9, 5, 9, 5), (8, 12, 4, 12, 8, 4, 8))]
+
+    def run(graphs):
+        eng = Engine(params, cfg, policy, n_slots=3, max_len=32, fused_decode=True, **kw)
+        eng._use_graphs = graphs
+        for p, g in stream:
+            eng.submit(p, g)
+        return {c.rid: c for c in eng.run()}, eng
+
+    got, eng = run(True)
+    want, _ = run(False)
+    assert set(eng.graphs) == {(1, False)} and eng.graphs[1, False].replays > 0
+    for rid, c in got.items():
+        assert np.array_equal(c.tokens, want[rid].tokens), rid
+    with dispatch.fused_decode():
+        for rid, c in got.items():
+            ref = generate(params, cfg, policy, np.stack([c.prompt] * 3),
+                           max_new_tokens=c.tokens.size, cache_len=32).cpu().numpy()
+            assert np.array_equal(ref[0, c.prompt.size:], c.tokens), rid
 
 
 ENGINES = {"contiguous": {},

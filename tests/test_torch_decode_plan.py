@@ -155,7 +155,7 @@ def test_the_cap_admits_32768_keys_at_the_serving_group():
 
 
 @pytest.mark.parametrize("n_keys", [16, 256, 1024, 4096, 32768, "cap", "above"])
-@pytest.mark.parametrize("G,D", [(8, 128), (2, 32), (5, 64), (4, 256)])
+@pytest.mark.parametrize("G,D", [(8, 128), (2, 32), (5, 64), (4, 256), (10, 256), (16, 128)])
 def test_wrappers_admit_a_view_by_its_length(n_keys, G, D):
     """Every view up to ``max_keys`` passes the launch's checks (on meta
     tensors the wrapper then refuses the device); one page more is refused
@@ -177,3 +177,16 @@ def test_paged_and_contiguous_views_of_equal_length_are_held_alike(n_blocks, P):
     16 are the cap at G = 8, D = 128, 2193 one page above it."""
     assert DA.max_keys(8, 128) == 2192 * 16
     assert _paged(8, 2, 8, 128, n_blocks, P) == _contiguous(8, 2, 8, 128, n_blocks * P)
+
+
+def test_groups_above_eight_heads_split_into_even_parts():
+    """A block holds at most 8 query rows: G = 9..16 run as two even parts
+    (recurrentgemma's 10 as 5 + 5), so a view's shared memory at G is the
+    part's; above MAX_GROUP the wrapper refuses, naming it."""
+    assert [DA.part_rows(G) for G in (1, 8, 9, 10, 15, 16)] == [1, 8, 5, 5, 8, 8]
+    for G in range(1, DA.MAX_GROUP + 1):
+        assert DA.smem_bytes(2048, G, 256) == DA.smem_bytes(2048, DA.part_rows(G), 256)
+    assert DA.max_keys(8, 128) == 35072                  # unchanged at the serving group
+    assert DA.max_keys(10, 256) >= 2048                  # recurrentgemma's local window
+    msg = _contiguous(3, 1, DA.MAX_GROUP + 1, 32, 64)
+    assert f"G <= {DA.MAX_GROUP} query heads per kv head" in msg

@@ -28,3 +28,37 @@ def test_no_jax_or_reference_imports(path):
 
 def test_scan_covers_the_package():
     assert len(FILES) > 20
+
+
+def test_scan_covers_the_families():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in FILES[:-1]}
+    assert {"models/moe.py", "models/ssm.py", "models/rglru.py", "models/transformer.py",
+            "configs/yi_9b.py", "configs/mistral_nemo_12b.py", "configs/command_r_35b.py",
+            "configs/mixtral_8x22b.py", "configs/llama4_scout_17b_a16e.py",
+            "configs/falcon_mamba_7b.py", "configs/recurrentgemma_2b.py"} <= names
+
+
+def test_every_module_imports_with_jax_and_the_reference_blocked():
+    """Each module of the port, the families' included, imports in a fresh
+    interpreter in which importing ``jax`` or ``repro`` fails; the seven
+    configs of the families resolve through the registry."""
+    import subprocess
+    import sys
+    mods = sorted("repro_torch." + str(p.relative_to(ROOT / "src" / "repro_torch"))
+                  .removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+                  for p in FILES[:-1])
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "from repro_torch.models import registry as R\n"
+        "for a in ('yi-9b', 'mistral-nemo-12b', 'command-r-35b', 'mixtral-8x22b',\n"
+        "          'llama4-scout-17b-a16e', 'falcon-mamba-7b', 'recurrentgemma-2b'):\n"
+        "    assert R.get_config(a).name == a\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]

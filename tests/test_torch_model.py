@@ -51,8 +51,10 @@ def test_from_jax_params_keeps_layout_and_dtypes():
         assert node.dtype == torch.bfloat16 and leaf.dtype == jnp.bfloat16
         np.testing.assert_array_equal(node.float().numpy(), np.asarray(leaf, np.float32))
     assert port["layers"]["b0"]["mixer"]["wq"]["kernel"].shape[0] == 3   # stacked L
-    with pytest.raises(KeyError, match="not in the ported dense LM"):
+    with pytest.raises(KeyError, match="not in the ported decoder-only LM"):
         from_jax_params({**tree, "lm_head": tree["final_norm"]}, device="cpu")
+    with pytest.raises(KeyError, match="not in the ported decoder-only LM"):
+        from_jax_params({**tree, "vision": tree["final_norm"]}, device="cpu")
 
 
 @pytest.mark.parametrize("policy_name", ["bf16_standard", "fp32"])
