@@ -4,21 +4,23 @@ The JAX package ``repro`` stays the reference; this package mirrors its
 subpackage layout (``core``, ``configs``, ``models``, ``kernels``,
 ``optim``, ``data``, ``serve``, ``train``, ``launch``) so each module's counterpart is found
 by path. It imports ``torch`` and numpy only — never ``jax`` or
-``repro``. The slices ported so far: continuous-batching greedy serving
-of dense decoder-only LMs over the contiguous KV pool, and single-device
-pure-bf16 training with the paper's SR and Kahan optimizers (``optim``,
-``train``, ``data``, ``launch.train``); see ROADMAP.md.
+``repro``. Ported so far: serving (continuous batching over contiguous or
+paged KV pools, greedy or sampled) and single-device training with the
+paper's SR and Kahan optimizers, for every model of the reference; the
+paper's experiments; every TPU kernel, by hand for Hopper; see ROADMAP.md.
 
 Matmul numerics, set once here for the whole package: the FMAC model
 (16-bit inputs, f32 accumulation, one output rounding) forbids cuBLAS's
 reduced-precision bf16/fp16 reductions, and f32 products must run in
-full f32 rather than TF32.
+full f32 rather than TF32: cuBLAS's products and cuDNN's convolutions
+(the ResNet's f32 convolutions; cuDNN's default is TF32).
 """
 import torch
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["resolve_device"]
 

@@ -2,13 +2,16 @@
 
 The reference stores a decoder-only LM as a stacked tree: every leaf under
 ``layers.b<i>`` carries a leading group dim, and a hybrid pattern's
-remainder sits unstacked under ``rem.b<i>``. The port keeps that layout,
-so conversion maps leaf for leaf and keeps each dtype (a bf16 leaf stays
-bf16; the f32 ``router``, ``A_log``, ``D_skip`` and ``lambda`` of a bf16
-tree stay f32). Every node is checked against the schema of the ported
-families — dense attention, MoE, Mamba and RG-LRU blocks — so a leaf the
-port does not have raises. It takes numpy — the caller runs
-``np.asarray`` on the JAX side — so this module needs no JAX.
+remainder sits unstacked under ``rem.b<i>``; the encoder-decoder stacks
+``enc_layers`` and ``dec_layers`` the same way. The port keeps those
+layouts, so conversion maps leaf for leaf and keeps each dtype (a bf16
+leaf stays bf16; the f32 ``router``, ``A_log``, ``D_skip`` and ``lambda``
+of a bf16 tree stay f32). Every node is checked against the schema of the
+ported families — dense attention, MoE, Mamba and RG-LRU blocks, the
+encoder and decoder blocks — so a leaf the port does not have raises. The
+ResNet's tree (lists of stages of block dicts, an int ``stride`` per
+block) and the DLRM's have converters of their own. It takes numpy — the
+caller runs ``np.asarray`` on the JAX side — so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.sgd import SGDState
 from repro_torch.train.train_state import TrainState
 
-__all__ = ["from_jax_dlrm_params", "from_jax_params", "from_jax_train_state"]
+__all__ = ["from_jax_dlrm_params", "from_jax_params", "from_jax_resnet_params",
+           "from_jax_train_state"]
 
 _DENSE = {"kernel": None, "bias": None}
 _NORM = {"scale": None, "bias": None}
@@ -41,8 +45,17 @@ _FFNS = (_MLP, {"router": None, "we_gate": None, "we_up": None, "we_down": None,
                 "shared": _MLP})
 _BLOCK = {"ln1": _NORM, "ln2": _NORM, "mixer": _MIXERS, "ffn": _FFNS}
 _BLOCKS = {r"b\d+": _BLOCK}              # b0 .. b{P-1}: a pattern group's blocks
+_ATTN = _MIXERS[0]
 _LM = {"embed": {"embedding": None}, "final_norm": _NORM, "lm_head": _DENSE,
-       "layers": _BLOCKS, "rem": _BLOCKS}
+       "layers": _BLOCKS, "rem": _BLOCKS,
+       # the encoder-decoder's stacks
+       "enc_layers": {"ln1": _NORM, "attn": _ATTN, "ln2": _NORM, "mlp": _MLP},
+       "dec_layers": {"ln1": _NORM, "self_attn": _ATTN, "ln_x": _NORM,
+                      "cross_attn": _ATTN, "ln2": _NORM, "mlp": _MLP},
+       "enc_norm": _NORM}
+_CONV_BN = {"scale": None, "bias": None}
+_RESNET_BLOCK = {"conv1": None, "bn1": _CONV_BN, "conv2": None, "bn2": _CONV_BN,
+                 "proj": None}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -59,7 +72,8 @@ def _sub(schema: dict, key: str, path: str):
     for pat, sub in schema.items():
         if re.fullmatch(pat, key):
             return sub
-    raise KeyError(f"{path or 'params'}: leaf {key!r} is not in the ported decoder-only LM")
+    raise KeyError(f"{path or 'params'}: leaf {key!r} is not in the ported decoder-only "
+                   "LM or encoder-decoder")
 
 
 def _convert(tree, schema, path: str, device):
@@ -77,8 +91,33 @@ def _convert(tree, schema, path: str, device):
 def from_jax_params(tree: Any, *, device=None) -> dict:
     """Nested dict of numpy arrays (the reference's ``R.init`` tree passed
     through ``np.asarray``) → the port's params on ``device`` (CUDA unless
-    ``"cpu"``). Raises on a leaf the ported decoder-only LM does not have."""
+    ``"cpu"``): any decoder-only family or the encoder-decoder. Raises on
+    a leaf the ported models do not have."""
     return _convert(tree, _LM, "", resolve_device(device))
+
+
+def from_jax_resnet_params(tree: Any, *, device=None) -> dict:
+    """The reference's ResNet tree (``repro.models.resnet.resnet_init``
+    passed through ``np.asarray``, its int ``stride`` leaves left as they
+    are) → the port's on ``device`` (CUDA unless ``"cpu"``): ``stem``,
+    ``stem_bn``, ``stages`` (a list per stage of block dicts, each
+    ``stride`` kept a Python int) and ``head``, each dtype kept."""
+    dev = resolve_device(device)
+    unknown = set(tree) - {"stem", "stem_bn", "stages", "head"}
+    if unknown:
+        raise KeyError(f"params: leaves not in the ResNet: {sorted(unknown)}")
+
+    def block(blk, path):
+        out = {"stride": int(blk["stride"])}
+        rest = {k: v for k, v in blk.items() if k != "stride"}
+        out.update(_convert(rest, _RESNET_BLOCK, path, dev))
+        return out
+
+    return {"stem": _tensor(tree["stem"], dev),
+            "stem_bn": _convert(tree["stem_bn"], _CONV_BN, "stem_bn", dev),
+            "stages": [[block(b, f"stages.{si}.{bi}") for bi, b in enumerate(stage)]
+                       for si, stage in enumerate(tree["stages"])],
+            "head": _convert(tree["head"], _DENSE, "head", dev)}
 
 
 def from_jax_dlrm_params(tree: Any, *, device=None) -> dict:

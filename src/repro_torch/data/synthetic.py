@@ -1,5 +1,7 @@
 """Deterministic synthetic datasets (port of ``repro.data.synthetic``:
-``TokenStream``, ``lm_batches`` and ``dlrm_batches``).
+``TokenStream``, ``lm_batches``, ``dlrm_batches`` and ``image_batches``),
+and ``vlm_positions``, the 3-D M-RoPE positions of a text + image + text
+sequence.
 
 The stream is seeded, keyed by (seed, step) and *learnable*: an order-2
 hash grammar over a Zipf unigram prior, so cross-entropy has real
@@ -8,9 +10,9 @@ reference's (the same numpy draws from ``seed``, the same int32 hash with
 wrap-around); the per-batch uniforms come from numpy's generator keyed by
 (seed, step) instead of ``jax.random``, so the tokens differ from the
 reference's. Fed the reference's uniforms, :meth:`TokenStream.from_uniform`
-gives its tokens exactly. The DLRM click stream is drawn with numpy
-alone, as the reference draws it, so its batches are the reference's bit
-for bit.
+gives its tokens exactly. The DLRM click stream and the image blobs are
+drawn with numpy alone, as the reference draws them, so their batches are
+the reference's bit for bit.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["TokenStream", "dlrm_batches", "lm_batches"]
+__all__ = ["TokenStream", "dlrm_batches", "image_batches", "lm_batches", "vlm_positions"]
 
 
 @dataclasses.dataclass
@@ -101,3 +103,37 @@ def dlrm_batches(cfg: dict, batch: int, *, seed: int = 0, device=None) -> Iterat
                "sparse": torch.from_numpy(sparse).to(dev),
                "labels": torch.from_numpy(y).to(dev)}
         i += 1
+
+
+def image_batches(classes: int, batch: int, *, res: int = 32, seed: int = 0,
+                  device=None) -> Iterator[dict]:
+    """Class-conditional Gaussian blobs (the CIFAR stand-in) on ``device``
+    (CUDA unless ``"cpu"``): ``images`` f32 (B, res, res, 3) and
+    ``labels`` int32 (B,), the reference's numpy draws bit for bit."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(classes, res, res, 3)).astype(np.float32)
+    i = 0
+    while True:
+        r = np.random.default_rng(seed * 7 + i)
+        y = r.integers(0, classes, size=batch)
+        x = protos[y] + 0.8 * r.normal(size=(batch, res, res, 3)).astype(np.float32)
+        yield {"images": torch.from_numpy(x).to(dev),
+               "labels": torch.from_numpy(y.astype(np.int32)).to(dev)}
+        i += 1
+
+
+def vlm_positions(batch: int, n_text: int, grid: int, n_after: int, *,
+                  device=None) -> torch.Tensor:
+    """(3, batch, n_text + grid² + n_after) int32 M-RoPE positions on
+    ``device`` (CUDA unless ``"cpu"``): a text run (t = h = w = i), a
+    1 × grid × grid image (t at the run's next position, h and w that plus
+    the row and the column), then text from the grid's largest position
+    plus one."""
+    text = np.arange(n_text)
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    img = np.stack([np.full_like(r, n_text), n_text + r, n_text + c])
+    after = n_text + grid + np.arange(n_after)
+    pos = np.concatenate([np.stack([text] * 3), img, np.stack([after] * 3)], axis=1)
+    pos = np.broadcast_to(pos[:, None], (3, batch, pos.shape[1])).astype(np.int32)
+    return torch.from_numpy(pos.copy()).to(resolve_device(device))

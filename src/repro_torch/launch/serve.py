@@ -10,9 +10,11 @@ statistics. Runs on CUDA unless ``--device cpu``:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
         --policy bf16_standard --max-len 256 --fused-decode
 
-``--arch`` takes every decoder-only family of the registry; Mamba and the
-RG-LRU hybrid decode one token per step (no ``--prefill-chunk``, no
-prefix cache):
+``--arch`` takes every decoder-only architecture of the registry, qwen2-vl
+included (text tokens: standard RoPE, as the reference's launcher serves
+it); the engine refuses whisper-base, which decodes in lock-step
+(``registry.make_cache(batch=...)``). Mamba and the RG-LRU hybrid decode
+one token per step (no ``--prefill-chunk``, no prefix cache):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --reduced \\
         --device cpu

@@ -9,8 +9,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \\
         --reduced --device cpu --steps 30
 
-``--arch`` takes every decoder-only family of the registry (dense, MoE,
-Mamba, the RG-LRU hybrid).
+``--arch`` takes every decoder-only architecture of the registry (dense,
+MoE, Mamba, the RG-LRU hybrid, and qwen2-vl, which trains on the token
+stream as the reference's launcher trains it: standard RoPE). The stream
+has no audio, so whisper-base is refused.
 
 Runs on CUDA unless ``--device cpu``; without a card it raises. AdamW with
 β₂ = 0.997 (snapped to 0.99609375 in bf16) and weight decay 0.01 under a
@@ -144,6 +146,9 @@ def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
         cfg = R.get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
+    if cfg.encdec:
+        raise ValueError(f"{cfg.name}: the launcher trains on the token stream, and an "
+                         "encoder-decoder takes an audio batch (src_embeds, tokens, labels)")
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
     opt = optimizer if optimizer is not None else make_optimizer(args, policy)
     lr_schedule = linear_warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps)

@@ -1,7 +1,8 @@
-"""Quantized layers: dense, embedding, norms, RoPE, GQA attention — the
-full-sequence flash path (training) and decode against the contiguous or
-the paged KV pool, one token or a prefill chunk per lane (serving) (port
-of ``repro.models.layers``, the parts those slices run).
+"""Quantized layers: dense, embedding, norms, RoPE and M-RoPE, GQA
+attention — the full-sequence flash path (training; causal, or
+bidirectional for an encoder) and decode against the contiguous or the
+paged KV pool, one token or a prefill chunk per lane (serving) (port of
+``repro.models.layers``).
 
 All contractions go through :class:`repro_torch.core.qarith.QArith` —
 16-bit inputs, f32 accumulation, one output rounding. Attention is one
@@ -26,9 +27,9 @@ from repro_torch.kernels.qmatmul import qmatmul
 from repro_torch.kernels.row_mean_sq import row_mean_sq
 
 __all__ = ["dense_init", "dense", "project", "f32_rows_product", "embed_init", "norm_init",
-           "norm_apply", "rope", "flash_attention", "decode_attention", "attention_as_lanes",
-           "paged_attention_as_lanes", "attention_init", "attention_apply",
-           "copy_page_rows"]
+           "norm_apply", "rope", "mrope", "flash_attention", "decode_attention",
+           "attention_as_lanes", "paged_attention_as_lanes", "attention_init",
+           "attention_apply", "copy_page_rows"]
 
 
 def _kernel_route(*tensors: torch.Tensor) -> bool:
@@ -167,6 +168,29 @@ def rope(x, positions, theta: float = 10000.0):
     """Standard RoPE. x: (B,S,H,D); positions: (B,S) or (S,)."""
     d = x.shape[-1]
     ang = _rope_angles(positions, d, theta)               # (B,S,D/2)
+    cos = torch.cos(ang)[..., None, :]                    # (B,S,1,D/2)
+    sin = torch.sin(ang)[..., None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope(x, positions_3d, sections, theta: float = 10000.0):
+    """Qwen2-VL M-RoPE: the rotary frequencies split into (t, h, w)
+    sections, each frequency rotated by the angle of its section's
+    position stream. x: (B,S,H,D); positions_3d: (3,B,S). The angles are
+    :func:`rope`'s, in f32, and x is rounded once; with t = h = w it is
+    :func:`rope` bit for bit."""
+    d = x.shape[-1]
+    ang_full = _rope_angles(positions_3d, d, theta)       # (3,B,S,D/2)
+    sel = torch.tensor([i for i, sec in enumerate(sections) for _ in range(sec)],
+                       dtype=torch.long, device=x.device)  # (D/2,) section id
+    if sel.shape[0] != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not cover the {d // 2} "
+                         "rotary frequencies")
+    streams = ang_full.movedim(0, -1)                      # (B,S,D/2,3)
+    ang = torch.gather(streams, -1, sel[:, None].expand(*streams.shape[:-1], 1))[..., 0]
     cos = torch.cos(ang)[..., None, :]                    # (B,S,1,D/2)
     sin = torch.sin(ang)[..., None, :]
     xf = x.to(torch.float32)
@@ -420,11 +444,16 @@ def attention_init(gen: torch.Generator, cfg, dtype=torch.float32):
     }
 
 
-def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None,
-                    chunk: int = 1024, block_table=None):
-    """Full-sequence causal attention (``cache=None``: training, the
-    reference's flash branch), or S decode tokens per lane against a KV
-    cache (serving). x: (B,S,Dm); positions: (B,S). Returns ``(out, cache)``.
+def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, cache=None,
+                    window=None, chunk: int = 1024, block_table=None,
+                    mrope_positions=None):
+    """Full-sequence attention (``cache=None``: training, the reference's
+    flash branch; ``causal=False`` for an encoder), or S decode tokens per
+    lane against a KV cache (serving). x: (B,S,Dm); positions: (B,S).
+    Returns ``(out, cache)``. The rotary embedding follows the reference's
+    three-way branch: :func:`mrope` when ``cfg.rope_type == "mrope"`` and
+    ``mrope_positions`` ((3,B,S)) are given, none when ``rope_type ==
+    "none"`` (whisper), standard :func:`rope` on ``positions`` otherwise.
 
     Decoding, positions are the tokens' per-lane depths, −1 for a parked
     lane or a chunk's padding token. Two cache layouts, both written **in
@@ -457,10 +486,14 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, cache=None, window=None
     q = dense(qa, p["wq"], x).reshape(B, S, cfg.n_heads, hd)
     k = dense(qa, p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
     v = dense(qa, p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if cfg.rope_type == "mrope" and mrope_positions is not None:
+        q = mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
+        k = mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
+    elif cfg.rope_type != "none":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = flash_attention(qa, q, k, v, causal=True, window=window, chunk=chunk,
+        out = flash_attention(qa, q, k, v, causal=causal, window=window, chunk=chunk,
                               softcap=cfg.attn_logit_softcap)
         return dense(qa, p["wo"], out.reshape(B, S, cfg.n_heads * hd)), None
 

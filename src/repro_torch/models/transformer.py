@@ -1,6 +1,6 @@
-"""Decoder-only LM over the dense / GQA / MoE / SSM / hybrid families: the
-full-sequence forward (training) and the decode step (port of
-``repro.models.transformer``).
+"""Decoder-only LM over the dense / GQA / MoE / SSM / hybrid families and
+the vlm backbone (embeddings in, M-RoPE): the full-sequence forward
+(training) and the decode step (port of ``repro.models.transformer``).
 
 Parameters keep the reference's stacked layout. A uniform stack is one
 group of one block kind (``attn``, ``moe`` or ``mamba``) repeated
@@ -79,9 +79,10 @@ def _one_token(x, what: str):
 
 
 def block_apply(qa: QArith, cfg, kind: str, p, x, *, positions, cache=None,
-                attn_chunk: int = 1024, block_table=None):
+                attn_chunk: int = 1024, block_table=None, mrope_positions=None):
     """One block; returns (x, cache) — None for the full-sequence path, the
-    attention cache updated in place, or a recurrent block's new state."""
+    attention cache updated in place, or a recurrent block's new state.
+    ``mrope_positions`` ((3,B,S)) drive an attention block's M-RoPE."""
     h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
     if kind == "mamba":
         if cache is None:
@@ -99,7 +100,8 @@ def block_apply(qa: QArith, cfg, kind: str, p, x, *, positions, cache=None,
         window = cfg.local_attn_window if kind == "local_attn" else cfg.swa_window
         y, cache = L.attention_apply(qa, p["mixer"], h, cfg, positions=positions,
                                      cache=cache, window=window, chunk=attn_chunk,
-                                     block_table=block_table)
+                                     block_table=block_table,
+                                     mrope_positions=mrope_positions)
     x = qa.add(x, y)
     h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
     if kind == "moe":
@@ -143,27 +145,31 @@ def _fill(stack: PyTree, i: int, block: PyTree) -> None:
             stack[k][i] = v
 
 
+def stacked(make, n: int) -> PyTree:
+    """``n`` trees from ``make()`` stacked leaf by leaf (a leading dim of
+    ``n``), drawn one at a time into the preallocated stack, so building
+    it never holds a second copy."""
+    first = make()
+    stack = _map(lambda t: t.new_empty((n, *t.shape)), first)
+    _fill(stack, 0, first)
+    del first
+    for i in range(1, n):
+        _fill(stack, i, make())
+    return stack
+
+
 def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
     """Parameters on ``gen``'s device, drawn from ``gen``: the embedding,
     the final norm, an untied ``lm_head`` unless ``tie_embeddings``, the
-    stacked groups and the remainder. Groups are drawn one at a time into
-    the preallocated stack, so building it never holds a second copy."""
+    stacked groups (:func:`stacked`) and the remainder."""
     kinds, n_groups, rem = _layer_plan(cfg)
     params = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype),
               "final_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype=dtype)
-
-    def group():
-        return {f"b{i}": block_init(gen, cfg, kind, dtype) for i, kind in enumerate(kinds)}
-
-    first = group()
-    stack = _map(lambda t: t.new_empty((n_groups, *t.shape)), first)
-    _fill(stack, 0, first)
-    del first
-    for g in range(1, n_groups):
-        _fill(stack, g, group())
-    params["layers"] = stack
+    params["layers"] = stacked(
+        lambda: {f"b{i}": block_init(gen, cfg, kind, dtype) for i, kind in enumerate(kinds)},
+        n_groups)
     if rem:
         params["rem"] = {f"b{i}": block_init(gen, cfg, kind, dtype)
                          for i, kind in enumerate(rem)}
@@ -217,7 +223,17 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 
 
 def _embed_tokens(qa: QArith, cfg, params, tokens):
-    x = qa.cast(params["embed"]["embedding"][tokens.long()])
+    """Token ids (B,S) int32/int64 → their embedding rows; (B,S,D) float
+    embeddings (the vlm frontend stub's patch and text embeddings) pass
+    through. Both are rounded to the compute grid."""
+    if tokens.dtype in (torch.int32, torch.int64):
+        x = params["embed"]["embedding"][tokens.long()]
+    elif tokens.is_floating_point() and tokens.dim() == 3:
+        x = tokens
+    else:
+        raise TypeError(f"tokens must be (B,S) int32/int64 ids or (B,S,D) float "
+                        f"embeddings, got {tokens.dtype} {tuple(tokens.shape)}")
+    x = qa.cast(x)
     if cfg.block_pattern:                  # the (recurrent)gemma convention
         x = qa.mul(x, torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32))
     return x
@@ -236,9 +252,10 @@ def _unstack(stack: PyTree, n: int) -> list[PyTree]:
     return [_map(lambda groups, i=i: groups[i], parts) for i in range(n)]
 
 
-def forward(qa: QArith, params, cfg, tokens, *, positions=None, remat: bool = True,
-            attn_chunk: int = 1024, logits: bool = True):
-    """Full-sequence forward. tokens: (B,S) int. Returns logits (B,S,V) f32,
+def forward(qa: QArith, params, cfg, tokens, *, positions=None, mrope_positions=None,
+            remat: bool = True, attn_chunk: int = 1024, logits: bool = True):
+    """Full-sequence forward. tokens: (B,S) int or (B,S,D) embeddings;
+    ``mrope_positions`` (3,B,S) for M-RoPE. Returns logits (B,S,V) f32,
     or the final hidden state when ``logits=False``."""
     kinds, n_groups, rem = _layer_plan(cfg)
     B, Sq = tokens.shape[:2]
@@ -249,20 +266,21 @@ def forward(qa: QArith, params, cfg, tokens, *, positions=None, remat: bool = Tr
     def body(x, p_group):
         for i, kind in enumerate(kinds):
             x, _ = block_apply(qa, cfg, kind, p_group[f"b{i}"], x, positions=positions,
-                               attn_chunk=attn_chunk)
+                               attn_chunk=attn_chunk, mrope_positions=mrope_positions)
         return x
 
     for p in _unstack(params["layers"], n_groups):
         x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
     for i, kind in enumerate(rem):
         x, _ = block_apply(qa, cfg, kind, params["rem"][f"b{i}"], x, positions=positions,
-                           attn_chunk=attn_chunk)
+                           attn_chunk=attn_chunk, mrope_positions=mrope_positions)
     return _logits(qa, cfg, params, x) if logits else x
 
 
 def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,
-                block_table=None, out_rows=None):
-    """One decode step. token: (B,S) int; cache_pos: (B,) per-lane depths
+                mrope_positions=None, block_table=None, out_rows=None):
+    """One decode step. token: (B,S) int or (B,S,D) embeddings, with
+    ``mrope_positions`` (3,B,S) for M-RoPE; cache_pos: (B,) per-lane depths
     for S=1 or (B,S) per-token positions (chunked prefill, attention-only
     stacks); −1 marks a parked lane or a padding token, whose KV write
     changes nothing. ``block_table`` (B, n_blocks) i32 routes a paged
@@ -275,13 +293,13 @@ def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,
     last real row, and the logits product then has the B rows of a
     single-token step (matmul rows depend on the row count, ROADMAP C6)."""
     kinds, n_groups, rem = _layer_plan(cfg)
-    B, S = token.shape
+    B, S = token.shape[:2]
     positions = cache_pos.reshape(B, S).to(torch.int32)
     x = _embed_tokens(qa, cfg, params, token)
 
     def run(kind, p, c, x):
         return block_apply(qa, cfg, kind, p, x, positions=positions, cache=c,
-                           block_table=block_table)
+                           block_table=block_table, mrope_positions=mrope_positions)
 
     new_states = {f"b{i}": [] for i, kind in enumerate(kinds) if kind in RECURRENT_KINDS}
     for g in range(n_groups):

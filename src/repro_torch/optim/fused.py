@@ -61,6 +61,13 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
     return w if w.dtype == torch.bfloat16 else w.to(torch.bfloat16)
 
 
+def _grad(g: torch.Tensor) -> torch.Tensor:
+    """The gradient as the kernels read it: bf16, contiguous (autograd
+    leaves the gradient of a permuted view, a convolution's kernel,
+    strided)."""
+    return g.to(torch.bfloat16).contiguous()
+
+
 def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
                         weight_decay: float = 0.0, mesh=None,
                         pspecs=None) -> Optimizer:
@@ -81,7 +88,7 @@ def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
                                                      state.kahan_c)):
                 bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
                 new_w.append(_bf16(w))
-                fused_sgd(new_w[-1], m, g.to(torch.bfloat16), c=c, bits=bits,
+                fused_sgd(new_w[-1], m, _grad(g), c=c, bits=bits,
                           stochastic=stochastic, lr=lr, momentum=momentum,
                           wd=weight_decay)
                 del bits
@@ -117,7 +124,7 @@ def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
                     noise = (dict(seed=leaf.seed) if leaf.seed is not None
                              else dict(bits=leaf.bits(w.shape, w.device)))
                 new_w.append(_bf16(w))
-                fused_adamw(new_w[-1], m, v, g.to(torch.bfloat16), c=c,
+                fused_adamw(new_w[-1], m, v, _grad(g), c=c,
                             stochastic=stochastic, lr=lr, b1=b1q, b2=b2q, eps=eps,
                             wd=weight_decay, c1=c1f, c2=c2f, **noise)
                 del noise

@@ -37,7 +37,7 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import registry as R
 from repro_torch.models.layers import copy_page_rows
 
-__all__ = ["CachePool", "PAGED_KEYS", "RECURRENT_KEYS", "cache_dtype", "copy_pages",
+__all__ = ["CachePool", "ENCDEC_ROUTE", "PAGED_KEYS", "RECURRENT_KEYS", "cache_dtype", "copy_pages",
            "keep_active", "reset_pages", "reset_slots"]
 
 PyTree = Any
@@ -46,6 +46,12 @@ PyTree = Any
 # ``models.transformer.init_cache``).
 PAGED_KEYS = frozenset({"k_pages", "v_pages", "pos_pages"})
 RECURRENT_KEYS = frozenset({"conv", "h"})
+
+# Where the pools' and the engine's refusals of an encoder-decoder config
+# point. The reference's point at ``generate``, which cannot serve one
+# (ROADMAP C15).
+ENCDEC_ROUTE = ("models decode in lock-step through registry.make_cache(batch=...) "
+                "and registry.decode")
 
 
 def cache_dtype(policy: PrecisionPolicy) -> torch.dtype:
@@ -135,6 +141,8 @@ def keep_active(active: Optional[torch.Tensor], new: PyTree, old: PyTree) -> PyT
     ``old`` keeps the state in the buffers a captured serve-step graph
     reads."""
     for root, blocks in old.items():
+        if not isinstance(blocks, dict):    # the encoder-decoder's: no recurrent state
+            continue
         sdim = 1 if root == "layers" else 0
         for name, state in blocks.items():
             if not (isinstance(state, dict) and set(state) == RECURRENT_KEYS):
@@ -159,6 +167,8 @@ class CachePool:
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
                  n_slots: int, max_len: int):
+        if cfg.encdec:
+            raise ValueError(f"CachePool is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.dtype = cache_dtype(policy)

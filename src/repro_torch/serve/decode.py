@@ -18,7 +18,7 @@ from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
 from repro_torch.models import registry as R
-from repro_torch.serve.cache import cache_dtype
+from repro_torch.serve.cache import ENCDEC_ROUTE, cache_dtype
 
 __all__ = ["generate"]
 
@@ -36,6 +36,8 @@ def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
     KV-cache length (default exactly ``S_prompt + max_new_tokens``);
     longer caches are masked out and change nothing semantically.
     """
+    if cfg.encdec:
+        raise ValueError(f"generate is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
     dev = resolve_device(device)
     if params["embed"]["embedding"].device.type != dev.type:
         raise ValueError(f"params are on {params['embed']['embedding'].device}, "

@@ -72,7 +72,7 @@ from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels import launch_counts
 from repro_torch.serve import sampling
-from repro_torch.serve.cache import CachePool
+from repro_torch.serve.cache import ENCDEC_ROUTE, CachePool
 from repro_torch.serve.paged import PagedCachePool
 from repro_torch.train.step import make_serve_step
 
@@ -268,6 +268,8 @@ class Engine:
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, prefill_chunk: int = 1,
                  prefix_cache: Optional[bool] = None, device=None):
+        if cfg.encdec:
+            raise ValueError(f"Engine is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         reason = _not_full_context_attention(cfg, max_len)

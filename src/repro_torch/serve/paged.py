@@ -90,6 +90,8 @@ class PagedCachePool:
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
                  n_slots: int, max_len: int, page_size: int = 16,
                  n_pages: Optional[int] = None):
+        if cfg.encdec:
+            raise ValueError("PagedCachePool is decoder-only")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         self.n_slots = int(n_slots)

@@ -25,7 +25,7 @@ from repro_torch.models import registry as R
 from repro_torch.optim.base import StepKey
 from repro_torch.serve import cache as SC
 from repro_torch.train.train_state import TrainState, softmax_xent
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 __all__ = ["Gradients", "compute_params", "make_train_step", "make_eval_step",
            "make_serve_step"]
@@ -47,13 +47,24 @@ def compute_params(params: PyTree, policy: PrecisionPolicy) -> PyTree:
     return tree_map(lambda w: round_nearest(w, policy.compute_format), params)
 
 
+# the one leaf a batch may leave unreached: a vlm's embeddings batch skips it
+_TOKEN_EMBEDDING = "embed.embedding"
+
+
+def _batch_dim(name: str) -> int:
+    """Batch dim of a batch leaf: 1 for ``mrope_positions`` ((3,B,S)),
+    else 0 (reference ``_batch_dim``)."""
+    return 1 if name == "mrope_positions" else 0
+
+
 def _split_microbatches(batch: dict, k: int) -> list[dict]:
     """k microbatches along every leaf's batch dim."""
     for name, x in batch.items():
-        if x.shape[0] % k:
-            raise ValueError(f"global batch {x.shape[0]} of {name!r} not divisible "
-                             f"by grad_accum={k}")
-    return [{name: x.chunk(k)[i] for name, x in batch.items()} for i in range(k)]
+        if x.shape[_batch_dim(name)] % k:
+            raise ValueError(f"global batch {x.shape[_batch_dim(name)]} of {name!r} not "
+                             f"divisible by grad_accum={k}")
+    return [{name: x.chunk(k, dim=_batch_dim(name))[i] for name, x in batch.items()}
+            for i in range(k)]
 
 
 class Gradients(NamedTuple):
@@ -70,8 +81,11 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     """One train step: ``(state, batch, seed) -> (state, metrics)`` with
     metrics ``loss`` (f32 tensor), ``lr`` (float) and ``grad_norm``.
 
-    ``batch`` holds ``tokens`` and ``labels`` (B,S) on the parameters'
-    device. The SR randomness of step ``state.step`` comes from
+    ``batch`` is the family's batch dict on the parameters' device
+    (``models/registry.py``): ``tokens`` and ``labels`` (B,S); a vlm's
+    ``embeds`` and ``mrope_positions`` (3,B,S), split on dim 1 into
+    microbatches; an encoder-decoder's ``src_embeds`` beside its target
+    ``tokens``. The SR randomness of step ``state.step`` comes from
     ``StepKey(seed, state.step)``: one stream per parameter leaf. The
     params and optimizer state of ``state`` are updated in place and
     returned in the new state.
@@ -99,21 +113,29 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
             return loss_fn(logits, batch)
         return softmax_xent(logits, batch["labels"])
 
-    def _micro_grads(wc, leaves, batch):
+    def _micro_grads(wc, leaves, paths, batch):
         with torch.enable_grad():
             loss = _loss(wc, batch)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), list(grads)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        for i, (path, g) in enumerate(zip(paths, grads)):
+            if g is None:
+                # an embeddings batch does not reach the token embedding: zeros,
+                # as jax.grad gives it; any other leaf left out is a wiring fault
+                if not ("embeds" in batch and path == _TOKEN_EMBEDDING):
+                    raise RuntimeError(f"the loss does not reach parameter {path!r}")
+                grads[i] = torch.zeros_like(leaves[i])
+        return loss.detach(), grads
 
     def gradients(state: TrainState, batch, seed) -> Gradients:
         # the working copy, as fresh autograd leaves sharing its storage
         wc = compute_params(state.params, policy)
         leaves = [w.detach().requires_grad_(True) for w in tree_leaves(wc)]
+        paths = tree_paths(wc)
         wc = tree_unflatten(wc, leaves)
         if grad_accum > 1:
             loss, acc = None, None
             for mb in _split_microbatches(batch, grad_accum):
-                mb_loss, grads = _micro_grads(wc, leaves, mb)
+                mb_loss, grads = _micro_grads(wc, leaves, paths, mb)
                 if acc is None:
                     loss, acc = mb_loss.to(torch.float32), [g.to(torch.float32) for g in grads]
                 else:
@@ -126,7 +148,7 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
             grads = [a / k for a in acc]
             del acc
         else:
-            loss, grads = _micro_grads(wc, leaves, batch)
+            loss, grads = _micro_grads(wc, leaves, paths, batch)
         del wc, leaves
         grads = tree_unflatten(state.params, grads)
         grad_norm = _global_norm(grads)
@@ -175,7 +197,11 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     """Slot-indexed decode step:
     ``(params, cache, token, pos[, active, reset, ...]) → (next_token, cache)``.
 
-    token (N,C) int, pos (N,) i32 per-slot depths; ``reset`` ((N,) bool)
+    token (N,C) int (or (N,C,D) embeddings), pos (N,) i32 per-slot depths;
+    ``mrope_positions`` ((3,N,C) i32) drive a vlm's M-RoPE (without them
+    it rotates by ``pos``, standard RoPE). An encoder-decoder's cache
+    (``registry.make_cache(batch=...)``) steps every lane one token, the
+    lock-step decode the reference runs it in. ``reset`` ((N,) bool)
     re-initializes slots before the step (how the engine admits into a
     recycled slot), ``active`` ((N,) bool) marks the lanes that decode —
     parked lanes run at pos −1 (their KV writes change nothing), keep their
@@ -222,8 +248,8 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     qa = QArith(policy)
 
     def serve_step(params, cache, token, pos, active=None, reset=None, *,
-                   block_table=None, page_reset=None, n_tok=None, copy_dst=None,
-                   copy_src=None):
+                   mrope_positions=None, block_table=None, page_reset=None, n_tok=None,
+                   copy_dst=None, copy_src=None):
         with dispatch.fused_decode(fused_decode):
             wc = compute_params(params, policy)
             if reset is not None:
@@ -245,6 +271,7 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                 cache_pos = torch.where(valid, pos[:, None] + offs[None, :], -1)
                 last = torch.clamp(n_tok - 1, 0, chunk - 1)
             logits, new_cache = R.decode(qa, wc, cfg, token, cache, cache_pos,
+                                         mrope_positions=mrope_positions,
                                          block_table=block_table if paged else None,
                                          out_rows=last)
             next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)

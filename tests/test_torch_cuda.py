@@ -314,7 +314,8 @@ def test_paged_chunked_engine_matches_contiguous_on_the_card(cuda):
 @pytest.mark.parametrize("arch,kw", [("mixtral-8x22b", {}), ("llama4-scout-17b-a16e", {}),
                                      ("falcon-mamba-7b", {}), ("recurrentgemma-2b", {}),
                                      ("recurrentgemma-2b", dict(paged=True, page_size=4)),
-                                     ("command-r-35b", dict(paged=True, page_size=4))])
+                                     ("command-r-35b", dict(paged=True, page_size=4)),
+                                     ("qwen2-vl-7b", dict(paged=True, page_size=4))])
 def test_family_graph_engine_equals_eager_and_generate(cuda, arch, kw):
     """A reduced family served as CUDA graphs (7 requests on 3 slots, so
     slots are recycled and lanes park) == the eager step == ``generate`` at
@@ -921,3 +922,65 @@ def test_qmatmul_plan_is_the_librarys_path(cuda, mnk, offset, path):
         assert QM.plan(x, y, b).path == QM.kernel_path(x, y, b)
     assert QM.plan(x, y).path == path
     assert QM.plan(x, y, bits[2:].view(M, N)).path == "mma.sync"
+
+
+def test_encdec_lock_step_on_the_card(cuda):
+    """Reduced whisper decoded in lock-step through the fused serve step
+    (self and cross attention on the decode kernel, the products on
+    ``qmatmul``): two runs equal, 2 decode launches per layer per step,
+    the last logits within the reference's prefill ≡ decode bound of
+    ``decoder_forward``."""
+    from repro_torch.core.qarith import QArith
+    from repro_torch.models import encdec as ED
+    from repro_torch.train.step import make_serve_step
+    policy = get_policy("bf16_standard")
+    qa = QArith(policy)
+    cfg = R.get_config("whisper-base").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    src = torch.randn((3, 40, cfg.d_model), generator=g, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (3, 12), generator=g, device=cuda, dtype=torch.int32)
+    step = make_serve_step(cfg, policy, fused_decode=True, return_logits=True)
+
+    def run():
+        with torch.no_grad():
+            cache = R.make_cache(params, cfg, batch_size=3, max_len=12, qa=qa,
+                                 batch={"src_embeds": src})
+            for t in range(12):
+                _, logits, cache = step(params, cache, toks[:, t:t + 1],
+                                        torch.full((3,), t, dtype=torch.int32, device=cuda))
+        return logits
+
+    DA.LAUNCHES = 0
+    got = run()
+    assert DA.LAUNCHES == 2 * cfg.n_layers * 12
+    assert torch.equal(got, run())
+    with torch.no_grad():
+        full = ED.decoder_forward(qa, params, cfg, toks, ED.encode(qa, params, cfg, src,
+                                                                   attn_chunk=40))[:, -1]
+    assert float((got - full).abs().max()) < 0.05 * float(full.abs().max())
+
+
+def test_vlm_decode_on_the_card(cuda):
+    """Reduced qwen2-vl decoding embeddings with 3-D positions (text, a
+    2 × 2 grid, text) through the fused serve step: the last logits within
+    the prefill ≡ decode bound of ``forward_logits`` on the same batch."""
+    from repro_torch.core.qarith import QArith
+    from repro_torch.data.synthetic import vlm_positions
+    from repro_torch.train.step import make_serve_step
+    policy = get_policy("bf16_standard")
+    cfg = R.get_config("qwen2-vl-7b").reduced()
+    params = R.init(cfg, 0, policy.param_dtype)
+    mp = vlm_positions(2, 2, 2, 2, device=cuda)
+    emb = torch.randn((2, 8, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(4),
+                      device=cuda)
+    step = make_serve_step(cfg, policy, fused_decode=True, return_logits=True)
+    with torch.no_grad():
+        cache = R.make_cache(params, cfg, batch_size=2, max_len=8)
+        for t in range(8):
+            _, logits, cache = step(params, cache, emb[:, t:t + 1],
+                                    torch.full((2,), t, dtype=torch.int32, device=cuda),
+                                    mrope_positions=mp[:, :, t:t + 1])
+        full = R.forward_logits(QArith(policy), params, cfg,
+                                {"embeds": emb, "mrope_positions": mp})[:, -1]
+    assert float((logits - full).abs().max()) < 0.05 * float(full.abs().max())

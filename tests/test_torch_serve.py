@@ -175,11 +175,10 @@ def test_later_slice_features_raise():
     assert eng.run()[0].rid == rid
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.arange(10), 10)
-    # the decoder-only families are ported (tests/test_torch_families.py);
-    # the encoder-decoder and the M-RoPE backbone are not
-    for arch, item in (("whisper-base", "A4 item 5"), ("qwen2-vl-7b", "A4 item 6")):
-        with pytest.raises(NotImplementedError, match=f"not ported yet \\(ROADMAP {item}"):
-            R.get_config(arch)
+    # every architecture is ported (the encoder-decoder and M-RoPE:
+    # tests/test_torch_encdec.py, tests/test_torch_mrope.py)
+    for arch in R.ARCH_IDS:
+        assert R.get_config(arch).name == arch
 
 
 def test_launcher_runs_on_cpu(capsys):
