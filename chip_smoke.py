@@ -230,7 +230,24 @@ Phases, each printing its lines (a failed check exits non-zero):
     leaf and loss for loss; (c) a ``--sync-ckpt`` checkpoint restores to
     the async one's state; prints the checkpoint's bytes, the snapshot's
     ms, the commit's s, ms per step with a commit in flight against the
-    same steps without checkpoints, and the restore's s.
+    same steps without checkpoints, and the restore's s;
+15. dist (ROADMAP A5, data parallelism; it runs last): (a) in a 1-rank
+    NCCL group the train cell with ``--grad-wire bf16`` (the one-replica
+    wire: every leaf SR-rounded by the ``philox`` fill and ``sr_cast``),
+    4 steps: falling loss, one launch of each per leaf per step, one
+    leaf's q and residual ``torch.equal`` to the plain ``compress_leaf``
+    (also with a nonzero residual), ms per step beside the train phase's,
+    the wire's ms (CUDA events), residual and peak GiB; (b) 2 ranks on
+    this card over gloo through ``repro_torch.launch.dist_launch``
+    (``chip_smoke.py --dist-worker``), full width cut to 2 layers, batch 4
+    x 512, ``--grad-accum 2``: the fp32 and bf16 wires 4 steps each (ranks
+    bitwise equal; the fp32 step within 0.05 of a 1-process step), the
+    bf16 wire preempted by a SIGTERM to rank 1 (checkpoint at step 2) and
+    resumed by a fresh launch bitwise equal to the uninterrupted run
+    (residual rows included), a 1-process resume zero-initializing the
+    residuals; ms per
+    step, host-copy ms, wire bytes by dtype (fp32 / bf16 = 2). The paper
+    phase runs the runner's ``grad_wire_sweep`` beside its sections.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -312,6 +329,18 @@ CKPT_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
 CKPT_LAYERS = 2
 CKPT_KEEP = 2
 CKPT_SIGTERM_AT = 3
+# the dist phase: (a) the train cell with the one-replica bf16 wire in a
+# 1-rank NCCL group; (b) 2 ranks on this card over gloo, full width cut to
+# DIST_LAYERS, grad_accum 2 (f32 gradients: the wire leaves residuals)
+DIST_FULL_ARGV = TRAIN_ARGV + ["--grad-wire", "bf16"]
+DIST_CHECK_LEAF = "layers.b0.mixer.wk.kernel"
+DIST_LAYERS = 2
+DIST_STEPS = 4             # gloo over loopback: 2-6 s per 2-rank step at this width
+DIST_SIGTERM_AT = 1        # the preemption's checkpoint: step 2
+DIST_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
+             "--batch", "4", "--seq", "512", "--grad-accum", "2", "--steps", str(DIST_STEPS),
+             "--lr", "3e-3", "--seed", "0", "--device", "cuda", "--preempt-poll", "1"]
+DIST_TWO_RANKS = ["--data-parallel", "2", "--dist-backend", "gloo"]
 
 
 def kernel_module(name: str):
@@ -2872,7 +2901,7 @@ def phase_train(card: str):
           f"drawn in the kernel); "
           f"fused_adamw launched {launches} times ({n_leaves} per step); peak device memory "
           f"{peak:.2f} GiB")
-    return run, state, launches
+    return run, state, launches, (ms_step, losses)
 
 
 def phase_train_profile(run, state, card: str):
@@ -3230,7 +3259,8 @@ def _run_sections(sections, while_running) -> tuple[dict, dict, dict]:
 
 
 def phase_paper(card: str) -> dict:
-    """The paper's eight sections (``repro_torch.benchmarks``) on the card
+    """The paper's eight sections (``repro_torch.benchmarks``) and the
+    runner's ``grad_wire_sweep`` (its training rows, ROADMAP A5) on the card
     at the reference's step counts, each in a process of its own, all at
     once: their CSV rows, the conclusions the reference draws (margins
     from its CPU rows, see PERF.md), ``sr_cast`` held bitwise to its plain
@@ -3310,6 +3340,13 @@ def phase_paper(card: str) -> dict:
           f"{f9['late']:.4f}; fig12 probe bf16 {f12['probe_bf16']:.4e}, fp16 "
           f"{f12['probe_fp16']:.4e}; a second bf16_sr DLRM run is bitwise the first "
           f"({us:.1f} us per step)")
+    sweep = res["grad_wire_sweep"]
+    check(all(math.isfinite(v["final_loss"]) for v in sweep.values()),
+          f"[paper] grad_wire_sweep losses {sweep}")
+    print(f"[paper] grad_wire_sweep on {card} (its asserts held: bf12 >= 2.6x, the keep "
+          f"cells within tol of fp32): " + "; ".join(
+              f"{k} {v['ratio_vs_fp32']:.3f}x {v['carrier']} loss {v['final_loss']:.4f} "
+              f"{v['us']:.1f} us/step" for k, v in sweep.items()))
     print(f"[paper] us per step under the sections' contention, LM: table3 {t3['us']}, "
           f"table4 {t4['lm_us']}, fig11 {res['fig11_combined']['lm_us']:.1f}, fig12 "
           f"{f12['lm_us']}; DLRM: table4 "
@@ -3477,6 +3514,412 @@ def phase_ckpt(card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def digest(t) -> str:
+    """A fingerprint of a tensor's bits, computed on its device: two
+    weighted sums of its raw 16- or 32-bit words (int64, wrapping), in
+    chunks. Equal bits give equal digests; a single differing word always
+    changes the first sum."""
+    import torch
+    v = t.detach().contiguous().view(-1)
+    v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+    s1 = s2 = 0
+    step = 1 << 26
+    for start in range(0, v.numel(), step):
+        x = v[start:start + step].to(torch.int64)
+        i = torch.arange(start, start + x.numel(), device=x.device, dtype=torch.int64)
+        s1 += int(((x + 40503) * (2 * i + 1)).sum())
+        s2 += int(((x ^ (i * 40503)) * (x + 7)).sum())
+    return f"{t.dtype}:{tuple(t.shape)}:{s1 & (2**64 - 1):x}:{s2 & (2**64 - 1):x}"
+
+
+def dist_worker(spec_path: str) -> None:
+    """One rank of the dist phase's runs (``python3 chip_smoke.py
+    --dist-worker SPEC``, under ``repro_torch.launch.dist_launch`` or
+    alone): each run of the spec through the launcher's ``build`` and
+    ``train`` at full width cut to ``DIST_LAYERS``, with the spec's SIGTERM
+    (rank 1 at a step) and the params after step 1 saved (rank 0); writes
+    ``<out>.rank<r>.json``: the losses, every state leaf's digest, the
+    step walls, what the wire moved and the kernel launches."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import signal
+    import torch
+    from repro_torch.dist import multihost as MH
+    from repro_torch.launch import train as LT
+    from repro_torch.models import registry as R
+    from repro_torch.train import checkpoint as CK
+    spec = json.loads(Path(spec_path).read_text())
+    card = torch.cuda.is_available()      # (False only in a CPU rehearsal of the phase)
+    try:
+        for job in spec["runs"]:
+            args = LT.parse_args(job["argv"])
+            run = LT.build(args, cfg=_dist_cfg(args))
+            rank = MH.process_index()
+            counts = {k: kernel_module(k) for k in ("sr_cast", "philox", "fused_adamw")}
+            for m in counts.values():
+                m.LAUNCHES = 0
+            walls = []
+
+            def hook(step, job=job, run=run, rank=rank, walls=walls):
+                if card:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter())
+                if rank == 1 and step == job.get("sigterm_at"):
+                    os.kill(os.getpid(), signal.SIGTERM)
+                if rank == 0 and step == 1 and job.get("params_after_1"):
+                    torch.save(CK.flatten(run.state.params), job["params_after_1"])
+
+            if card:
+                torch.cuda.reset_peak_memory_stats()
+            state, info = LT.train(args, run, fault_hook=hook)
+            if card:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter())
+            stats = run.transport.stats
+            n_res = len(CK.flatten(state.wire_residuals))
+            leaves = CK.flatten(state)[1:]
+            out = {"rank": rank, "processes": MH.process_count(), "step": state.step,
+                   "preempted": info["preempted"],
+                   "losses": [row["loss"] for row in info["history"]],
+                   "grad_norms": [row["grad_norm"] for row in info["history"]],
+                   "digests": [digest(t) for t in leaves[:len(leaves) - n_res]],
+                   "residual_digests": [digest(t) for t in leaves[len(leaves) - n_res:]],
+                   "residual_abs_max": max((float(t.abs().max()) for t in
+                                            leaves[len(leaves) - n_res:]), default=0.0),
+                   "step_s": [b - a for a, b in zip(walls, walls[1:])],
+                   "wire_bytes": stats.bytes_by_dtype, "host_copy_s": stats.host_copy_s,
+                   "wire": run.transport.name,
+                   "replicas": run.transport.wire_replicas,
+                   "launches": {k: m.LAUNCHES for k, m in counts.items()},
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if card else 0.0}
+            Path(f"{job['out']}.rank{rank}.json").write_text(json.dumps(out))
+            del run, state, leaves
+            if card:
+                torch.cuda.empty_cache()
+    finally:
+        MH.shutdown()
+
+
+def _dist_cfg(args):
+    """The dist runs' model: full-width qwen2.5-3b cut to ``DIST_LAYERS``
+    (None, the launcher's own, for ``--reduced``: a CPU rehearsal)."""
+    from repro_torch.models import registry as R
+    if args.reduced:
+        return None
+    return dataclasses.replace(R.get_config(args.arch), n_layers=DIST_LAYERS)
+
+
+def _dist_start(spec: dict, root: Path, tag: str) -> tuple:
+    """Start the spec's runs on 2 ranks (gloo on this card) through the
+    port's launcher; :func:`_dist_wait` ends it."""
+    spec_path = root / f"{tag}.json"
+    spec_path.write_text(json.dumps(spec))
+    log_dir = root / f"{tag}-logs"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", "2", "--timeout",
+           "400", "--log-dir", str(log_dir), "--", sys.executable, str(ROOT / "chip_smoke.py"),
+           "--dist-worker", str(spec_path)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=env, cwd=ROOT)
+    return proc, time.perf_counter(), tag, log_dir
+
+
+def _dist_wait(launch: tuple) -> float:
+    """The launch's wall seconds; fails with the ranks' logs' tails if a
+    rank failed (the launcher kills the other), and kills it at 450 s."""
+    proc, t0, tag, log_dir = launch
+    try:
+        _, err = proc.communicate(timeout=450)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"[dist] {tag}: exit {proc.returncode}\n" + "\n".join(
+        (log_dir / f"rank{i}.log").read_text()[-3000:] for i in range(2)) + err[-3000:])
+    return time.perf_counter() - t0
+
+
+def _dist_result(root: Path, out: str, rank: int) -> dict:
+    return json.loads((root / f"{out}.rank{rank}.json").read_text())
+
+
+def phase_dist(card: str, train_ms: float, train_losses: list | None) -> dict:
+    """ROADMAP A5's data-parallel layer on the card; returns the launches of
+    ``sr_cast``, ``philox`` and ``fused_adamw`` on its paths.
+
+    (a) A 1-rank NCCL group, the train cell (full-width qwen2.5-3b,
+    ``bf16_sr_kahan --fused-update``, batch 2 x 2048, 8 steps) with
+    ``--grad-wire bf16`` (the one-replica wire: each leaf SR-rounded by the
+    ``philox`` fill and ``sr_cast``, no collective): the loss falls, and
+    equals the train phase's step for step (``train_losses``): a bf16
+    gradient plus the zero residual rounds exactly, so this wire changes
+    no bit of a pure-bf16 run at grad_accum 1; on one gradient leaf the
+    wire's q and residual ``torch.equal`` to the plain ``compress_leaf`` on
+    the CPU with the same bits, with the run's zero residual and with a
+    nonzero one; ms per step beside the train phase's step without a
+    transport (same call), wire ms per step (CUDA events around
+    ``reduce``), residual GiB, peak GiB.
+
+    (b) 2 ranks on this card over gloo, launched by
+    ``repro_torch.launch.dist_launch``, full width cut to ``DIST_LAYERS``,
+    ``DIST_ARGV`` (batch 4 x 512, ``--grad-accum 2`` so the bf16 wire's
+    residuals are not zero): ``--grad-wire fp32`` and ``bf16``, 4 steps
+    each: both ranks' parameters, optimizer state and losses bitwise equal;
+    the fp32 wire's parameters after one step within 0.05 (the reference's
+    bar) of a 1-process step on the whole batch; the bf16 wire with rank 1
+    alone SIGTERMed at step 1 (both stop, checkpoint at step 2, the
+    cadence's step), a fresh 2-rank launch resumes and ends equal to the
+    uninterrupted run on every leaf, residual rows included; a 1-process
+    resume of that checkpoint logs the replica-count zero-init and trains
+    on. ms per step, the host-copy ms apart, the wire's bytes per step by
+    dtype as the transport counts them. Three launches: each costs its
+    processes' start.
+    """
+    t_phase = time.perf_counter()
+    # (b) first: its ranks need the card's memory, which (a) fills
+    launches = _dist_two_ranks(card)
+    for k, n in _dist_one_rank(card, train_ms, train_losses).items():
+        launches[k] += n
+    print(f"[dist] phase took {time.perf_counter() - t_phase:.1f}s; launches {launches}")
+    return launches
+
+
+def _dist_one_rank(card: str, train_ms: float, train_losses: list | None) -> dict:
+    """(a) of :func:`phase_dist`; returns its launches."""
+    import socket
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train as LT
+    from repro_torch.optim import grad_compress as GC
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    mods = {k: kernel_module(k) for k in ("sr_cast", "philox", "fused_adamw")}
+    launches = dict.fromkeys(mods, 0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        probe = torch.ones(1, device="cuda")
+        dist.all_reduce(probe)
+        check(float(probe) == 1.0, "[dist] (a) the 1-rank NCCL group's all_reduce")
+        args = LT.parse_args(DIST_FULL_ARGV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run = LT.build(args)
+        tr = run.transport
+        check(tr.name == "compressed_wire" and tr.wire_replicas == 1,
+              f"[dist] (a) transport {tr.name} x{tr.wire_replicas}")
+        paths = tree_paths(run.state.params)
+        leaf = paths.index(DIST_CHECK_LEAF)
+        res_gib = sum(r.numel() * 4 for r in tree_leaves(run.state.wire_residuals)) / 2**30
+        events, held = [], {}
+        real_reduce = tr.reduce
+
+        def timed_reduce(grads, residuals, key):
+            if not held:      # the check leaf's inputs at the first step
+                held["g"] = tree_leaves(grads)[leaf].detach().cpu()
+                held["r"] = tree_leaves(residuals)[leaf][0].detach().cpu()
+                held["key"] = key
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_reduce(grads, residuals, key)
+            end.record()
+            events.append((start, end))
+            if "q" not in held:
+                held["q"] = tree_leaves(out[0])[leaf].detach().cpu()
+                held["nr"] = tree_leaves(out[1])[leaf][0].detach().cpu()
+            return out
+        tr.reduce = timed_reduce
+        walls = []
+
+        def hook(step):
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter())
+        for m in mods.values():
+            m.LAUNCHES = 0
+        state, info = LT.train(args, run, log=lambda line: print(f"[dist] (a) {line}"),
+                               fault_hook=hook)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter())
+        got = {k: m.LAUNCHES for k, m in mods.items()}
+        n_leaves = len(paths)
+        for k in mods:
+            launches[k] += got[k]
+            check(got[k] == n_leaves * args.steps,
+                  f"[dist] (a) {k} launched {got[k]} times, expected {n_leaves} leaves x "
+                  f"{args.steps} steps")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [row["loss"] for row in info["history"]]
+        check(len(losses) == args.steps and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[dist] (a) losses {losses}")
+        check(train_losses is None or losses == train_losses,
+              f"[dist] (a) losses {losses} differ from the train phase's {train_losses}")
+        wire_ms = [s.elapsed_time(e) for s, e in events]
+        step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+        # the check leaf: the wire's outputs against the plain compress_leaf on
+        # the CPU with the same Philox bits (philox_bits_ref, sr_cast_ref)
+        noise = held["key"].leaf(leaf)
+        q, nr = GC.compress_leaf(held["g"], held["r"], noise)
+        check(torch.equal(q.float(), held["q"]) and torch.equal(nr, held["nr"]),
+              f"[dist] (a) {DIST_CHECK_LEAF}: the wire's q/residual differ from the plain "
+              f"compress_leaf")
+        zero_res = float(held["nr"].abs().max()) == 0.0
+        # ... and with a nonzero residual (the bf16 gradients of this policy
+        # round exactly: a run's residual stays zero at grad_accum 1)
+        r_syn = torch.randn(held["r"].shape, generator=torch.Generator().manual_seed(0)) \
+            * float(held["g"].float().abs().max()) * 2.0**-9
+        q_card, nr_card = GC.compress_leaf(held["g"].cuda(), r_syn.cuda(), noise)
+        q_cpu, nr_cpu = GC.compress_leaf(held["g"], r_syn, noise)
+        check(torch.equal(q_card.cpu(), q_cpu) and torch.equal(nr_card.cpu(), nr_cpu)
+              and float(nr_cpu.abs().max()) > 0,
+              f"[dist] (a) {DIST_CHECK_LEAF} with a nonzero residual: card != plain")
+        print(f"[dist] (a) on {card}: 1-rank NCCL group, {run.cfg.name} "
+              f"{run.cfg.n_layers} layers, {' '.join(DIST_FULL_ARGV)}: losses "
+              f"{[round(x, 4) for x in losses]} (== the train phase's: "
+              f"{losses == train_losses}); step walls {[round(x, 1) for x in step_ms]} "
+              f"ms, steady (steps 2-7) {sum(step_ms[2:]) / len(step_ms[2:]):.1f} ms/step "
+              f"against {train_ms:.1f} ms/step without a transport (train phase, same call); "
+              f"wire (CUDA events around reduce) {[round(x, 2) for x in wire_ms]} ms/step; "
+              f"residuals {res_gib:.3f} GiB f32; peak {peak:.2f} GiB; philox, sr_cast and "
+              f"fused_adamw {got} launches ({n_leaves} leaves x {args.steps} steps); "
+              f"{DIST_CHECK_LEAF}: the wire's q and residual torch.equal to the plain "
+              f"compress_leaf (run residual zero: {zero_res}; also with a nonzero residual)")
+        del run, state, held, q_card, nr_card, tr, real_reduce, timed_reduce
+    finally:
+        dist.destroy_process_group()
+    import gc
+    gc.collect()            # the wrapped reduce made reference cycles
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dist_two_ranks(card: str) -> dict:
+    """(b) of :func:`phase_dist`; returns the ranks' launches."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as LT
+    from repro_torch.train import checkpoint as CK
+
+    launches = {"sr_cast": 0, "philox": 0, "fused_adamw": 0}
+    root = Path(tempfile.mkdtemp(prefix="repro-dist-"))
+    try:
+        ck = root / "ck"
+
+        def job(name, wire, extra=(), **kw):
+            return dict(argv=DIST_ARGV + DIST_TWO_RANKS + ["--grad-wire", wire, *extra],
+                        out=str(root / name), **kw)
+        # one launch for the uninterrupted runs and the preempted one (each
+        # launch costs its processes' start); the preemption checkpoints at
+        # step 2, also the cadence's, and only the resume reads it
+        wall_1 = _dist_wait(_dist_start({"runs": [
+            job("fp32", "fp32", params_after_1=str(root / "fp32-step1.pt")),
+            job("bf16", "bf16"),
+            job("bf16-stop", "bf16", ["--ckpt-dir", str(ck), "--ckpt-every",
+                                      str(DIST_SIGTERM_AT + 1)],
+                sigterm_at=DIST_SIGTERM_AT)]}, root, "uninterrupted-and-preempted"))
+        kept = CK.latest_step(ck)
+        man = CK.manifest(ck, step=kept)
+        # the resume launch reads the checkpoint; this process reads it too
+        # meanwhile (a 1-process resume, saving nothing) and takes the
+        # 1-process step the fp32 wire is held to
+        resume = _dist_start({"runs": [job("bf16-resume", "bf16", ["--ckpt-dir", str(ck)])]},
+                             root, "resume")
+        t0 = time.perf_counter()
+        args = LT.parse_args(DIST_ARGV + ["--grad-wire", "bf16", "--ckpt-dir", str(ck),
+                                          "--steps", str(kept + 1)])
+        one = LT.build(args, cfg=_dist_cfg(args))
+        mods = {k: kernel_module(k) for k in launches}
+        for m in mods.values():
+            m.LAUNCHES = 0
+        one_log = []
+        one_state, one_info = LT.train(args, one, log=one_log.append)
+        for k, m in mods.items():
+            launches[k] += m.LAUNCHES
+        wall_3 = time.perf_counter() - t0
+        one_done = (one_state.step, one.transport.wire_replicas,
+                    [row["loss"] for row in one_info["history"]])
+        del one, one_state
+        args = LT.parse_args(DIST_ARGV)
+        single = LT.build(args, cfg=_dist_cfg(args))
+        state, _ = single.step_fn(single.state, next(single.batches(0)), 0)
+        two = torch.load(root / "fp32-step1.pt")
+        d = max(float((a.float() - b.float().to(a.device)).abs().max())
+                for a, b in zip(CK.flatten(state.params), two))
+        del single, state, two
+        wall_2 = _dist_wait(resume)
+        res = {name: [_dist_result(root, name, r) for r in range(2)]
+               for name in ("fp32", "bf16", "bf16-stop", "bf16-resume")}
+        for name, (a, b) in res.items():
+            check(a["processes"] == b["processes"] == 2 and a["digests"] == b["digests"]
+                  and a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"],
+                  f"[dist] (b) {name}: the ranks' parameters, optimizer state or metrics "
+                  f"differ ({sum(x != y for x, y in zip(a['digests'], b['digests']))} "
+                  f"leaves)")
+            for r in (a, b):
+                for k in launches:
+                    launches[k] += r["launches"][k]
+        fp, bf = res["fp32"], res["bf16"]
+        # (a few steps of a random 2-layer cut need not end below step 0: PR
+        # 18's ckpt cell spiked to 20.27 at step 2; the loss falls in (a))
+        check(len(fp[0]["losses"]) == len(bf[0]["losses"]) == DIST_STEPS
+              and all(np.isfinite(fp[0]["losses"] + bf[0]["losses"])),
+              f"[dist] (b) losses fp32 {fp[0]['losses']}, bf16 {bf[0]['losses']}")
+        check(bf[0]["residual_digests"] != bf[1]["residual_digests"]
+              and bf[0]["residual_abs_max"] > 0,
+              "[dist] (b) the bf16 wire's residual rows should be nonzero and each rank's own")
+        # the preempted run and its resume against the uninterrupted one
+        stop, resume = res["bf16-stop"], res["bf16-resume"]
+        check(stop[0]["preempted"] and stop[1]["preempted"]
+              and stop[0]["step"] == stop[1]["step"] == DIST_SIGTERM_AT + 1
+              and kept == DIST_SIGTERM_AT + 1,
+              f"[dist] (b) SIGTERM to rank 1 at step {DIST_SIGTERM_AT}: preempted "
+              f"{[r['preempted'] for r in stop]} at {[r['step'] for r in stop]}, LATEST {kept}")
+        check(man["extra"] == {"wire_format": "bf16"}
+              and all(s[0] == 2 for s in man["shapes"][-len(bf[0]["residual_digests"]):]),
+              f"[dist] (b) the checkpoint's stamp {man['extra']} or residual stacks")
+        for r in range(2):
+            check(resume[r]["digests"] == bf[r]["digests"]
+                  and resume[r]["residual_digests"] == bf[r]["residual_digests"]
+                  and stop[r]["losses"] + resume[r]["losses"] == bf[r]["losses"],
+                  f"[dist] (b) rank {r}: preempted + resumed != uninterrupted")
+        check("[loop] wire replica count changed since checkpoint; zero-initialized "
+              "error-feedback buffers" in one_log and one_done[:2] == (kept + 1, 1)
+              and all(np.isfinite(one_done[2])),
+              f"[dist] (b) the 1-process resume: {one_log}")
+        # the fp32 wire's step 1 against a 1-process step on the whole batch
+        check(d <= 0.05, f"[dist] (b) fp32 wire step 1 vs a 1-process step: max |diff| {d}")
+        for name, pair in res.items():
+            a = pair[0]
+            steps = len(a["losses"])
+            steady = a["step_s"][1:] or a["step_s"]
+            per_step = {k: v // steps for k, v in a["wire_bytes"].items()}
+            print(f"[dist] (b) {name} on {card}: 2 ranks over gloo on one card, "
+                  f"{a['wire']} x{a['replicas']}, {steps} steps, losses "
+                  f"{[round(x, 4) for x in a['losses']]}; step walls "
+                  f"{[round(1e3 * x, 1) for x in a['step_s']]} ms (steady "
+                  f"{1e3 * sum(steady) / len(steady):.1f}); host copies "
+                  f"{1e3 * a['host_copy_s'] / steps:.1f} ms/step; wire "
+                  f"{per_step} bytes/step/rank; peak {a['peak_gib']:.2f} GiB per rank")
+        ratio = sum(fp[0]["wire_bytes"].values()) / sum(bf[0]["wire_bytes"].values())
+        check(abs(ratio - 2.0) < 1e-9, f"[dist] (b) fp32 / bf16 wire bytes {ratio}")
+        print(f"[dist] (b) on {card}: ranks bitwise equal in all 4 runs; fp32 wire step 1 "
+              f"within {d:.3e} of a 1-process step (bar 0.05); SIGTERM to rank 1 at step "
+              f"{DIST_SIGTERM_AT} stopped both with a checkpoint at step {kept}, a fresh 2-rank "
+              f"launch resumed to step {DIST_STEPS} equal to the uninterrupted run on every "
+              f"leaf and residual row; a 1-process resume zero-initialized the residuals "
+              f"(2 -> 1 replicas) and trained on; wire bytes fp32 / bf16 = {ratio:.3f}; "
+              f"launch walls {wall_1:.1f}, {wall_2:.1f} s (the 1-process resume, {wall_3:.1f} s, "
+              f"and step ran here during the second)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3538,7 +3981,7 @@ def main():
     rows["qmatmul"], op_launches = phase_qmatmul(card)
     phase_update_ops()
     stamp("train")
-    run, state, launches["fused_adamw"] = phase_train(card)
+    run, state, launches["fused_adamw"], train_ref = phase_train(card)
     launches["fused_adamw"] += families["fused_adamw"] + slice11["fused_adamw"]
     state = phase_train_profile(run, state, card)
     phase_f32_products(run.cfg, state.params["embed"]["embedding"], card)
@@ -3552,6 +3995,9 @@ def main():
     launches["philox"] = parity["philox"] + sample_fills + paper["philox"] + slice11["philox"]
     stamp("ckpt")
     phase_ckpt(card)
+    stamp("dist")
+    for k, n in phase_dist(card, *train_ref).items():
+        launches[k] += n
     print(f"[smoke] qmatmul launches: {launches['qmatmul']} on the serve main path, "
           f"{op_launches} through the op layer")
     print(f"[smoke] all phases passed in {time.perf_counter() - t0:.1f}s on {card}")
@@ -3581,4 +4027,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:
+        dist_worker(sys.argv[2])
+    else:
+        main()

@@ -2,12 +2,14 @@
 
 The JAX package ``repro`` stays the reference; this package mirrors its
 subpackage layout (``core``, ``configs``, ``models``, ``kernels``,
-``optim``, ``data``, ``serve``, ``train``, ``launch``) so each module's counterpart is found
-by path. It imports ``torch`` and numpy only — never ``jax`` or
-``repro``. Ported so far: serving (continuous batching over contiguous or
-paged KV pools, greedy or sampled) and single-device training with the
-paper's SR and Kahan optimizers, for every model of the reference; the
-paper's experiments; every TPU kernel, by hand for Hopper; see ROADMAP.md.
+``optim``, ``data``, ``serve``, ``train``, ``dist``, ``launch``) so each
+module's counterpart is found by path. It imports ``torch`` and numpy
+only — never ``jax`` or ``repro``. Ported so far: serving (continuous
+batching over contiguous or paged KV pools, greedy or sampled) and
+training with the paper's SR and Kahan optimizers, for every model of the
+reference, on one device or data-parallel across processes with the fp32
+or SR-compressed gradient wires; the paper's experiments; every TPU
+kernel, by hand for Hopper; see ROADMAP.md.
 
 Matmul numerics, set once here for the whole package: the FMAC model
 (16-bit inputs, f32 accumulation, one output rounding) forbids cuBLAS's

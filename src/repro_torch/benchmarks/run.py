@@ -35,10 +35,10 @@ SECTIONS = [
     ("fig12_fp16", "bench_fp16"),
     ("appB_kernels", "ROADMAP A6"),
     ("roofline", "ROADMAP A6"),
-    ("fsdp_memory", "ROADMAP A5"),
+    ("fsdp_memory", "ROADMAP A9"),
     ("serve_batching", "ROADMAP A8"),
-    ("grad_wire", "ROADMAP A5"),
-    ("grad_wire_sweep", "ROADMAP A5"),
+    ("grad_wire", "ROADMAP A10"),       # 4 data x 2 model meshes
+    ("grad_wire_sweep", "bench_grad_wire_sweep"),
     ("decode_attn", "ROADMAP A8"),
 ]
 

@@ -27,7 +27,7 @@ from repro_torch.optim.sgd import SGDState
 from repro_torch.train.train_state import TrainState
 
 __all__ = ["from_jax_dlrm_params", "from_jax_params", "from_jax_resnet_params",
-           "from_jax_train_state"]
+           "from_jax_train_state", "to_jax_wire_residuals"]
 
 _DENSE = {"kernel": None, "bias": None}
 _NORM = {"scale": None, "bias": None}
@@ -137,15 +137,20 @@ def from_jax_dlrm_params(tree: Any, *, device=None) -> dict:
             "top": mlp(tree["top"])}
 
 
-def from_jax_train_state(state: Any, *, device=None) -> TrainState:
+def from_jax_train_state(state: Any, *, device=None, replica: int = 0) -> TrainState:
     """The reference's ``TrainState`` with numpy leaves (passed through
     ``jax.tree_util.tree_map(np.asarray, ...)``) → the port's
     ``TrainState`` on ``device``: params, the ``AdamWState`` (m, v, the
     0-dim c₁/c₂) or ``SGDState`` (momentum), and the Kahan buffers, each
-    dtype kept. Without a gradient transport ``wire_residuals`` is None."""
+    dtype kept. The gradient wire's residuals (one ``(n, *shape)`` stack
+    per parameter leaf) become wire replica ``replica``'s ``(1, *shape)``
+    rows; without a stateful transport ``wire_residuals`` is None."""
     dev = resolve_device(device)
-    if getattr(state, "wire_residuals", None) is not None:
-        raise ValueError("wire residuals are ported with the dist slice (ROADMAP A5)")
+
+    def rows(t):
+        if t is None:
+            return None
+        return _convert(_map(lambda a: np.asarray(a)[replica:replica + 1], t), _LM, "", dev)
 
     def tree(t):
         return None if t is None else _convert(t, _LM, "", dev)
@@ -158,4 +163,26 @@ def from_jax_train_state(state: Any, *, device=None) -> TrainState:
         opt = SGDState(tree(opt.momentum), tree(opt.kahan_c))
     else:
         raise TypeError(f"unknown optimizer state {type(opt).__name__}")
-    return TrainState(int(np.asarray(state.step)), tree(state.params), opt, None)
+    return TrainState(int(np.asarray(state.step)), tree(state.params), opt,
+                      rows(getattr(state, "wire_residuals", None)))
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def to_jax_wire_residuals(rows: list) -> dict:
+    """Every wire replica's ``wire_residuals`` rows (the port's trees of
+    ``(1, *shape)`` f32 tensors, in replica order) → the reference's
+    ``TrainState.wire_residuals``: numpy ``(n, *shape)`` stacks."""
+    def stack(*leaves):
+        return np.concatenate([t.detach().cpu().numpy() for t in leaves])
+
+    def walk(*trees):
+        if isinstance(trees[0], dict):
+            return {k: walk(*(t[k] for t in trees)) for k in trees[0]}
+        return stack(*trees)
+
+    return walk(*rows)

@@ -30,7 +30,7 @@ import torch
 __all__ = ["FloatFormat", "BF16", "BF14", "BF12", "BF10", "FP16", "FP32",
            "E5M2", "E4M3", "FORMATS", "round_nearest", "round_stochastic",
            "stochastic_round_bf16", "random_bits", "nearest_representable",
-           "ulp", "sqrt_rn", "clamp_finite"]
+           "ulp", "sqrt_rn", "clamp_finite", "wire_carrier_dtype"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,6 +328,19 @@ def clamp_finite(x: torch.Tensor, fmt: FloatFormat) -> torch.Tensor:
     """Saturate ``x`` to ``[-max_finite, max_finite]`` (±inf included; NaN
     propagates)."""
     return torch.clamp(x.to(torch.float32), -fmt.max_finite, fmt.max_finite)
+
+
+def wire_carrier_dtype(fmt: FloatFormat) -> torch.dtype:
+    """The native dtype whose grid holds every value of ``fmt``: what a
+    gradient wire at ``fmt`` carries. The e8 sub-16-bit formats
+    (bf14/bf12/bf10) are subsets of bfloat16's grid; fp16, e5m2 and e4m3
+    (their subnormals included) of float16's. The accounted wire width is
+    ``fmt.bits``, not the carrier's."""
+    if fmt.name == "fp32":
+        return torch.float32
+    if fmt.is_f32_exponent:
+        return torch.bfloat16
+    return torch.float16
 
 
 def nearest_representable(value: float, fmt: FloatFormat = BF16, *,

@@ -1,4 +1,4 @@
-"""Training launcher (port of ``repro.launch.train``, single device).
+"""Training launcher (port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
         --reduced --device cpu --steps 30
@@ -23,10 +23,32 @@ the card). ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps (on a
 background writer unless ``--sync-ckpt``) and resumes from the latest
 checkpoint there, printing ``[loop] resumed from checkpoint at step N``;
 SIGTERM checkpoints at the next step boundary and exits;
-``--spike-factor`` rolls a loss spike back to the last checkpoint. Flags
-of later slices — meshes, FSDP, pods, compressed gradient wires,
-multi-host — are accepted and refused with the slice that ports them
-(ROADMAP A5). Ends with ``[train] done at step N; final loss …``.
+``--spike-factor`` rolls a loss spike back to the last checkpoint. Ends
+with ``[train] done at step N; final loss …``, printed by process 0.
+
+Data parallelism across processes: the same entry point runs once per
+rank, joined by ``--coordinator/--num-processes/--process-id`` or the
+``REPRO_*`` variables that :mod:`repro_torch.launch.dist_launch` sets::
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
+        python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \\
+        --device cpu --data-parallel 2 --grad-wire bf16 --steps 6 \\
+        --ckpt-every 3 --ckpt-dir /tmp/dp
+
+A multi-process run with no topology flags is data-parallel over every
+rank; otherwise ``--data-parallel`` or ``--pods`` (one of them above 1 in
+this slice) must multiply to the process count. ``--grad-wire`` selects
+the transport on the wire axis (``pod`` when ``--pods > 1``, else
+``data``): ``fp32`` (with no pod axis, the f32 mean over ``data``), or an
+SR-compressed wire with error-feedback residuals at ``compressed`` (=
+bf16), ``bf16``, ``bf14``, ``bf12``, ``bf10``, ``fp16``, ``e5m2`` or
+``e4m3``; ``--wire-keep-fp32`` keeps embeddings, norms, biases and small
+leaves at fp32. In a single process a compressed wire runs its local
+arithmetic (one replica, no collective). The process group's backend
+follows the device (NCCL on CUDA, gloo on the CPU); ``--dist-backend
+gloo`` runs several ranks on one card, which NCCL refuses, with the wire's
+payloads through host memory. ``--model-parallel`` (ROADMAP A10),
+``--fsdp-parallel`` and ``--fsdp`` (A9) raise.
 """
 from __future__ import annotations
 
@@ -37,6 +59,10 @@ from typing import Any, Callable
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy, get_policy
 from repro_torch.data.synthetic import lm_batches
+from repro_torch.dist import multihost as MH
+from repro_torch.dist import partition as PT
+from repro_torch.dist import transport as TR
+from repro_torch.launch.mesh import Mesh, make_local_mesh
 from repro_torch.models import registry as R
 from repro_torch.optim import adamw, fused_adamw_optimizer, linear_warmup_cosine
 from repro_torch.optim.base import Optimizer
@@ -46,8 +72,6 @@ from repro_torch.train.train_state import TrainState, make_train_state
 
 __all__ = ["parse_args", "make_optimizer", "build", "TrainRun", "loop_config", "train",
            "main"]
-
-_DIST = "the dist slice (ROADMAP A5)"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -82,47 +106,56 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--spike-patience", type=int, default=2)
     ap.add_argument("--max-rollbacks", type=int, default=2)
     ap.add_argument("--preempt-poll", type=int, default=10,
-                    help="multi-host: poll the SIGTERM agreement every this many "
-                         "steps (no effect in a single process)")
-    # flags of later slices: accepted, refused in parse_args
+                    help="multi-process: poll the (collective) SIGTERM agreement "
+                         "every this many steps")
     ap.add_argument("--data-parallel", type=int, default=1)
-    ap.add_argument("--model-parallel", type=int, default=1)
-    ap.add_argument("--fsdp-parallel", type=int, default=1)
-    ap.add_argument("--fsdp", action="store_true")
-    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the model axis: ROADMAP A10")
+    ap.add_argument("--fsdp-parallel", type=int, default=1,
+                    help="a dedicated fsdp axis: ROADMAP A9")
+    ap.add_argument("--fsdp", action="store_true", help="ROADMAP A9")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pod mesh axis size: data parallelism whose gradient mean "
+                         "rides the --grad-wire")
     ap.add_argument("--grad-wire", default="fp32",
                     choices=["fp32", "compressed", "bf16", "bf14", "bf12",
-                             "bf10", "fp16", "e5m2", "e4m3"])
-    ap.add_argument("--wire-keep-fp32", default=None)
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+                             "bf10", "fp16", "e5m2", "e4m3"],
+                    help="gradient transport on the wire axis: fp32 mean, or an "
+                         "SR-compressed wire with error feedback at the named format "
+                         "('compressed' = bf16; e5m2/e4m3 clamped at max_finite)")
+    ap.add_argument("--wire-keep-fp32", default=None,
+                    help="per-leaf fp32 keep on a compressed wire: 'default' "
+                         "(embeddings/norms/biases/scales and leaves < 2048 elements), "
+                         "'none', or a comma list of name patterns with an optional "
+                         "size threshold, e.g. '4096,embed,norm'")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0's store (default $REPRO_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="total process count (default $REPRO_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's rank (default $REPRO_PROCESS_ID)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend; by default NCCL on CUDA, gloo on "
+                         "the CPU (gloo on CUDA: several ranks on one card)")
     return ap
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = _parser()
-    args = ap.parse_args(argv)
-    later = [
-        ("mesh sizes above 1", args.data_parallel * args.model_parallel
-         * args.fsdp_parallel > 1, _DIST),
-        ("--fsdp", args.fsdp, _DIST),
-        ("--pods", args.pods != 1, _DIST),
-        (f"--grad-wire {args.grad_wire}", args.grad_wire != "fp32", _DIST),
-        ("--wire-keep-fp32", args.wire_keep_fp32 is not None, _DIST),
-        ("--coordinator/--num-processes/--process-id",
-         any(a is not None for a in (args.coordinator, args.num_processes,
-                                     args.process_id)), _DIST),
-    ]
-    for flag, given, slice_ in later:
-        if given:
-            raise ValueError(f"{flag} is ported with {slice_}")
+    """The launcher's flags; those of later ROADMAP items raise."""
+    args = _parser().parse_args(argv)
+    if args.model_parallel > 1:
+        raise ValueError(f"--model-parallel {args.model_parallel}: {PT.MODEL_ITEM}")
+    if args.fsdp or args.fsdp_parallel > 1:
+        raise ValueError(f"--fsdp/--fsdp-parallel: {PT.FSDP_ITEM}")
     return args
 
 
-def make_optimizer(args, policy: PrecisionPolicy) -> Optimizer:
+def make_optimizer(args, policy: PrecisionPolicy, mesh: Mesh | None = None,
+                   pspecs=None) -> Optimizer:
+    """AdamW, fused or not; on a mesh the fused update runs shard-local."""
     if args.fused_update:
-        return fused_adamw_optimizer(policy, b2=0.997, weight_decay=0.01)
+        return fused_adamw_optimizer(policy, b2=0.997, weight_decay=0.01, mesh=mesh,
+                                     pspecs=pspecs)
     return adamw(policy, b2=0.997, weight_decay=0.01)
 
 
@@ -134,13 +167,32 @@ class TrainRun:
     state: TrainState
     step_fn: Callable
     batches: Callable[[int], Any]
+    transport: TR.GradientTransport
+    mesh: Mesh | None = None
+
+
+def _mesh(args) -> Mesh | None:
+    """The run's mesh by the reference's topology rule, or None for a
+    single process given none."""
+    dp, pods = args.data_parallel, args.pods
+    if MH.active() and dp * pods == 1:
+        # multi-process with no explicit topology: data-parallel over every
+        # rank (a one-process mesh would leave the collectives unformed)
+        dp = MH.process_count()
+    if dp * pods == 1:
+        return None
+    return make_local_mesh(dp, args.model_parallel, fsdp=args.fsdp_parallel, pods=pods)
 
 
 def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
     """Config (``--arch``, or ``cfg`` when given), random weights from
-    ``--seed`` on the device, optimizer (``make_optimizer`` unless one is
-    given), state, step and batch stream — everything ``train`` runs."""
+    ``--seed`` on the device, mesh, optimizer (``make_optimizer`` unless
+    one is given), transport, state, step and batch stream — everything
+    ``train`` runs. Joins the process group first when one is configured
+    (:func:`repro_torch.dist.multihost.initialize`)."""
     device = resolve_device(args.device)
+    MH.initialize(args.coordinator, args.num_processes, args.process_id, device=device,
+                  backend=args.dist_backend)
     policy = get_policy(args.policy)
     if cfg is None:
         cfg = R.get_config(args.arch)
@@ -150,33 +202,54 @@ def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
         raise ValueError(f"{cfg.name}: the launcher trains on the token stream, and an "
                          "encoder-decoder takes an audio batch (src_embeds, tokens, labels)")
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
-    opt = optimizer if optimizer is not None else make_optimizer(args, policy)
+    mesh = _mesh(args)
+    wire_policy = (TR.WirePolicy.parse(args.wire_keep_fp32)
+                   if args.wire_keep_fp32 is not None else None)
+    placement = pspecs = None
+    if mesh is not None:
+        placement = PT.default_placement(mesh)
+        pspecs = PT.param_specs(params, cfg, mesh, placement)
+    opt = optimizer if optimizer is not None else make_optimizer(args, policy, mesh, pspecs)
+    transport = TR.make_transport(mesh=mesh, placement=placement, pspecs=pspecs,
+                                  wire=args.grad_wire, wire_policy=wire_policy)
     lr_schedule = linear_warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps)
     step_fn = make_train_step(cfg, policy, opt, lr_schedule, grad_accum=args.grad_accum,
-                              attn_chunk=min(1024, args.seq))
+                              attn_chunk=min(1024, args.seq), transport=transport,
+                              mesh=mesh)
 
     def batches(start_step):
-        # step-keyed stream: a run starting at step k continues with batch k
+        # step-keyed stream: a run starting at step k continues with batch k;
+        # every rank draws the same global batch and computes its own rows
         return lm_batches(cfg.vocab, args.batch, args.seq, seed=args.seed,
                           start_step=start_step, device=device)
 
-    return TrainRun(cfg, policy, opt, make_train_state(params, opt), step_fn, batches)
+    return TrainRun(cfg, policy, opt, make_train_state(params, opt, transport=transport),
+                    step_fn, batches, transport, mesh)
 
 
-def loop_config(args) -> TrainLoopConfig:
-    """The loop's configuration from the launcher's flags."""
+def loop_config(args, transport: TR.GradientTransport | None = None) -> TrainLoopConfig:
+    """The loop's configuration from the launcher's flags (and the wire
+    format of ``transport``)."""
     return TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every, seed=args.seed,
                            async_saves=not args.sync_ckpt, spike_factor=args.spike_factor,
                            spike_patience=args.spike_patience,
                            max_rollbacks=args.max_rollbacks,
-                           preempt_poll_every=args.preempt_poll)
+                           preempt_poll_every=args.preempt_poll,
+                           wire_format=getattr(transport, "wire_format", None))
+
+
+def _silent(*_args, **_kwargs) -> None:
+    """The log of every process but process 0."""
 
 
 def train(args, run: TrainRun, *, log: Callable[[str], None] = print, fault_hook=None):
-    """Run ``run`` to ``--steps`` and print the closing line."""
-    state, info = run_training(run.state, run.step_fn, run.batches, loop_config(args),
-                               log=log, fault_hook=fault_hook)
+    """Run ``run`` to ``--steps`` and print the closing line (process 0
+    logs, the others are silent)."""
+    log = log if MH.is_primary() else _silent
+    state, info = run_training(run.state, run.step_fn, run.batches,
+                               loop_config(args, run.transport), log=log,
+                               fault_hook=fault_hook, transport=run.transport)
     last = info["history"][-1] if info["history"] else {}
     log(f"[train] done at step {state.step}; final loss {last.get('loss', float('nan')):.4f}; "
         f"stragglers={info['stragglers']} preempted={info['preempted']} "
@@ -186,10 +259,20 @@ def train(args, run: TrainRun, *, log: Callable[[str], None] = print, fault_hook
 
 def main(argv=None):
     args = parse_args(argv)
-    run = build(args)
-    print(f"[train] {run.cfg.name} policy={run.policy.name} optimizer={run.optimizer.name} "
-          f"batch={args.batch} seq={args.seq} steps={args.steps} device={args.device}")
-    train(args, run)
+    try:
+        run = build(args)
+        if MH.is_primary():
+            wire = run.transport
+            print(f"[train] {run.cfg.name} policy={run.policy.name} "
+                  f"optimizer={run.optimizer.name} batch={args.batch} seq={args.seq} "
+                  f"steps={args.steps} device={args.device} "
+                  f"processes={MH.process_count()} "
+                  f"mesh={run.mesh.shape if run.mesh else None} "
+                  f"wire={wire.name}:{getattr(wire, 'wire_format', 'fp32')} "
+                  f"x{wire.wire_replicas}")
+        train(args, run)
+    finally:
+        MH.shutdown()
 
 
 if __name__ == "__main__":

@@ -19,9 +19,16 @@ step holds no second copy of the optimizer state. The kernels take 16-bit
 leaves: an f32 leaf of the tree (the MoE router, Mamba's ``A_log`` and
 ``D_skip``, RG-LRU's ``lambda``) is cast to bf16 and updated as such, and
 its bf16 result replaces the leaf — what the reference's wrappers do
-(``repro/kernels/fused_adamw.py:105``: every operand padded as bf16). The
-shard-local mode of the reference (``mesh=``/``pspecs=``) is ported with
-the ``dist`` slice.
+(``repro/kernels/fused_adamw.py:105``: every operand padded as bf16).
+
+Shard-local mode (``mesh=``/``pspecs=``): the reference runs the update
+inside ``shard_map`` on each device's shard and folds each leaf's key with
+the shard's index over the axes its spec names, so replicated leaves draw
+the same bits everywhere. On a data-parallel mesh every spec is ``P()``:
+the shard is the whole leaf, nothing is folded, and the update is the
+plain per-rank update — every rank draws the same bits, and the replicas
+stay bitwise equal. A spec that names an axis (FSDP, A9; the model axis,
+A10) raises.
 """
 from __future__ import annotations
 
@@ -43,9 +50,12 @@ def _check(policy: PrecisionPolicy, mesh, pspecs):
         raise ValueError(
             f"fused kernels implement the bf16 16-bit-FPU recipe; "
             f"policy {policy.name!r} is not supported")
-    if mesh is not None or pspecs is not None:
-        raise ValueError("the shard-local fused update (mesh=/pspecs=) is ported "
-                         "with the dist slice (ROADMAP A5)")
+    if (mesh is None) != (pspecs is None):
+        raise ValueError("shard-local mode needs both mesh= and pspecs=")
+    for spec in tree_leaves(pspecs) if pspecs is not None else ():
+        if spec.axes:
+            raise ValueError(f"a parameter sharded over {spec.axes}: the shard-local "
+                             f"update of sharded leaves is ported with ROADMAP A9/A10")
 
 
 def _leaves(params, *trees):

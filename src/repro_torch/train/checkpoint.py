@@ -29,12 +29,20 @@ bf16 leaves are stored as their raw bits, ``uint16``, with the dtype tag
   queue, so commits land in submission order. ``drain()`` blocks until
   the queue is empty and re-raises a background failure.
 * **keep_n** — oldest-first GC that never removes the LATEST target.
+* **Multi-process** (``torch.distributed``, one process per rank) —
+  :func:`snapshot` is *collective* when given the wire's process group
+  (``rows=``): every process calls it at the same step, the ranks' rows of
+  the gradient wire's error-feedback residuals are gathered, in rank
+  order, into the reference's ``(n, *shape)`` leaves, and only process 0
+  copies the rest of the state (the same on every rank) and touches the
+  filesystem: it writes, repairs LATEST and prunes. All processes see the
+  same paths.
 
 :func:`restore` copies the stored values into the tensors of ``like`` in
 place (casting to their dtype, on their device), so restoring a state
-costs no second copy of it on the card. Multi-host snapshots (gathered
-across processes, written by process 0) are ported with the dist slice
-(ROADMAP A5).
+costs no second copy of it on the card; ``rows=``/``row=`` give a rank its
+row of the stacked residual leaves, and ``skip=`` leaves stale leaves
+unread.
 """
 from __future__ import annotations
 
@@ -51,6 +59,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.dist import multihost as MH
 
 __all__ = ["save", "restore", "latest_step", "manifest", "snapshot", "flatten",
            "Snapshot", "AsyncCheckpointer", "CheckpointManager"]
@@ -145,9 +156,35 @@ class Snapshot:
     manifest: dict
 
 
-def snapshot(tree: PyTree, step: int, *, extra: dict | None = None) -> Snapshot:
-    """Copy every leaf to host memory the snapshot owns."""
-    host = [_leaf_to_host(leaf) for leaf in flatten(tree)]
+def _gather_rows(row: torch.Tensor, group) -> np.ndarray | None:
+    """Every rank's ``(1, *shape)`` row of ``group``, stacked in rank order
+    on process 0 (None elsewhere). The rows travel on the group's device."""
+    dev = MH.group_device(group)
+    src = row.detach().to(dev).contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))] \
+        if MH.is_primary() else None
+    dist.gather(src, parts, dst=0, group=group)
+    if parts is None:
+        return None
+    return _leaf_to_host(torch.cat(parts))[0]
+
+
+def snapshot(tree: PyTree, step: int, *, extra: dict | None = None,
+             rows=None) -> Snapshot | None:
+    """Copy every leaf to host memory the snapshot owns.
+
+    ``rows`` (the wire's process group) makes it collective: ``tree`` is a
+    ``TrainState`` whose ``wire_residuals`` hold this rank's rows; each is
+    gathered into the reference's ``(n, *shape)`` leaf. Only process 0
+    copies the rest and gets the snapshot; the others get None."""
+    if rows is None:
+        host = [_leaf_to_host(leaf) for leaf in flatten(tree)]
+    else:
+        stacked = [_gather_rows(r, rows) for r in flatten(tree.wire_residuals)]
+        if not MH.is_primary():
+            return None
+        host = [_leaf_to_host(leaf) for leaf in flatten(tree._replace(wire_residuals=None))]
+        host += [(a, "float32") for a in stacked]
     man = {
         "step": int(step),
         "time": time.time(),
@@ -191,9 +228,13 @@ def _commit(directory: Path, snap: Snapshot, keep_n: int) -> Path:
 
 
 def save(directory: str | Path, step: int, tree: PyTree, *,
-         keep_n: int = 3, extra: dict | None = None) -> Path:
-    """Synchronous snapshot and commit."""
-    return _commit(Path(directory), snapshot(tree, step, extra=extra), keep_n)
+         keep_n: int = 3, extra: dict | None = None, rows=None) -> Path:
+    """Synchronous snapshot and commit; collective with ``rows`` (only
+    process 0 writes)."""
+    snap = snapshot(tree, step, extra=extra, rows=rows)
+    if snap is None:
+        return Path(directory) / f"step_{step:09d}"
+    return _commit(Path(directory), snap, keep_n)
 
 
 def _gc(directory: Path, keep_n: int, *, stale_secs: float = TMP_STALE_SECS) -> None:
@@ -264,7 +305,7 @@ def latest_step(directory: str | Path, *, repair: bool = True) -> int | None:
             break
     if fallback is None:
         return None
-    if repair:
+    if repair and MH.is_primary():
         try:
             ptr = directory / f".latest.{uuid.uuid4().hex[:8]}"
             ptr.write_text(fallback.name)
@@ -280,14 +321,19 @@ def _stored_tensor(arr: np.ndarray, tag: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(directory: str | Path, like: PyTree, *, step: int | None = None
-            ) -> tuple[PyTree, int]:
+def restore(directory: str | Path, like: PyTree, *, step: int | None = None,
+            skip=(), rows=(), row: int = 0) -> tuple[PyTree, int]:
     """Restore into the structure of ``like``: each tensor leaf of ``like``
     receives its stored value in place (cast to its dtype, on its device:
     a checkpoint of another policy restores into this one's formats), and
     a Python int leaf (the ``TrainState`` step) is replaced by the stored
     integer. Returns the tree and the step restored (LATEST's unless
-    ``step`` is given)."""
+    ``step`` is given).
+
+    ``skip`` (leaf indices) leaves those stored leaves unread: ``like``'s
+    leaf comes back as it is. ``rows`` (leaf indices) are stacked one row
+    per replica, ``(n, *shape)``, and ``like`` holds one ``(1, *shape)``:
+    it receives row ``row``."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -298,12 +344,20 @@ def restore(directory: str | Path, like: PyTree, *, step: int | None = None
     leaves = flatten(like)
     if man["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {man['n_leaves']} leaves, expected {len(leaves)}")
+    skip, rows = frozenset(skip), frozenset(rows)
     out = []
     with np.load(src / "arrays.npz") as data:
         for i, ref in enumerate(leaves):
+            if i in skip:
+                out.append(ref)
+                continue
             arr = data[f"a{i}"]
             if list(arr.shape) != man["shapes"][i]:
                 raise ValueError(f"leaf {i}: stored shape {arr.shape} != manifest")
+            if i in rows:
+                if not 0 <= row < arr.shape[0]:
+                    raise ValueError(f"leaf {i}: no row {row} in a stack of {arr.shape[0]}")
+                arr = arr[row:row + 1]
             if isinstance(ref, torch.Tensor):
                 if tuple(arr.shape) != tuple(ref.shape):
                     raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != model "
@@ -395,20 +449,28 @@ class CheckpointManager:
 
     def __init__(self, directory: str | Path, *, every_steps: int = 100,
                  keep_n: int = 3, async_saves: bool = False,
-                 max_pending: int = 2, extra: dict | None = None):
+                 max_pending: int = 2, extra: dict | None = None, rows=None):
         self.directory = Path(directory)
         self.every_steps = every_steps
         self.keep_n = keep_n
+        # run-level metadata stamped into every manifest (the gradient
+        # wire's format, so a resume under another wire sees stale residuals)
         self.extra = dict(extra) if extra else {}
+        # the wire's process group: snapshots gather the residual rows
+        self.rows = rows
         self._async = AsyncCheckpointer(max_pending=max_pending) if async_saves else None
 
     def maybe_save(self, step: int, tree: PyTree, *, force: bool = False):
+        """Save at the cadence (or when forced). Collective under
+        multi-process: every process calls it at the same steps."""
         if not (force or (self.every_steps and step % self.every_steps == 0 and step > 0)):
             return None
         if self._async is None:
-            return save(self.directory, step, tree, keep_n=self.keep_n, extra=self.extra)
-        self._async.submit(self.directory, snapshot(tree, step, extra=self.extra),
-                           self.keep_n)
+            return save(self.directory, step, tree, keep_n=self.keep_n, extra=self.extra,
+                        rows=self.rows)
+        snap = snapshot(tree, step, extra=self.extra, rows=self.rows)
+        if snap is not None:
+            self._async.submit(self.directory, snap, self.keep_n)
         return self.directory / f"step_{step:09d}"
 
     def drain(self):
@@ -426,11 +488,12 @@ class CheckpointManager:
         self.close()
         return False
 
-    def restore_latest(self, like: PyTree, step: int | None = None):
+    def restore_latest(self, like: PyTree, step: int | None = None, *, skip=(), rows=(),
+                       row: int = 0):
         """Restore the newest checkpoint — or, with ``step``, that one —
-        after the queued commits."""
+        after the queued commits (see :func:`restore`)."""
         self.drain()
-        return restore(self.directory, like, step=step)
+        return restore(self.directory, like, step=step, skip=skip, rows=rows, row=row)
 
     def has_checkpoint(self) -> bool:
         self.drain()

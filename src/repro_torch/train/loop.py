@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop (port of ``repro.train.loop``, single
-process).
+"""Fault-tolerant training loop (port of ``repro.train.loop``).
 
 Runs the train step to ``total_steps`` over a step-keyed batch stream,
 with
@@ -38,10 +37,27 @@ last committed checkpoint is the resume point. A step function without
 ``phases`` is taken as pure (it must not modify the state it is given):
 the whole call is retried, as in the reference.
 
-The multi-host loop (collective snapshots, agreed restore steps, the
-polled SIGTERM agreement) and gradient-wire residuals are ported with the
-dist slice (ROADMAP A5); ``preempt_poll_every`` is accepted and, in a
-single process as in the reference, has no effect.
+**Multi-process** (``torch.distributed``, one process per rank, see
+:mod:`repro_torch.dist.multihost`): every process runs the loop in lock
+step. Checkpoint snapshots are collective (the wire's residual rows are
+gathered) and only process 0 writes; all processes barrier around
+restore, and the restore step, at startup and on a spike rollback, is
+process 0's LATEST after its commits, broadcast (only process 0 has
+queued commits that move LATEST). The SIGTERM flag is agreed every
+``preempt_poll_every`` steps (any rank's signal stops them all at the
+same step). A gradient phase that exhausts its retries raises without
+the crash save, whose snapshot its peers would never join: the last
+committed checkpoint is the restart point. The checkpoint cadence adapts
+to stragglers only in a single process (it must stay the same on every
+process). The loss is the mean over the ranks, so a spike rollback is
+decided alike on every rank.
+
+**Gradient-wire residuals** (``TrainState.wire_residuals``) restore row
+by row (each rank its row of the stored ``(n, *shape)`` stack) and are
+zero-initialized where the wire changed since the checkpoint: no
+residuals stored, another replica count, another wire format (the
+``wire_format`` stamped into the manifest); a run with no residuals
+drops stored ones unread.
 """
 from __future__ import annotations
 
@@ -51,6 +67,9 @@ import signal
 import time
 from typing import Callable, Iterator, Union
 
+import torch
+
+from repro_torch.dist import multihost as MH
 from repro_torch.train.checkpoint import CheckpointManager, flatten, latest_step, manifest
 from repro_torch.train.train_state import TrainState
 from repro_torch.tree import tree_leaves
@@ -89,8 +108,14 @@ class TrainLoopConfig:
     spike_patience: int = 2
     max_rollbacks: int = 2
     rollback_widen: int = 2
-    # multi-host only in the reference: no effect in a single process
+    # multi-process: the SIGTERM agreement is a collective, so it is polled
+    # every this many steps (a single process reacts at the next step)
     preempt_poll_every: int = 10
+    # identity of the gradient-wire numerics (CompressedWire.wire_format):
+    # stamped into checkpoint manifests and compared on restore, where a
+    # resume under another format zero-inits the error-feedback residuals.
+    # None (stateless transports) disables both
+    wire_format: str | None = None
 
 
 def _phases(train_step: Callable) -> tuple[Callable, Callable]:
@@ -102,27 +127,87 @@ def _phases(train_step: Callable) -> tuple[Callable, Callable]:
     return train_step, lambda state, out, seed: out
 
 
-def _restore(mgr: CheckpointManager, state: TrainState, *, step: int | None = None):
+def _agreed_restore_step(mgr: CheckpointManager) -> int | None:
+    """The step every process restores (None: no checkpoint): process 0's
+    LATEST after draining its queued commits, broadcast."""
+    mgr.drain()
+    if not MH.active():
+        return latest_step(mgr.directory)
+    found = latest_step(mgr.directory) if MH.is_primary() else None
+    step = MH.broadcast_int(-1 if found is None else found)
+    return None if step < 0 else step
+
+
+def _zero(tree) -> None:
+    with torch.no_grad():
+        for r in tree_leaves(tree):
+            r.zero_()
+
+
+def _restore(mgr: CheckpointManager, state: TrainState, log, *, step: int | None = None,
+             wire_format: str | None = None, transport=None):
     """Restore ``state`` in place from ``mgr``'s checkpoint at ``step``
-    (LATEST when None); a checkpoint that carries gradient-wire residuals
-    is refused."""
-    man = manifest(mgr.directory, step=step)
+    (LATEST when None), tolerant of gradient-wire residual drift in every
+    direction a restart can change the wire (the reference's four cases,
+    with its log lines). Stored residuals are recognized by their layout:
+    one ``(replicas, *param shape)`` leaf per parameter after the rest of
+    the state (the reference's legacy 3-field state has the bare layout);
+    a checkpoint of neither layout falls through to ``restore``'s own
+    validation error."""
+    residuals = state.wire_residuals
     params = tree_leaves(state.params)
-    # the reference stores one (wire replicas, *param shape) buffer per
-    # parameter leaf after the rest of the state
-    tail = man["shapes"][len(flatten(state)):]
-    residuals = len(tail) == len(params) and all(
-        s[1:] == list(p.shape) and len(s) == p.dim() + 1 for s, p in zip(tail, params))
-    if residuals or (man.get("extra") or {}).get("wire_format"):
-        raise ValueError("the checkpoint carries gradient-wire residuals; they are "
-                         "ported with the dist slice (ROADMAP A5)")
+    man = manifest(mgr.directory, step=step)
+    n_ckpt, shapes = man["n_leaves"], man["shapes"]
+    n_state = len(flatten(state))
+
+    def stored_replicas(start: int) -> int | None:
+        """The replica count of a residual layout stored from leaf
+        ``start`` on; None if the leaves there are not one."""
+        tail = shapes[start:]
+        if len(tail) != len(params) or not tail:
+            return None
+        ok = all(len(t) == p.dim() + 1 and t[1:] == list(p.shape) and t[0] == tail[0][0]
+                 for t, p in zip(tail, params))
+        return tail[0][0] if ok else None
+
+    if residuals is not None:
+        n_bare = n_state - len(params)
+        if n_ckpt == n_bare:
+            restored, at = mgr.restore_latest(state._replace(wire_residuals=None), step=step)
+            _zero(residuals)
+            log("[loop] checkpoint has no wire_residuals; zero-initialized "
+                "error-feedback buffers")
+            return restored._replace(wire_residuals=residuals), at
+        stored_n = stored_replicas(n_bare) if n_ckpt == n_state else None
+        stored_fmt = (man.get("extra") or {}).get("wire_format")
+        stale = None
+        if stored_n is not None and stored_n != (transport.wire_replicas if transport else 1):
+            stale = "wire replica count changed since checkpoint"
+        elif stored_n is not None and None not in (stored_fmt, wire_format) \
+                and stored_fmt != wire_format:
+            stale = (f"gradient-wire format changed since checkpoint "
+                     f"({stored_fmt} -> {wire_format})")
+        if stale is not None:
+            restored, at = mgr.restore_latest(state, step=step, skip=range(n_bare, n_state))
+            _zero(residuals)
+            log(f"[loop] {stale}; zero-initialized error-feedback buffers")
+            return restored, at
+        if stored_n is not None:
+            return mgr.restore_latest(state, step=step, rows=range(n_bare, n_state),
+                                      row=transport.replica if transport else 0)
+    elif n_ckpt == n_state + len(params) and stored_replicas(n_state) is not None:
+        # params stand in as structure-matching placeholders, left unread
+        like = state._replace(wire_residuals=state.params)
+        restored, at = mgr.restore_latest(like, step=step, skip=range(n_state, n_ckpt))
+        log("[loop] dropping checkpointed wire_residuals (stateless gradient transport)")
+        return restored._replace(wire_residuals=None), at
     return mgr.restore_latest(state, step=step)
 
 
 def run_training(state: TrainState, train_step: Callable, batches: Batches,
                  cfg: TrainLoopConfig, *, log: Callable[[str], None] = print,
-                 fault_hook: Callable[[int], None] | None = None
-                 ) -> tuple[TrainState, dict]:
+                 fault_hook: Callable[[int], None] | None = None,
+                 transport=None) -> tuple[TrainState, dict]:
     """Run from ``state.step`` (or the latest checkpoint under
     ``cfg.ckpt_dir``) to ``cfg.total_steps``. Returns the final state and
     ``{"history", "stragglers", "preempted", "rollbacks"}``.
@@ -135,10 +220,21 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
     pulled once per step, before the retries: a retried step replays the
     same batch. ``fault_hook(step)`` runs at the start of each attempt of
     the gradient phase and may raise to simulate a failure.
+
+    ``transport`` (the step's gradient transport) places the wire's
+    residual rows: this rank's row on restore, every rank's gathered on
+    save (the reference passes its state shardings instead).
     """
+    multiproc = MH.active()
+    rows = None
+    if transport is not None and transport.wire_replicas > 1 \
+            and state.wire_residuals is not None:
+        rows = transport.mesh.group(transport.wire_axis)
     mgr = CheckpointManager(cfg.ckpt_dir, every_steps=cfg.ckpt_every, keep_n=cfg.keep_n,
-                            async_saves=cfg.async_saves,
-                            max_pending=cfg.max_pending_saves) if cfg.ckpt_dir else None
+                            async_saves=cfg.async_saves, max_pending=cfg.max_pending_saves,
+                            extra=({"wire_format": cfg.wire_format}
+                                   if cfg.wire_format else None),
+                            rows=rows) if cfg.ckpt_dir else None
     batches_fn = batches if callable(batches) else None
     if cfg.spike_factor is not None:
         if mgr is None:
@@ -147,11 +243,17 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
         if batches_fn is None:
             raise ValueError("spike_factor requires callable batches "
                              "(a rollback must rewind the data stream)")
+    if multiproc:
+        # every process must agree on whether a checkpoint exists before
+        # any of them restores
+        MH.barrier("repro:loop:start")
     if mgr:
-        mgr.drain()
-        if latest_step(mgr.directory) is not None:
-            state, at = _restore(mgr, state)
+        at_step = _agreed_restore_step(mgr)
+        if at_step is not None:
+            state, at = _restore(mgr, state, log, step=at_step, wire_format=cfg.wire_format,
+                                 transport=transport)
             log(f"[loop] resumed from checkpoint at step {at}")
+            MH.barrier("repro:loop:restored")
     gradients, update = _phases(train_step)
 
     stop = {"preempted": False}
@@ -201,12 +303,18 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                 except Exception as e:          # noqa: BLE001 — retry wall
                     attempt += 1
                     if attempt > cfg.max_retries_per_step:
-                        if mgr:
+                        if mgr and not multiproc:
                             # the gradient phase never touches the state:
                             # this is the state the step started from
                             _save(step, force=True)
                             log(f"[loop] step {step} failed {attempt}×; "
                                 f"checkpointed for external restart: {e}")
+                        elif multiproc:
+                            # the crash save's snapshot is collective and the
+                            # peers never reach it: raise, and restart from the
+                            # last committed checkpoint
+                            log(f"[loop] step {step} failed {attempt}×; raising for "
+                                f"a restart from the last committed checkpoint: {e}")
                         raise
                     log(f"[loop] step {step} retry {attempt} after {type(e).__name__}")
             try:
@@ -230,8 +338,10 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                     spike_run = 0
                     loss_ewma = loss if loss_ewma is None else 0.9 * loss_ewma + 0.1 * loss
                 if spike_run >= cfg.spike_patience:
-                    mgr.drain()
-                    at_step = latest_step(mgr.directory)
+                    # every process reaches this at the same step (the loss
+                    # is the mean over the ranks); the step is still agreed,
+                    # so a pending commit cannot land between two reads
+                    at_step = _agreed_restore_step(mgr)
                     if at_step is None:
                         raise RuntimeError(f"loss diverged at step {step} (loss {loss:g}) "
                                            f"with no checkpoint to roll back to")
@@ -239,7 +349,9 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                         # not checkpointed: LATEST keeps naming the last good state
                         raise RuntimeError(f"loss diverged at step {step} after "
                                            f"{rollbacks} rollbacks; giving up")
-                    state, at = _restore(mgr, state, step=at_step)
+                    state, at = _restore(mgr, state, log, step=at_step,
+                                         wire_format=cfg.wire_format, transport=transport)
+                    MH.barrier("repro:loop:rolled-back")
                     saved_at[0] = None
                     rollbacks += 1
                     mgr.every_steps = cfg.ckpt_every * cfg.rollback_widen ** rollbacks
@@ -264,7 +376,10 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                 # a step under spike suspicion is never committed: the
                 # rollback target must predate the first suspicious update
                 base = cfg.ckpt_every * cfg.rollback_widen ** rollbacks
-                mgr.every_steps = max(base // (2 if stragglers > 3 else 1), 1)
+                if not multiproc:
+                    # local straggler counts: the cadence of several
+                    # processes must stay the same (snapshots are collective)
+                    mgr.every_steps = max(base // (2 if stragglers > 3 else 1), 1)
                 _save(step + 1)
             if spike_run > 0:
                 suspect.append(row)     # dropped if the run rolls back
@@ -273,7 +388,10 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                 suspect.clear()
             if step % cfg.log_every == 0:
                 log(f"[loop] step {step} loss {row['loss']:.4f} ({dt * 1e3:.0f} ms)")
-            if stop["preempted"]:
+            # a collective under multi-process, so on a fixed step schedule
+            poll = not multiproc or step % max(cfg.preempt_poll_every, 1) == 0
+            if poll and MH.agree_any(stop["preempted"]):
+                stop["preempted"] = True
                 if mgr:
                     _save(step + 1, force=True)
                 log(f"[loop] preempted at step {step}; checkpointed and exiting")

@@ -7,9 +7,15 @@ cast a bf16 working copy of the weights for compute), gradients land in
 the compute dtype and feed the quantized optimizer update (Algorithms
 2–5), which writes the new weights and state in place. ``grad_accum=k``
 runs k microbatches over one working copy, accumulating f32 gradients,
-before one update on their mean. The reference's gradient transports
-(``transport=``, ``pspecs=``, ``placement=``) are ported with the dist
-slice.
+before one update on their mean.
+
+Every gradient collective goes through a
+:class:`repro_torch.dist.transport.GradientTransport`: on a data-parallel
+mesh each rank computes the rows the reference gives its replica
+(``dist/partition.py::rank_rows``), ``transport.reduce`` takes the
+cross-rank mean on the wire axis, and the step itself takes the f32 mean
+over the other data-parallel axes (the mean the reference leaves to GSPMD
+inside its backward).
 """
 from __future__ import annotations
 
@@ -20,14 +26,18 @@ import torch
 from repro_torch.core.formats import round_nearest
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import partition as PT
+from repro_torch.dist import transport as T
 from repro_torch.kernels import dispatch
 from repro_torch.models import registry as R
-from repro_torch.optim.base import StepKey
+from repro_torch.optim.base import StepKey, write_back
+from repro_torch.optim.grad_compress import WireKey, wire_mean
 from repro_torch.serve import cache as SC
 from repro_torch.train.train_state import TrainState, softmax_xent
-from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+from repro_torch.tree import (tree_leaves, tree_map, tree_paths, tree_pop_leaves,
+                              tree_unflatten)
 
-__all__ = ["Gradients", "compute_params", "make_train_step", "make_eval_step",
+__all__ = ["Gradients", "compute_params", "step_keys", "make_train_step", "make_eval_step",
            "make_serve_step"]
 
 PyTree = Any
@@ -69,15 +79,32 @@ def _split_microbatches(batch: dict, k: int) -> list[dict]:
 
 class Gradients(NamedTuple):
     """What the gradient phase of a train step hands its update phase."""
-    grads: PyTree               # in the compute dtype, shaped like the params
-    loss: torch.Tensor          # f32
-    grad_norm: torch.Tensor     # f32
+    grads: PyTree               # reduced, shaped like the params
+    loss: torch.Tensor          # f32, the mean over the data-parallel ranks
+    grad_norm: torch.Tensor     # f32, of the reduced gradients
+    residuals: PyTree | None = None     # the wire's new error-feedback rows
+
+
+def step_keys(seed: int, step: int, replica: int) -> tuple:
+    """The randomness of one step: the update's per-leaf SR streams
+    (:class:`StepKey`, the same on every rank, so the replicas stay
+    bitwise equal) and this replica's wire streams (:class:`WireKey`)."""
+    return StepKey(seed, step), WireKey(seed, step, replica)
+
+
+def _dp_axis(mesh) -> str | None:
+    """The one data-parallel axis of ``mesh`` above size 1 (None if none)."""
+    if mesh is None:
+        return None
+    axes = [a for a in PT.dp_axes(mesh) if mesh.shape[a] > 1]
+    return axes[0] if axes else None
 
 
 def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
                     remat: bool = True, attn_chunk: int = 1024,
                     loss_fn: Callable | None = None, pspecs=None, placement=None,
-                    transport=None, grad_accum: int = 1):
+                    transport=None, grad_accum: int = 1, mesh=None,
+                    keys: Callable = step_keys):
     """One train step: ``(state, batch, seed) -> (state, metrics)`` with
     metrics ``loss`` (f32 tensor), ``lr`` (float) and ``grad_norm``.
 
@@ -98,13 +125,30 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     gradients, seed) -> (state, metrics)`` writes the new weights and
     optimizer state in place. ``train_step`` is ``update`` after
     ``gradients``.
+
+    The gradient path belongs to ``transport``; without one it is derived
+    from ``mesh``/``placement``/``pspecs`` (the f32 data-parallel mean).
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; the transport's
+    when not given) places this process: every rank is handed the same
+    global batch and computes the rows of its replica, the loss is the mean
+    over the ranks, and ``grad_norm`` is taken on the reduced gradients, so
+    both are the same on every rank. The wire's reduce runs in the gradient
+    phase; its new residuals are written into the state in the update
+    phase. ``keys(seed, step, replica) -> (update key, wire key)`` gives a
+    step's randomness (:func:`step_keys`; a test passes ``GivenKey`` s of
+    the reference's bits).
     """
-    for name, given in (("transport", transport), ("pspecs", pspecs),
-                        ("placement", placement)):
-        if given is not None:
-            raise ValueError(f"{name}= is ported with the dist slice (ROADMAP A5)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if transport is None:
+        transport = T.make_transport(mesh=mesh, placement=placement, pspecs=pspecs)
+    if mesh is None:
+        mesh = transport.mesh
+    dp_axis = _dp_axis(mesh)
+    # the mean the reference leaves to GSPMD: every data-parallel axis above
+    # size 1 that is not the wire's (in this slice at most one)
+    mean_groups = ([] if mesh is None else
+                   [mesh.group(a) for a in transport.hint_axes(mesh)[0] if mesh.shape[a] > 1])
     qa = QArith(policy)
 
     def _loss(wc, batch):
@@ -127,8 +171,10 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         return loss.detach(), grads
 
     def gradients(state: TrainState, batch, seed) -> Gradients:
+        if dp_axis is not None:
+            batch = PT.rank_rows(batch, mesh, mesh.index(dp_axis), microbatches=grad_accum)
         # the working copy, as fresh autograd leaves sharing its storage
-        wc = compute_params(state.params, policy)
+        wc = transport.prepare(compute_params(state.params, policy))
         leaves = [w.detach().requires_grad_(True) for w in tree_leaves(wc)]
         paths = tree_paths(wc)
         wc = tree_unflatten(wc, leaves)
@@ -151,17 +197,35 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
             loss, grads = _micro_grads(wc, leaves, paths, batch)
         del wc, leaves
         grads = tree_unflatten(state.params, grads)
+        _, wire_key = keys(int(seed), int(state.step), transport.replica)
+        grads, residuals = transport.reduce(grads, state.wire_residuals, wire_key)
+        for group in mean_groups:
+            flat = tree_pop_leaves(grads)
+            for i in range(len(flat)):
+                flat[i] = wire_mean(flat[i].to(torch.float32), group, transport.stats)
+            grads = tree_unflatten(grads, flat)
+        loss = loss.to(torch.float32)
+        if dp_axis is not None:
+            loss = wire_mean(loss.reshape(1), mesh.group(dp_axis))[0]
         grad_norm = _global_norm(grads)
         float(grad_norm)    # the sync: a device fault of this phase surfaces here
-        return Gradients(grads, loss.to(torch.float32), grad_norm)
+        return Gradients(grads, loss, grad_norm,
+                         None if residuals is state.wire_residuals else residuals)
 
     def update(state: TrainState, g: Gradients, seed) -> tuple[TrainState, dict]:
-        key = StepKey(int(seed), int(state.step))
+        key, _ = keys(int(seed), int(state.step), transport.replica)
         lr = lr_schedule(state.step)
         new_params, new_opt = optimizer.update(g.grads, state.opt_state, state.params,
                                                step=state.step, key=key, lr=lr)
+        new_params = transport.finalize(new_params)
+        residuals = state.wire_residuals
+        if g.residuals is not None:
+            with torch.no_grad():
+                residuals = tree_unflatten(residuals, [
+                    write_back(r, nr) for r, nr in zip(tree_leaves(residuals),
+                                                       tree_leaves(g.residuals))])
         metrics = {"loss": g.loss, "lr": lr, "grad_norm": g.grad_norm}
-        return TrainState(state.step + 1, new_params, new_opt, None), metrics
+        return TrainState(state.step + 1, new_params, new_opt, residuals), metrics
 
     def train_step(state: TrainState, batch, seed) -> tuple[TrainState, dict]:
         return update(state, gradients(state, batch, seed), seed)

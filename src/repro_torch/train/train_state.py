@@ -14,17 +14,22 @@ class TrainState(NamedTuple):
     step: int                # Python int (the reference's i32 scalar)
     params: PyTree           # storage-format weights (master f32 if policy)
     opt_state: PyTree
-    # error-feedback residuals of a stateful gradient transport; None
-    # until the dist slice ports the transports
+    # Error-feedback residuals of a stateful gradient transport
+    # (repro_torch.dist.transport.CompressedWire): this rank's f32 row,
+    # shape (1, *param_shape), of the reference's (wire_replicas,
+    # *param_shape) buffer per parameter leaf. None under stateless
+    # transports: a None subtree contributes no leaves, so checkpoints
+    # written without residuals restore unchanged.
     wire_residuals: PyTree | None = None
 
 
 def make_train_state(params: PyTree, optimizer, *, transport=None) -> TrainState:
-    """Fresh state at step 0. Without a transport ``wire_residuals`` stays
-    None; gradient transports are ported with the dist slice."""
-    if transport is not None:
-        raise ValueError("gradient transports are ported with the dist slice (ROADMAP A5)")
-    return TrainState(0, params, optimizer.init(params), None)
+    """Fresh state at step 0. ``transport`` (a
+    :class:`repro_torch.dist.transport.GradientTransport`) initializes its
+    error-feedback residuals into the state; omit it (or pass a stateless
+    transport) and ``wire_residuals`` stays None."""
+    residuals = transport.init_residuals(params) if transport is not None else None
+    return TrainState(0, params, optimizer.init(params), residuals)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, ignore: int = -1

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["tree_leaves", "tree_paths", "tree_unflatten", "tree_map"]
+__all__ = ["tree_leaves", "tree_paths", "tree_unflatten", "tree_map", "tree_pop_leaves"]
 
 PyTree = Any
 
@@ -52,3 +52,20 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, list):
         return [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_pop_leaves(tree: PyTree) -> list:
+    """The leaves of ``tree`` in leaf order, each replaced by None in its
+    container: the caller then holds the only references, and can release
+    a leaf by dropping it from the list."""
+    leaves = tree_leaves(tree)
+
+    def clear(node):
+        for k in (list(node) if isinstance(node, dict) else range(len(node))):
+            if isinstance(node[k], (dict, list)):
+                clear(node[k])
+            else:
+                node[k] = None
+
+    clear(tree)
+    return leaves

@@ -14,7 +14,10 @@ reference's tests/test_loop.py, single process).
   discarded trajectory never reach history, rows of a cleared suspicion
   merge back in order; it requires ``ckpt_dir`` and callable batches.
 * SIGTERM with async saves checkpoints and returns ``preempted``.
-* A checkpoint that carries gradient-wire residuals is refused (A5).
+* A checkpoint that carries gradient-wire residuals, resumed by a run
+  with no gradient wire, drops them unread with the reference's log line
+  and restores the rest (the drift cases of a compressed wire are in
+  tests/test_torch_dist_ckpt.py).
 * ``python -m repro_torch.launch.train --device cpu --ckpt-dir`` resumes
   and prints the resume line.
 """
@@ -265,18 +268,27 @@ def test_sigterm_preemption_checkpoints_with_async_saves(tmp_path, monkeypatch):
 
 
 def test_checkpoint_with_wire_residuals_is_refused(tmp_path):
+    """A stateless run refuses the residuals, not the checkpoint: it drops
+    them unread, logs the reference's line and restores everything else."""
     state, step, _ = _setup()
-    C.save(tmp_path, 1, state._replace(wire_residuals=_expand(state.params)))
-    with pytest.raises(ValueError, match="A5"):
-        run_training(state, step, _batches,
-                     TrainLoopConfig(total_steps=2, ckpt_dir=str(tmp_path)), **QUIET)
+    state = state._replace(step=1)
+    C.save(tmp_path, 1, state._replace(wire_residuals=_expand(state.params, 2.0)))
+    fresh, _, _ = _setup()
+    logs = []
+    out, _ = run_training(fresh, step, _batches,
+                          TrainLoopConfig(total_steps=1, ckpt_dir=str(tmp_path)),
+                          log=logs.append)
+    assert "[loop] dropping checkpointed wire_residuals (stateless gradient transport)" in logs
+    assert "[loop] resumed from checkpoint at step 1" in logs
+    assert out.wire_residuals is None and out.step == 1
+    _assert_same_state(out, state)
 
 
-def _expand(tree):
+def _expand(tree, value=0.0):
     """A (1, *shape) buffer per leaf: one wire replica's residuals."""
     if isinstance(tree, dict):
-        return {k: _expand(v) for k, v in tree.items()}
-    return torch.zeros((1, *tree.shape), dtype=torch.float32)
+        return {k: _expand(v, value) for k, v in tree.items()}
+    return torch.full((1, *tree.shape), value, dtype=torch.float32)
 
 
 def test_launcher_resumes_on_cpu(tmp_path, capsys):

@@ -112,7 +112,7 @@ def test_runner_lists_the_reference_sections():
     ported = [name for name, mod in runner.SECTIONS if not mod.startswith("ROADMAP")]
     assert ported == ["fig2_theory", "table3_bottleneck", "table4_accuracy",
                       "fig5_tradeoff", "fig9_cancellation", "fig10_sub16",
-                      "fig11_combined", "fig12_fp16"]
+                      "fig11_combined", "fig12_fp16", "grad_wire_sweep"]
 
 
 def _run(*args):
@@ -135,7 +135,7 @@ def test_runner_fails_loudly_on_a_section_not_ported(capsys):
     assert runner.main(["--only", "appB,fsdp,serve_batching", "--device", "cpu"]) == 1
     out = capsys.readouterr()
     assert "appB_kernels is not ported yet (ROADMAP A6)" in out.err
-    assert "fsdp_memory is not ported yet (ROADMAP A5)" in out.err
+    assert "fsdp_memory is not ported yet (ROADMAP A9)" in out.err
     assert "serve_batching is not ported yet (ROADMAP A8)" in out.err
     # the sections after the first failure still ran
     assert [line.split(",")[0] for line in out.out.splitlines()] == [

@@ -28,6 +28,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -48,12 +49,16 @@ from repro_torch.convert import from_jax_params, from_jax_train_state
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qarith import QArith
 from repro_torch.data.synthetic import TokenStream, lm_batches
+from repro_torch.dist.partition import Placement, param_specs
+from repro_torch.dist.transport import make_transport
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers as TL
 from repro_torch.models import registry as R
 from repro_torch.optim import adamw, constant
 from repro_torch.train.step import make_eval_step, make_train_step
 from repro_torch.train.train_state import make_train_state
+from repro_torch.tree import tree_leaves
 
 ROOT = Path(__file__).resolve().parent.parent
 FLASH_TOL_F32 = 2e-5
@@ -219,9 +224,30 @@ def test_eval_step_and_dist_arguments():
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg.vocab, 1)[0].items()}
     m = make_eval_step(cfg, policy, attn_chunk=CHUNK)(params, batch)
     assert np.isfinite(float(m["loss"])) and 0.0 <= float(m["acc"]) <= 1.0
-    for kw in (dict(transport=object()), dict(pspecs={}), dict(placement=object())):
-        with pytest.raises(ValueError, match="dist slice"):
-            make_train_step(cfg, policy, adamw(policy), constant(1e-3), **kw)
+    # the dist arguments: a one-replica compressed wire trains, its residual
+    # rows written in the update phase (bf12: the bf16 gradients lose bits);
+    # replicated specs and the data-parallel placement are the default path;
+    # an FSDP placement raises (ROADMAP A9)
+    opt = adamw(policy, b2=0.997)
+    tr = make_transport(wire="bf12")
+    state = make_train_state(params, opt, transport=tr)
+    assert all(tuple(r.shape) == (1, *p.shape) for r, p in
+               zip(tree_leaves(state.wire_residuals), tree_leaves(params)))
+    gradients, update = make_train_step(cfg, policy, opt, constant(1e-3), transport=tr,
+                                        attn_chunk=CHUNK).phases
+    g = gradients(state, batch, 0)
+    assert all(float(r.abs().sum()) == 0 for r in tree_leaves(state.wire_residuals))
+    state, metrics = update(state, g, 0)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
+    assert any(float(r.abs().sum()) > 0 for r in tree_leaves(state.wire_residuals))
+    mesh = make_local_mesh()
+    step = make_train_step(cfg, policy, opt, constant(1e-3), attn_chunk=CHUNK,
+                           pspecs=param_specs(params, cfg, mesh), placement=Placement())
+    _, metrics = step(make_train_state(params, opt), batch, 0)
+    assert np.isfinite(float(metrics["loss"]))
+    with pytest.raises(ValueError, match="A9"):
+        make_train_step(cfg, policy, opt, constant(1e-3),
+                        placement=SimpleNamespace(fsdp_axis="fsdp", tp_axis="model"))
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +308,12 @@ def test_launcher_needs_a_card_or_the_cpu_flag():
         launch_train.build(args)
 
 
+# the flags of the dist slice's later items, and the item each names
+LATER_ITEMS = {"--fsdp": "A9", "--fsdp-parallel": "A9", "--model-parallel": "A10"}
+
+
 @pytest.mark.parametrize("flags,slice_", [
-    # ported with checkpointed training: accepted (slice_ None)
+    # ported with checkpointed training (slice_ None) and with the dist slice
     (["--ckpt-dir", "/nonexistent"], None),
     (["--spike-factor", "3"], None),
     (["--data-parallel", "2"], "dist"), (["--fsdp"], "dist"), (["--pods", "2"], "dist"),
@@ -291,10 +321,28 @@ def test_launcher_needs_a_card_or_the_cpu_flag():
     (["--process-id", "0"], "dist slice"),
 ])
 def test_launcher_refuses_flags_of_later_slices(flags, slice_):
+    """The dist slice's flags parse (a mesh that needs more processes than
+    the run has raises when the run is built); its later items' flags raise
+    naming their ROADMAP item."""
     argv = ["--reduced", "--device", "cpu", *flags]
     if slice_ is None:
         cfg = launch_train.loop_config(launch_train.parse_args(argv))
         assert (cfg.ckpt_dir, cfg.spike_factor) in (("/nonexistent", None), (None, 3.0))
         return
-    with pytest.raises(ValueError, match=slice_):
-        launch_train.parse_args(argv)
+    if flags[0] in LATER_ITEMS:
+        with pytest.raises(ValueError, match=LATER_ITEMS[flags[0]]):
+            launch_train.parse_args(argv)
+        return
+    args = launch_train.parse_args(argv)
+    assert getattr(args, flags[0][2:].replace("-", "_")) == type(
+        getattr(args, flags[0][2:].replace("-", "_")))(flags[1])
+    if args.data_parallel * args.pods > 1:
+        with pytest.raises(ValueError, match="needs 2 processes"):
+            launch_train.build(args)
+
+
+@pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "A10"),
+                                        (["--fsdp-parallel", "2"], "A9")])
+def test_launcher_refuses_the_later_dist_items(flags, item):
+    with pytest.raises(ValueError, match=item):
+        launch_train.parse_args(["--reduced", "--device", "cpu", *flags])
