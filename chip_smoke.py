@@ -217,8 +217,10 @@ Phases, each printing its lines (a failed check exits non-zero):
     standard gap; fig9 0 < early < late < 1; fig12 fp16 range probe NaN or
     > 1e3 × bf16's, bf16's finite; every fig5, fig10, fig11 and fig12 row
     finite, fig11's DLRM AUC within 0.01 of table4's fp32; a second
-    ``bf16_sr`` DLRM run bitwise equal to table4's (losses and AUC); µs
-    per step of every run and the phase's wall time;
+    ``bf16_sr`` DLRM run bitwise equal to table4's (losses and AUC); beside
+    them the runner's ``grad_wire_sweep`` and ``fsdp_memory`` (4 ranks, 2
+    data x 2 fsdp: DP / FSDP state bytes per rank >= 1.9); µs per step of
+    every run and the phase's wall time;
 14. ckpt (main path of checkpointed training; it runs last): the train
     cell cut to 2 layers (465 M parameters) through the launcher's
     ``build`` and ``train`` with ``--ckpt-every 2``, keep-N 2, under a
@@ -240,14 +242,30 @@ Phases, each printing its lines (a failed check exits non-zero):
     the wire's ms (CUDA events), residual and peak GiB; (b) 2 ranks on
     this card over gloo through ``repro_torch.launch.dist_launch``
     (``chip_smoke.py --dist-worker``), full width cut to 2 layers, batch 4
-    x 512, ``--grad-accum 2``: the fp32 and bf16 wires 4 steps each (ranks
+    x 512, ``--grad-accum 2``: the fp32 and bf16 wires 3 steps each (ranks
     bitwise equal; the fp32 step within 0.05 of a 1-process step), the
     bf16 wire preempted by a SIGTERM to rank 1 (checkpoint at step 2) and
     resumed by a fresh launch bitwise equal to the uninterrupted run
     (residual rows included), a 1-process resume zero-initializing the
     residuals; ms per
-    step, host-copy ms, wire bytes by dtype (fp32 / bf16 = 2). The paper
-    phase runs the runner's ``grad_wire_sweep`` beside its sections.
+    step, host-copy ms, wire bytes by dtype (fp32 / bf16 = 2).
+    FSDP (ROADMAP A9) rides the same launches: the ``philox`` shard entry
+    ``torch.equal`` to the whole fill's slice and to its plain version,
+    timed; then 2 ranks with ``--fsdp-parallel 2``: (a) non-fused FSDP-2
+    == non-fused DP-2 on every gathered leaf after 3 steps (``philox`` and
+    ``sr_cast`` on shards); (b) fused FSDP-2, one shard's ``fused_adamw``
+    == its plain version with the folded seed, held to the fused fp32-wire
+    DP-2 run: step 0's loss equal, losses within 0.05, each leaf's
+    compensated weights w - c after step 1 off by at most 0.05 of that
+    run's movement from init; (c) state bytes per rank FSDP / DP <= 0.53; (d)
+    SIGTERM to rank 1, a fresh launch resumes bitwise, the checkpoint in
+    one process == the gathered state; (e) a 4-rank launch beside the
+    first, ``--pods 2 --fsdp-parallel 2 --grad-wire bf16``, 2 steps: the pods' shards
+    bitwise equal, the wire's bytes by dtype as counted; ms per step,
+    gather and reduce-scatter bytes, host-copy ms, peak GiB per rank. The
+    first launch's runs share the card and the host with the 4-rank one,
+    so their step walls are not the isolated metric; ``tools/port_fsdp.py``
+    times DP-2 and FSDP-2 alone.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -257,6 +275,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -335,12 +354,32 @@ CKPT_SIGTERM_AT = 3
 DIST_FULL_ARGV = TRAIN_ARGV + ["--grad-wire", "bf16"]
 DIST_CHECK_LEAF = "layers.b0.mixer.wk.kernel"
 DIST_LAYERS = 2
-DIST_STEPS = 4             # gloo over loopback: 2-6 s per 2-rank step at this width
+DIST_STEPS = 3             # gloo over loopback: 2-6 s per 2-rank step at this width
 DIST_SIGTERM_AT = 1        # the preemption's checkpoint: step 2
 DIST_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
              "--batch", "4", "--seq", "512", "--grad-accum", "2", "--steps", str(DIST_STEPS),
              "--lr", "3e-3", "--seed", "0", "--device", "cuda", "--preempt-poll", "1"]
 DIST_TWO_RANKS = ["--data-parallel", "2", "--dist-backend", "gloo"]
+# the FSDP runs (ROADMAP A9), folded into the dist phase's launches: 2 ranks
+# sharding over an fsdp axis of 2 on this card, the same cut and batch
+FSDP_TWO_RANKS = ["--fsdp-parallel", "2", "--dist-backend", "gloo"]
+FSDP_PLAIN_STEPS = DIST_STEPS  # (a): non-fused FSDP-2 == DP-2 bitwise after these
+FSDP_PLAIN_ARGV = [a for a in DIST_ARGV if a != "--fused-update"]
+FSDP_PLAIN_ARGV[FSDP_PLAIN_ARGV.index("--steps") + 1] = str(FSDP_PLAIN_STEPS)
+# (e): 4 ranks, pods 2 x fsdp 2 with the bf16 pod wire over the FSDP inner
+FSDP_POD_STEPS = 2
+FSDP_POD_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
+                 "--batch", "8", "--seq", "512", "--grad-accum", "2",
+                 "--steps", str(FSDP_POD_STEPS), "--lr", "3e-3", "--seed", "0",
+                 "--device", "cuda", "--pods", "2", "--fsdp-parallel", "2",
+                 "--grad-wire", "bf16", "--dist-backend", "gloo"]
+FSDP_BYTES_BAR = 0.53      # (c): FSDP / DP state bytes per rank at most this
+# (b): per leaf after step 1, |fused FSDP-2 - fused DP-2| / |fused DP-2 -
+# init| of the Kahan-compensated weights w - c at most this. Both runs take
+# that step from the same weights and gradients and differ only in their
+# SR bits, which w - c sees only through c's bf16 rounding (2^-9 of the
+# step); an update that skips, doubles or misroutes a shard reaches 0.7
+FSDP_FUSED_DRIFT_BAR = 0.05
 
 
 def kernel_module(name: str):
@@ -3340,6 +3379,13 @@ def phase_paper(card: str) -> dict:
           f"{f9['late']:.4f}; fig12 probe bf16 {f12['probe_bf16']:.4e}, fp16 "
           f"{f12['probe_fp16']:.4e}; a second bf16_sr DLRM run is bitwise the first "
           f"({us:.1f} us per step)")
+    fm = res["fsdp_memory"]
+    check(fm["ratio"] >= 1.9, f"[paper] fsdp_memory: DP / FSDP state bytes {fm['ratio']:.4f}, "
+                              f"needs >= 1.9")
+    print(f"[paper] fsdp_memory on {card} (4 ranks over gloo, 2 data x 2 fsdp): state bytes "
+          f"per rank DP {fm['dp']['bytes']}, FSDP {fm['fsdp']['bytes']} ({fm['ratio']:.4f}x); "
+          f"{fm['dp']['us']:.1f} and {fm['fsdp']['us']:.1f} us per step under the sections' "
+          f"contention")
     sweep = res["grad_wire_sweep"]
     check(all(math.isfinite(v["final_loss"]) for v in sweep.values()),
           f"[paper] grad_wire_sweep losses {sweep}")
@@ -3532,6 +3578,15 @@ def digest(t) -> str:
     return f"{t.dtype}:{tuple(t.shape)}:{s1 & (2**64 - 1):x}:{s2 & (2**64 - 1):x}"
 
 
+_KEPT = {}                 # a dist worker's compensated weights, kept across its runs
+
+
+def _compensated(w, c):
+    """A leaf's Kahan-compensated value: the kernels add ``-u - c`` to w and
+    keep in c what the rounding added too much (``bf16_update.cuh``)."""
+    return w.float() - c.float()
+
+
 def dist_worker(spec_path: str) -> None:
     """One rank of the dist phase's runs (``python3 chip_smoke.py
     --dist-worker SPEC``, under ``repro_torch.launch.dist_launch`` or
@@ -3539,35 +3594,55 @@ def dist_worker(spec_path: str) -> None:
     ``train`` at full width cut to ``DIST_LAYERS``, with the spec's SIGTERM
     (rank 1 at a step) and the params after step 1 saved (rank 0); writes
     ``<out>.rank<r>.json``: the losses, every state leaf's digest, the
-    step walls, what the wire moved and the kernel launches."""
+    step walls, what the wire moved and the kernel launches. A data-parallel
+    run with ``keep`` leaves its init compensated weights and those after
+    step 1 (rank 0, on the host) to a later FSDP run of the launch with
+    ``against``, which writes each leaf's drift from them after its own
+    step 1 (:data:`FSDP_FUSED_DRIFT_BAR`)."""
     sys.path.insert(0, str(ROOT / "src"))
     import signal
     import torch
+    from repro_torch.dist import fsdp as F
     from repro_torch.dist import multihost as MH
     from repro_torch.launch import train as LT
-    from repro_torch.models import registry as R
     from repro_torch.train import checkpoint as CK
     spec = json.loads(Path(spec_path).read_text())
     card = torch.cuda.is_available()      # (False only in a CPU rehearsal of the phase)
     try:
         for job in spec["runs"]:
             args = LT.parse_args(job["argv"])
-            run = LT.build(args, cfg=_dist_cfg(args))
+            run = LT.build(args, cfg=_dist_cfg(args, job.get("layers", DIST_LAYERS)))
             rank = MH.process_index()
             counts = {k: kernel_module(k) for k in ("sr_cast", "philox", "fused_adamw")}
             for m in counts.values():
                 m.LAUNCHES = 0
-            walls = []
+            walls, paused, drift = [], [], {}
 
-            def hook(step, job=job, run=run, rank=rank, walls=walls):
+            def hook(step, job=job, run=run, rank=rank, walls=walls, paused=paused,
+                     drift=drift):
                 if card:
                     torch.cuda.synchronize()
-                walls.append(time.perf_counter())
+                t = time.perf_counter()
+                walls.append(t)
                 if rank == 1 and step == job.get("sigterm_at"):
                     os.kill(os.getpid(), signal.SIGTERM)
-                if rank == 0 and step == 1 and job.get("params_after_1"):
-                    torch.save(CK.flatten(run.state.params), job["params_after_1"])
+                if step == 1:
+                    if rank == 0 and job.get("params_after_1"):
+                        torch.save(CK.flatten(run.state.params), job["params_after_1"])
+                    if rank == 0 and job.get("keep"):
+                        _KEPT[job["keep"]] = (init, [_compensated(w, c).cpu() for w, c in zip(
+                            CK.flatten(run.state.params),
+                            CK.flatten(run.state.opt_state.kahan_c))])
+                    if job.get("against"):
+                        drift["after_1"] = _fsdp_drift(run, run.state,
+                                                       _KEPT.pop(job["against"], None))
+                    if card:
+                        torch.cuda.synchronize()
+                # the checks' own work is left out of the step walls
+                paused.append(time.perf_counter() - t)
 
+            init = ([t.detach().to("cpu", copy=True) for t in CK.flatten(run.state.params)]
+                    if job.get("keep") and rank == 0 else None)
             if card:
                 torch.cuda.reset_peak_memory_stats()
             state, info = LT.train(args, run, fault_hook=hook)
@@ -3577,6 +3652,34 @@ def dist_worker(spec_path: str) -> None:
             stats = run.transport.stats
             n_res = len(CK.flatten(state.wire_residuals))
             leaves = CK.flatten(state)[1:]
+            launched = {k: m.LAUNCHES for k, m in counts.items()}
+            tr = run.transport
+            fsdp = {"state_bytes": F.per_device_bytes((state.params, state.opt_state))}
+            if tr.scatter_axis is not None:
+                specs = F.flat_specs(F.train_state_specs(state, tr.pspecs, tr))[1:]
+                params = CK.flatten(state.params)
+                fsdp.update(coords=run.mesh.coords(rank),
+                            gather_bytes=stats.gather_bytes_by_dtype,
+                            scatter_bytes=stats.scatter_bytes,
+                            numel_local=sum(t.numel() for t in params),
+                            numel_full=sum(math.prod(F.full_shape(t.shape, sp, run.mesh))
+                                           for t, sp in zip(params, F.flat_specs(tr.pspecs))))
+                if job.get("gather"):
+                    # every leaf whole on process 0 (collective), digested on
+                    # the leaf's device
+                    digests = []
+                    for t, sp in zip(leaves, specs):
+                        whole = F.gather_full(t, sp, run.mesh)
+                        if whole is not None:
+                            digests.append(digest(whole.to(t.device)))
+                        del whole
+                    fsdp["full_digests"] = digests if rank == 0 else None
+                if job.get("plain_check") and rank == 0:
+                    fsdp["plain_check"] = fsdp_shard_check(run, state, args)
+                fsdp.update(drift)
+            elif job.get("gather"):
+                fsdp["full_digests"] = [digest(t) for t in leaves]
+            del init
             out = {"rank": rank, "processes": MH.process_count(), "step": state.step,
                    "preempted": info["preempted"],
                    "losses": [row["loss"] for row in info["history"]],
@@ -3585,11 +3688,12 @@ def dist_worker(spec_path: str) -> None:
                    "residual_digests": [digest(t) for t in leaves[len(leaves) - n_res:]],
                    "residual_abs_max": max((float(t.abs().max()) for t in
                                             leaves[len(leaves) - n_res:]), default=0.0),
-                   "step_s": [b - a for a, b in zip(walls, walls[1:])],
+                   "step_s": [b - a - p for a, b, p in zip(walls, walls[1:], paused)],
                    "wire_bytes": stats.bytes_by_dtype, "host_copy_s": stats.host_copy_s,
                    "wire": run.transport.name,
                    "replicas": run.transport.wire_replicas,
-                   "launches": {k: m.LAUNCHES for k, m in counts.items()},
+                   "launches": launched, "fsdp": fsdp,
+                   "n_params": len(CK.flatten(state.params)),
                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if card else 0.0}
             Path(f"{job['out']}.rank{rank}.json").write_text(json.dumps(out))
             del run, state, leaves
@@ -3599,34 +3703,88 @@ def dist_worker(spec_path: str) -> None:
         MH.shutdown()
 
 
-def _dist_cfg(args):
-    """The dist runs' model: full-width qwen2.5-3b cut to ``DIST_LAYERS``
-    (None, the launcher's own, for ``--reduced``: a CPU rehearsal)."""
+def _fsdp_drift(run, state, kept) -> list | None:
+    """Per parameter leaf (collective; the list on rank 0, None elsewhere):
+    ||this run's compensated weights - the kept run's|| / ||the kept run's
+    - their init||, this run's gathered whole on rank 0."""
+    import torch
+    from repro_torch.dist import fsdp as F
+    from repro_torch.dist import multihost as MH
+    from repro_torch.train import checkpoint as CK
+    drift = []
+    specs = F.flat_specs(run.transport.pspecs)
+    for i, (w, c, sp) in enumerate(zip(CK.flatten(state.params),
+                                       CK.flatten(state.opt_state.kahan_c), specs)):
+        w, c = F.gather_full(w, sp, run.mesh), F.gather_full(c, sp, run.mesh)
+        if not MH.is_primary():
+            continue
+        mine = _compensated(w, c).cpu()
+        init, final = kept[0][i].float(), kept[1][i]
+        moved = float((final - init).norm())
+        off = float((mine - final).norm())
+        drift.append(off / moved if moved else (0.0 if off == 0 else math.inf))
+    return drift if MH.is_primary() else None
+
+
+def fsdp_shard_check(run, state, args) -> dict:
+    """One shard's shard-local fused AdamW on the card against its plain
+    version with the same folded seed: the check leaf's shard of this rank
+    (w, m, v, c as the run left them; a seeded gradient), its seed
+    ``_mix(leaf seed, shard index)`` as ``optim/fused.py`` folds it."""
+    import torch
+    from repro_torch.kernels.fused_adamw import fused_adamw, fused_adamw_ref
+    from repro_torch.optim.base import StepKey, _mix
+    from repro_torch.tree import tree_leaves, tree_paths
+    i = tree_paths(state.params).index(DIST_CHECK_LEAF)
+    spec = tree_leaves(run.transport.pspecs)[i]
+    idx = 0
+    for ax in spec.axes:
+        idx = idx * run.mesh.shape[ax] + run.mesh.index(ax)
+    seed = _mix(StepKey(args.seed, state.step).leaf(i).seed, idx)
+    w = tree_leaves(state.params)[i]
+    m, v, c = (tree_leaves(t)[i] for t in (state.opt_state.m, state.opt_state.v,
+                                            state.opt_state.kahan_c))
+    g = (torch.randn(w.shape, generator=torch.Generator(device=w.device).manual_seed(1),
+                     device=w.device) * 1e-2).to(torch.bfloat16)
+    card = [t.clone() for t in (w, m, v, c)]
+    fused_adamw(card[0], card[1], card[2], g, c=card[3], seed=seed, stochastic=True,
+                **HP_ADAMW)
+    plain = fused_adamw_ref(*(t.cpu() for t in (w, m, v, g)), c=c.cpu(), seed=seed,
+                            stochastic=True, **HP_ADAMW)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(card, plain))
+    return {"leaf": DIST_CHECK_LEAF, "shape": list(w.shape), "spec": list(spec),
+            "index": idx, "equal": equal}
+
+
+def _dist_cfg(args, layers: int | None = DIST_LAYERS):
+    """The dist runs' model: full-width qwen2.5-3b cut to ``layers`` (None:
+    its whole depth, the launcher's own; also for ``--reduced``, a CPU
+    rehearsal)."""
     from repro_torch.models import registry as R
-    if args.reduced:
+    if args.reduced or layers is None:
         return None
-    return dataclasses.replace(R.get_config(args.arch), n_layers=DIST_LAYERS)
+    return dataclasses.replace(R.get_config(args.arch), n_layers=layers)
 
 
-def _dist_start(spec: dict, root: Path, tag: str) -> tuple:
-    """Start the spec's runs on 2 ranks (gloo on this card) through the
+def _dist_start(spec: dict, root: Path, tag: str, n: int = 2) -> tuple:
+    """Start the spec's runs on n ranks (gloo on this card) through the
     port's launcher; :func:`_dist_wait` ends it."""
     spec_path = root / f"{tag}.json"
     spec_path.write_text(json.dumps(spec))
     log_dir = root / f"{tag}-logs"
-    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", "2", "--timeout",
+    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
            "400", "--log-dir", str(log_dir), "--", sys.executable, str(ROOT / "chip_smoke.py"),
            "--dist-worker", str(spec_path)]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
                             env=env, cwd=ROOT)
-    return proc, time.perf_counter(), tag, log_dir
+    return proc, time.perf_counter(), tag, log_dir, n
 
 
 def _dist_wait(launch: tuple) -> float:
     """The launch's wall seconds; fails with the ranks' logs' tails if a
-    rank failed (the launcher kills the other), and kills it at 450 s."""
-    proc, t0, tag, log_dir = launch
+    rank failed (the launcher kills the others), and kills it at 450 s."""
+    proc, t0, tag, log_dir, n = launch
     try:
         _, err = proc.communicate(timeout=450)
     finally:
@@ -3634,7 +3792,7 @@ def _dist_wait(launch: tuple) -> float:
             proc.kill()
             proc.wait()
     check(proc.returncode == 0, f"[dist] {tag}: exit {proc.returncode}\n" + "\n".join(
-        (log_dir / f"rank{i}.log").read_text()[-3000:] for i in range(2)) + err[-3000:])
+        (log_dir / f"rank{i}.log").read_text()[-3000:] for i in range(n)) + err[-3000:])
     return time.perf_counter() - t0
 
 
@@ -3662,7 +3820,7 @@ def phase_dist(card: str, train_ms: float, train_losses: list | None) -> dict:
     (b) 2 ranks on this card over gloo, launched by
     ``repro_torch.launch.dist_launch``, full width cut to ``DIST_LAYERS``,
     ``DIST_ARGV`` (batch 4 x 512, ``--grad-accum 2`` so the bf16 wire's
-    residuals are not zero): ``--grad-wire fp32`` and ``bf16``, 4 steps
+    residuals are not zero): ``--grad-wire fp32`` and ``bf16``, 3 steps
     each: both ranks' parameters, optimizer state and losses bitwise equal;
     the fp32 wire's parameters after one step within 0.05 (the reference's
     bar) of a 1-process step on the whole batch; the bf16 wire with rank 1
@@ -3671,8 +3829,9 @@ def phase_dist(card: str, train_ms: float, train_losses: list | None) -> dict:
     uninterrupted run on every leaf, residual rows included; a 1-process
     resume of that checkpoint logs the replica-count zero-init and trains
     on. ms per step, the host-copy ms apart, the wire's bytes per step by
-    dtype as the transport counts them. Three launches: each costs its
-    processes' start.
+    dtype as the transport counts them. The FSDP runs (ROADMAP A9,
+    :func:`_fsdp_checks`) ride the same two launches, and a launch of 4
+    ranks beside the first: each launch costs its processes' start.
     """
     t_phase = time.perf_counter()
     # (b) first: its ranks need the card's memory, which (a) fills
@@ -3717,7 +3876,7 @@ def _dist_one_rank(card: str, train_ms: float, train_losses: list | None) -> dic
         events, held = [], {}
         real_reduce = tr.reduce
 
-        def timed_reduce(grads, residuals, key):
+        def timed_reduce(grads, residuals, key, **kw):
             if not held:      # the check leaf's inputs at the first step
                 held["g"] = tree_leaves(grads)[leaf].detach().cpu()
                 held["r"] = tree_leaves(residuals)[leaf][0].detach().cpu()
@@ -3725,7 +3884,7 @@ def _dist_one_rank(card: str, train_ms: float, train_losses: list | None) -> dic
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = real_reduce(grads, residuals, key)
+            out = real_reduce(grads, residuals, key, **kw)
             end.record()
             events.append((start, end))
             if "q" not in held:
@@ -3806,29 +3965,55 @@ def _dist_two_ranks(card: str) -> dict:
     from repro_torch.train import checkpoint as CK
 
     launches = {"sr_cast": 0, "philox": 0, "fused_adamw": 0}
+    fsdp_philox_check(card)
     root = Path(tempfile.mkdtemp(prefix="repro-dist-"))
     try:
         ck = root / "ck"
 
+        fck = root / "fsdp-ck"
+
         def job(name, wire, extra=(), **kw):
             return dict(argv=DIST_ARGV + DIST_TWO_RANKS + ["--grad-wire", wire, *extra],
                         out=str(root / name), **kw)
-        # one launch for the uninterrupted runs and the preempted one (each
-        # launch costs its processes' start); the preemption checkpoints at
-        # step 2, also the cadence's, and only the resume reads it
-        wall_1 = _dist_wait(_dist_start({"runs": [
-            job("fp32", "fp32", params_after_1=str(root / "fp32-step1.pt")),
+
+        def fjob(name, argv, **kw):
+            return dict(argv=argv, out=str(root / name), **kw)
+        # one launch for the uninterrupted runs and the preempted ones (each
+        # launch costs its processes' start); a preemption checkpoints at
+        # step 2, also the cadence's, and only the resume reads it. The fused
+        # fp32 wire's run keeps its compensated weights for FSDP check (b)
+        launch_1 = _dist_start({"runs": [
+            job("fp32", "fp32", params_after_1=str(root / "fp32-step1.pt"), keep="fp32"),
             job("bf16", "bf16"),
             job("bf16-stop", "bf16", ["--ckpt-dir", str(ck), "--ckpt-every",
                                       str(DIST_SIGTERM_AT + 1)],
-                sigterm_at=DIST_SIGTERM_AT)]}, root, "uninterrupted-and-preempted"))
+                sigterm_at=DIST_SIGTERM_AT),
+            # FSDP (A9): (a) non-fused DP-2 and FSDP-2 from the same start,
+            # every leaf gathered; (b) fused FSDP-2 with a shard's plain check,
+            # held to the fused fp32 DP-2 run; (d) fused FSDP-2 preempted at
+            # the DP run's step
+            fjob("dp-plain", FSDP_PLAIN_ARGV + DIST_TWO_RANKS, gather=True),
+            fjob("fsdp-plain", FSDP_PLAIN_ARGV + FSDP_TWO_RANKS, gather=True),
+            fjob("fsdp", DIST_ARGV + FSDP_TWO_RANKS, plain_check=True, against="fp32"),
+            fjob("fsdp-stop", DIST_ARGV + FSDP_TWO_RANKS + [
+                "--ckpt-dir", str(fck), "--ckpt-every", str(DIST_SIGTERM_AT + 1)],
+                sigterm_at=DIST_SIGTERM_AT, gather=True)]}, root,
+            "uninterrupted-and-preempted")
+        # (e) of FSDP beside it: 4 ranks, pods 2 x fsdp 2 (the card holds
+        # both launches' ranks: ~29 + 38 GiB)
+        launch_4 = _dist_start({"runs": [fjob("fsdp-pods", FSDP_POD_ARGV)]}, root, "pods", n=4)
+        wall_1 = _dist_wait(launch_1)
+        wall_4 = _dist_wait(launch_4)
         kept = CK.latest_step(ck)
         man = CK.manifest(ck, step=kept)
+        fkept = CK.latest_step(fck)
         # the resume launch reads the checkpoint; this process reads it too
         # meanwhile (a 1-process resume, saving nothing) and takes the
         # 1-process step the fp32 wire is held to
-        resume = _dist_start({"runs": [job("bf16-resume", "bf16", ["--ckpt-dir", str(ck)])]},
-                             root, "resume")
+        resume = _dist_start({"runs": [
+            job("bf16-resume", "bf16", ["--ckpt-dir", str(ck)]),
+            fjob("fsdp-resume", DIST_ARGV + FSDP_TWO_RANKS + ["--ckpt-dir", str(fck)])]},
+            root, "resume")
         t0 = time.perf_counter()
         args = LT.parse_args(DIST_ARGV + ["--grad-wire", "bf16", "--ckpt-dir", str(ck),
                                           "--steps", str(kept + 1)])
@@ -3851,9 +4036,24 @@ def _dist_two_ranks(card: str) -> dict:
         d = max(float((a.float() - b.float().to(a.device)).abs().max())
                 for a, b in zip(CK.flatten(state.params), two))
         del single, state, two
+        # the FSDP-2 checkpoint in one process (no mesh): its full leaves
+        args = LT.parse_args(DIST_ARGV)
+        one = LT.build(args, cfg=_dist_cfg(args))
+        restored, fat = CK.restore(fck, one.state)
+        one_fsdp = [digest(t) for t in CK.flatten(restored)[1:]]
+        del one, restored
+        torch.cuda.empty_cache()
         wall_2 = _dist_wait(resume)
+        fres = {name: [_dist_result(root, name, r) for r in range(2)] for name in
+                ("dp-plain", "fsdp-plain", "fsdp", "fsdp-stop", "fsdp-resume")}
+        fres["fsdp-pods"] = [_dist_result(root, "fsdp-pods", r) for r in range(4)]
+        for pair in fres.values():
+            for r in pair:
+                for k in launches:
+                    launches[k] += r["launches"][k]
         res = {name: [_dist_result(root, name, r) for r in range(2)]
                for name in ("fp32", "bf16", "bf16-stop", "bf16-resume")}
+        _fsdp_checks(card, fres, res["fp32"], fkept, fat, one_fsdp)
         for name, (a, b) in res.items():
             check(a["processes"] == b["processes"] == 2 and a["digests"] == b["digests"]
                   and a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"],
@@ -3913,11 +4113,161 @@ def _dist_two_ranks(card: str) -> dict:
               f"launch resumed to step {DIST_STEPS} equal to the uninterrupted run on every "
               f"leaf and residual row; a 1-process resume zero-initialized the residuals "
               f"(2 -> 1 replicas) and trained on; wire bytes fp32 / bf16 = {ratio:.3f}; "
-              f"launch walls {wall_1:.1f}, {wall_2:.1f} s (the 1-process resume, {wall_3:.1f} s, "
-              f"and step ran here during the second)")
+              f"launch walls {wall_1:.1f}, {wall_2:.1f} s and the 4-rank FSDP pod launch's "
+              f"{wall_4:.1f} s beside the first (the 1-process resume, {wall_3:.1f} s, the "
+              f"step and the FSDP restore ran here during the second); the step walls of "
+              f"the first launch's runs (fp32, bf16, bf16-stop and FSDP's dp-plain, "
+              f"fsdp-plain, fsdp, fsdp-stop) are taken with the 4-rank launch sharing the "
+              f"card and the host cores for part of them, so they compare neither with "
+              f"each other nor with a run alone (tools/port_fsdp.py times DP-2 and FSDP-2 "
+              f"alone)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def fsdp_philox_check(card: str) -> None:
+    """The Philox fill's shard entry (what a non-fused SR write on an FSDP
+    shard draws): on the card ``torch.equal`` to the whole-leaf fill's
+    slice at the embedding's and an MLP leaf's shard, and to the plain
+    version at the attention key leaf's shard and at odd shapes whose runs
+    start mid-block; its time beside the whole-leaf fill and a copy of its
+    slice (the other way to get the same words), and its bytes bound."""
+    import torch
+    from repro_torch.kernels.philox import philox_bits
+    PH = kernel_module("philox")
+    before = PH.LAUNCHES
+    seed = 0x5EED_F5D9
+    cases = [((151936, 2048), 0, 75968, 75968), ((2, 2048, 11008), 2, 5504, 5504),
+             ((2, 2048, 256), 1, 1024, 1024), ((3, 10, 7), 1, 5, 5), ((5, 9), 1, 3, 3)]
+    for full_shape, dim, start, ext in cases:
+        shape = list(full_shape)
+        shape[dim] = ext
+        got = philox_bits(seed, shape, "cuda", full_shape=full_shape, dim=dim, start=start)
+        if math.prod(full_shape) > 2**22:
+            want = philox_bits(seed, full_shape, "cuda").narrow(dim, start, ext)
+            check(torch.equal(got, want), f"[fsdp] philox shard {shape} of {full_shape} "
+                                          f"!= the whole fill's slice")
+        if math.prod(shape) <= 2**20:
+            plain = philox_bits(seed, shape, "cpu", full_shape=full_shape, dim=dim,
+                                start=start)
+            check(torch.equal(got.cpu(), plain), f"[fsdp] philox shard {shape} of "
+                                                 f"{full_shape} != its plain version")
+        del got
+    full_shape, dim, start, ext = cases[0]
+    shape = (ext, full_shape[1])
+    shard_ms = event_ms(lambda: philox_bits(seed, shape, "cuda", full_shape=full_shape,
+                                            dim=dim, start=start))
+    whole_ms = event_ms(lambda: philox_bits(seed, full_shape, "cuda").narrow(
+        dim, start, ext).contiguous())
+    bound_ms = math.prod(shape) * 4 / HBM_BYTES_PER_S * 1e3
+    PH.LAUNCHES = before                  # checks, not the main path
+    torch.cuda.empty_cache()
+    print(f"[fsdp] philox shard entry on {card}: torch.equal to the whole fill's slice and "
+          f"to the plain version on {len(cases)} shards; embedding shard {shape} of "
+          f"{full_shape}: {shard_ms:.4f} ms (bound {bound_ms:.4f} ms, 4 B written per word) "
+          f"against {whole_ms:.4f} ms for the whole leaf's fill and a copy of its slice")
+
+
+def _fsdp_checks(card: str, fres: dict, dp_fused: list, fkept: int, fat: int,
+                 one_fsdp: list) -> None:
+    """The FSDP runs' checks (ROADMAP A9) and their numbers: (a) non-fused
+    FSDP-2 == DP-2 on every gathered leaf, ``philox`` (the shard entry) and
+    ``sr_cast`` on shards; (b) a shard's fused AdamW == its plain version
+    with the folded seed, and the fused FSDP-2 run held to the fused fp32
+    DP-2 run ``dp_fused``: step 0's loss equal, every loss within 0.05,
+    every leaf's compensated weights after step 1 within
+    :data:`FSDP_FUSED_DRIFT_BAR` of the DP run's movement; (c) the state
+    bytes per rank; (d) SIGTERM to rank 1 and a fresh launch resume
+    bitwise, the checkpoint equal in one
+    process to the gathered state; (e) the pod replicas' shards equal and
+    the wire's bytes by dtype. Prints ms per step, the gather and
+    reduce-scatter bytes, host-copy ms and peak GiB per rank."""
+    plain, dp = fres["fsdp-plain"], fres["dp-plain"]
+    n_leaves = len(plain[0]["digests"])
+    # (a)
+    check(plain[0]["fsdp"]["full_digests"] == dp[0]["fsdp"]["full_digests"]
+          and plain[0]["losses"] == dp[0]["losses"] == plain[1]["losses"],
+          f"[fsdp] (a) non-fused FSDP-2 != DP-2 after {FSDP_PLAIN_STEPS} steps "
+          f"({sum(a != b for a, b in zip(plain[0]['fsdp']['full_digests'], dp[0]['fsdp']['full_digests']))}"
+          f" leaves differ; losses {plain[0]['losses']} vs {dp[0]['losses']})")
+    for r in plain:
+        got, want = r["launches"], r["n_params"] * FSDP_PLAIN_STEPS
+        check(got["philox"] == got["sr_cast"] == want and got["fused_adamw"] == 0,
+              f"[fsdp] (a) rank {r['rank']}: launches {got}, expected {want} of philox and "
+              f"sr_cast")
+    # (b)
+    fused = fres["fsdp"]
+    pc = fused[0]["fsdp"]["plain_check"]
+    check(pc["equal"], f"[fsdp] (b) {pc}: the card's fused_adamw != its plain version")
+    check(all(r["launches"]["fused_adamw"] == r["n_params"] * DIST_STEPS for r in fused),
+          f"[fsdp] (b) fused_adamw launches {[r['launches'] for r in fused]}")
+    fl, dl = fused[0]["losses"], dp_fused[0]["losses"]
+    loss_gap = max(abs(a - b) for a, b in zip(fl, dl))
+    check(len(fl) == len(dl) == DIST_STEPS and fl[0] == dl[0] and loss_gap <= 0.05,
+          f"[fsdp] (b) fused FSDP-2 losses {fl} vs the fused fp32 DP-2 run's {dl}")
+    drift = fused[0]["fsdp"]["after_1"]
+    worst = max(range(len(drift)), key=drift.__getitem__)
+    check(len(drift) == fused[0]["n_params"] and drift[worst] <= FSDP_FUSED_DRIFT_BAR,
+          f"[fsdp] (b) leaf {worst}: fused FSDP-2's compensated weights after step 1 are "
+          f"off by {drift[worst]:.4f} of the fused DP-2 run's movement from init (bar "
+          f"{FSDP_FUSED_DRIFT_BAR}); all {[round(x, 4) for x in drift]}")
+    # (c)
+    ratio = plain[0]["fsdp"]["state_bytes"] / dp[0]["fsdp"]["state_bytes"]
+    check(ratio <= FSDP_BYTES_BAR, f"[fsdp] (c) FSDP / DP state bytes {ratio:.4f}")
+    # (d)
+    stop, resume = fres["fsdp-stop"], fres["fsdp-resume"]
+    check(all(r["preempted"] and r["step"] == DIST_SIGTERM_AT + 1 for r in stop)
+          and fkept == fat == DIST_SIGTERM_AT + 1,
+          f"[fsdp] (d) preempted {[r['preempted'] for r in stop]} at "
+          f"{[r['step'] for r in stop]}, LATEST {fkept}")
+    for r in range(2):
+        check(resume[r]["digests"] == fused[r]["digests"]
+              and stop[r]["losses"] + resume[r]["losses"] == fused[r]["losses"],
+              f"[fsdp] (d) rank {r}: preempted + resumed != uninterrupted")
+    check(one_fsdp == stop[0]["fsdp"]["full_digests"],
+          "[fsdp] (d) the checkpoint in one process != the gathered FSDP-2 state")
+    # (e)
+    pods = fres["fsdp-pods"]
+    by = {(r["fsdp"]["coords"]["pod"], r["fsdp"]["coords"]["fsdp"]): r for r in pods}
+    for f in range(2):
+        a, b = by[(0, f)], by[(1, f)]
+        check(a["digests"] == b["digests"] and a["residual_digests"] != b["residual_digests"],
+              f"[fsdp] (e) fsdp shard {f}: the pods' shards differ, or their residual rows "
+              f"agree")
+    for r in pods:
+        steps = len(r["losses"])
+        want = {"float32": 4 * r["fsdp"]["numel_full"] * steps,
+                "bfloat16": 2 * r["fsdp"]["numel_local"] * steps}
+        check(r["wire_bytes"] == want, f"[fsdp] (e) rank {r['rank']}: wire bytes "
+                                       f"{r['wire_bytes']} != {want}")
+    for name, runs in fres.items():
+        a = runs[0]
+        steps = max(len(a["losses"]), 1)
+        steady = a["step_s"][1:] or a["step_s"]
+        per = lambda d: {k: v // steps for k, v in d.items()}  # noqa: E731
+        print(f"[fsdp] {name} on {card}: {len(runs)} ranks over gloo on one card, "
+              f"{a['wire']} x{a['replicas']}, {steps} steps, losses "
+              f"{[round(x, 4) for x in a['losses']]}; step walls "
+              f"{[round(1e3 * x, 1) for x in a['step_s']]} ms (steady "
+              f"{1e3 * sum(steady) / len(steady):.1f}); gather "
+              f"{per(a['fsdp'].get('gather_bytes', {}))} B/step, reduce-scatter "
+              f"{a['fsdp'].get('scatter_bytes', 0) // steps} B/step, wire {per(a['wire_bytes'])}"
+              f" B/step per rank; host copies {1e3 * a['host_copy_s'] / steps:.1f} ms/step; "
+              f"state {a['fsdp'].get('state_bytes', 0) / 1e9:.3f} GB; peak "
+              f"{max(r['peak_gib'] for r in runs):.2f} GiB per rank; launches {a['launches']}")
+    print(f"[fsdp] on {card}: (a) non-fused FSDP-2 == DP-2 on all {n_leaves} gathered leaves "
+          f"after {FSDP_PLAIN_STEPS} steps, philox and sr_cast on shards; (b) {pc['leaf']} "
+          f"shard {pc['index']} {pc['shape']}: fused_adamw == plain with the folded seed; "
+          f"fused FSDP-2 vs the fused fp32 DP-2 run: step 0's loss equal, losses within "
+          f"{loss_gap:.2e} (bar 0.05), compensated weights after step 1 off by at most "
+          f"{drift[worst]:.4f} of their movement from init (leaf {worst}; median "
+          f"{sorted(drift)[len(drift) // 2]:.4f}; bar {FSDP_FUSED_DRIFT_BAR}); (c) state bytes "
+          f"FSDP / DP = {ratio:.4f} "
+          f"({plain[0]['fsdp']['state_bytes']} / {dp[0]['fsdp']['state_bytes']}; bar "
+          f"{FSDP_BYTES_BAR}); (d) SIGTERM to rank 1 at step {DIST_SIGTERM_AT}: a fresh launch "
+          f"resumed bitwise, the checkpoint in one process == the gathered state; (e) pods 2 x "
+          f"fsdp 2: the pods' shards bitwise equal, wire bytes by dtype as counted")
 
 
 def _leaves(tree):

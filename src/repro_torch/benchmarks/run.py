@@ -35,7 +35,7 @@ SECTIONS = [
     ("fig12_fp16", "bench_fp16"),
     ("appB_kernels", "ROADMAP A6"),
     ("roofline", "ROADMAP A6"),
-    ("fsdp_memory", "ROADMAP A9"),
+    ("fsdp_memory", "bench_fsdp"),       # 2 data x 2 fsdp on 4 ranks
     ("serve_batching", "ROADMAP A8"),
     ("grad_wire", "ROADMAP A10"),       # 4 data x 2 model meshes
     ("grad_wire_sweep", "bench_grad_wire_sweep"),

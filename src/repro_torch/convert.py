@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist.fsdp import shard_state
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.sgd import SGDState
 from repro_torch.train.train_state import TrainState
@@ -137,19 +138,29 @@ def from_jax_dlrm_params(tree: Any, *, device=None) -> dict:
             "top": mlp(tree["top"])}
 
 
-def from_jax_train_state(state: Any, *, device=None, replica: int = 0) -> TrainState:
+def from_jax_train_state(state: Any, *, device=None, replica: int = 0, specs=None,
+                         mesh=None) -> TrainState:
     """The reference's ``TrainState`` with numpy leaves (passed through
     ``jax.tree_util.tree_map(np.asarray, ...)``) → the port's
     ``TrainState`` on ``device``: params, the ``AdamWState`` (m, v, the
     0-dim c₁/c₂) or ``SGDState`` (momentum), and the Kahan buffers, each
     dtype kept. The gradient wire's residuals (one ``(n, *shape)`` stack
     per parameter leaf) become wire replica ``replica``'s ``(1, *shape)``
-    rows; without a stateful transport ``wire_residuals`` is None."""
+    rows; without a stateful transport ``wire_residuals`` is None.
+
+    ``specs`` (a spec tree for the state,
+    :func:`repro_torch.dist.fsdp.train_state_specs`, with ``mesh``) makes
+    it this rank's state: every full leaf becomes this rank's part of it
+    (:func:`repro_torch.dist.fsdp.shard_state`) — its FSDP shards and, from
+    each residual stack, its row (the wire axis picks it; ``replica`` is
+    then unused)."""
     dev = resolve_device(device)
 
     def rows(t):
         if t is None:
             return None
+        if specs is not None:
+            return _convert(_map(np.asarray, t), _LM, "", dev)
         return _convert(_map(lambda a: np.asarray(a)[replica:replica + 1], t), _LM, "", dev)
 
     def tree(t):
@@ -163,8 +174,11 @@ def from_jax_train_state(state: Any, *, device=None, replica: int = 0) -> TrainS
         opt = SGDState(tree(opt.momentum), tree(opt.kahan_c))
     else:
         raise TypeError(f"unknown optimizer state {type(opt).__name__}")
-    return TrainState(int(np.asarray(state.step)), tree(state.params), opt,
-                      rows(getattr(state, "wire_residuals", None)))
+    out = TrainState(int(np.asarray(state.step)), tree(state.params), opt,
+                     rows(getattr(state, "wire_residuals", None)))
+    if specs is not None:
+        out = shard_state(out, specs, mesh)
+    return out
 
 
 def _map(fn, tree):

@@ -1,4 +1,4 @@
-"""Distributed training on ``torch.distributed`` (port of ``repro.dist``,
-its data-parallel layer): the process lifecycle (``multihost``), mesh
-axes and the rows of a rank (``partition``), and the gradient transports
-(``transport``). FSDP is ROADMAP A9, the model axis A10."""
+"""Distributed training on ``torch.distributed`` (port of ``repro.dist``):
+the process lifecycle (``multihost``), mesh axes, placement and the rows
+of a rank (``partition``), fully-sharded data parallelism (``fsdp``), and
+the gradient transports (``transport``). The model axis is ROADMAP A10."""

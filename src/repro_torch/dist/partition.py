@@ -1,17 +1,22 @@
-"""Mesh axes, placement and the batch rows of a rank (port of the
-data-parallel part of ``repro.dist.partition``).
+"""Mesh axes, placement and the batch rows of a rank (port of
+``repro.dist.partition``, its data-parallel and FSDP parts).
 
-The port's processes form the mesh (:mod:`repro_torch.launch.mesh`): in
-this slice every axis but one has size 1, and that axis, ``data`` or
-``pod``, carries plain data parallelism. Parameters are replicated across
-it, so every parameter spec is ``P()``; the batch's rows are split over
-it. FSDP (the ``fsdp`` axis, parameter and state sharding) is ROADMAP A9;
-the ``model`` axis (tensor and expert parallelism) is A10.
+The port's processes form the mesh (:mod:`repro_torch.launch.mesh`). Every
+axis but ``model`` carries data parallelism: the batch's rows are split
+over all of them. A :class:`Placement` with an ``fsdp_axis`` (the ``fsdp``
+axis, or ``data`` as in ZeRO-3) also shards every parameter leaf over
+that axis, on its largest dimension the axis size divides
+(:func:`param_specs`), and :func:`state_shardings` co-shards every
+parameter-shaped optimizer buffer with its parameter. Without one every
+parameter spec is ``P()``. The ``model`` axis (tensor and expert
+parallelism) is ROADMAP A10.
 
 :func:`batch_specs` gives the reference's specs; :func:`rank_rows` applies
-them: a rank takes the rows the reference gives its replica — with
-``microbatches=k``, chunk r of each of the k microbatches, in order
-(microbatch split first, then the wire split, ``repro/train/step.py``).
+them: a rank takes the rows the reference gives its device — with
+``microbatches=k``, of each of the k microbatches the chunk of its index
+over the data-parallel axes (microbatch split first, then the wire's
+chunk, then the remaining data axes in mesh order:
+:func:`rank_index`, ``repro/train/step.py``).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from repro_torch.tree import tree_map
 
 __all__ = ["MODEL_AXIS", "DATA_AXIS", "POD_AXIS", "FSDP_AXIS", "KNOWN_AXES", "P",
            "Placement", "default_placement", "dp_axes", "dp_size", "param_specs",
-           "batch_specs", "rank_rows"]
+           "state_shardings", "batch_specs", "rank_index", "rank_rows"]
 
 PyTree = Any
 
@@ -35,7 +40,6 @@ FSDP_AXIS = "fsdp"
 # Every mesh axis name the stack understands, outermost-first.
 KNOWN_AXES = (POD_AXIS, DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
 
-FSDP_ITEM = "FSDP is ported with ROADMAP A9"
 MODEL_ITEM = "the model axis (tensor and expert parallelism) is ported with ROADMAP A10"
 
 
@@ -62,15 +66,17 @@ class P(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Which mesh axes carry parameter sharding. In this slice none does:
-    an ``fsdp_axis`` raises (A9), and ``tp_axis`` names an axis that the
-    mesh keeps at size 1 (A10)."""
+    """Which mesh axes carry parameter sharding: ``fsdp_axis``, when set,
+    shards every parameter leaf and its optimizer buffers over that axis;
+    ``tp_axis`` names an axis that the mesh keeps at size 1 (A10). Axes
+    absent from the mesh count as size 1."""
     fsdp_axis: Optional[str] = None
     tp_axis: Optional[str] = MODEL_AXIS
 
-    def __post_init__(self):
-        if self.fsdp_axis is not None:
-            raise ValueError(f"Placement(fsdp_axis={self.fsdp_axis!r}): {FSDP_ITEM}")
+    def fsdp_size(self, mesh) -> int:
+        if self.fsdp_axis is None or self.fsdp_axis not in mesh.axis_names:
+            return 1
+        return mesh.shape[self.fsdp_axis]
 
     def tp_size(self, mesh) -> int:
         if self.tp_axis is None or self.tp_axis not in mesh.axis_names:
@@ -82,10 +88,11 @@ class Placement:
 
 
 def default_placement(mesh, *, fsdp: bool = False) -> Placement:
-    """The data-parallel placement; ``fsdp=True`` raises (A9)."""
-    if fsdp:
-        raise ValueError(f"--fsdp: {FSDP_ITEM}")
-    return Placement()
+    """The data-parallel placement, or with ``fsdp=True`` FSDP over the
+    mesh's ``fsdp`` axis when it has one, else over ``data`` (ZeRO-3)."""
+    if not fsdp:
+        return Placement()
+    return Placement(fsdp_axis=FSDP_AXIS if FSDP_AXIS in mesh.axis_names else DATA_AXIS)
 
 
 def dp_axes(mesh) -> tuple[str, ...]:
@@ -101,10 +108,74 @@ def dp_size(mesh) -> int:
 
 
 def param_specs(params: PyTree, cfg, mesh, placement: Placement | None = None) -> PyTree:
-    """Every parameter replicated (``P()``): the only layout of a
-    data-parallel mesh. A model axis above 1 raises (A10)."""
-    (placement or Placement()).tp_size(mesh)
-    return tree_map(lambda _: P(), params)
+    """The spec of every parameter leaf: replicated (``P()``) without an
+    FSDP axis; with one, each leaf sharded over it on its largest
+    dimension the axis size divides (the first of equal ones), a leaf with
+    no such dimension replicated. A model axis above 1 raises (A10)."""
+    del cfg  # the rules read shapes only, as the reference's FSDP rule does
+    placement = placement or Placement()
+    placement.tp_size(mesh)
+    fs = placement.fsdp_size(mesh)
+
+    def spec(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return P()
+        parts = [None] * leaf.dim()
+        if fs > 1 and leaf.dim():
+            dim = _fsdp_dim(tuple(leaf.shape), parts, fs)
+            if dim is not None:
+                parts[dim] = placement.fsdp_axis
+        return P(*parts)
+
+    return tree_map(spec, params)
+
+
+def _fsdp_dim(shape, parts, fs: int) -> int | None:
+    """Largest dimension divisible by ``fs`` that no axis already claims."""
+    best = None
+    for dim, extent in enumerate(shape):
+        if parts[dim] is not None or extent == 0 or extent % fs:
+            continue
+        if best is None or extent > shape[best]:
+            best = dim
+    return best
+
+
+def _structure(node):
+    """A tree's structure: containers and their keys, leaves as ``*``."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return ("dict",) + tuple((k, _structure(node[k])) for k in sorted(node))
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        return (type(node).__name__,) + tuple(_structure(v) for v in node)
+    if isinstance(node, list):
+        return ("list",) + tuple(_structure(v) for v in node)
+    return "*"
+
+
+def state_shardings(pspecs: PyTree, opt_state: PyTree, mesh=None) -> PyTree:
+    """Specs of the optimizer state, aligned with the parameter specs: a
+    subtree shaped like the parameter tree (moments, momentum, Kahan
+    buffers) takes ``pspecs`` leaf for leaf, every other leaf (the
+    bias-correction scalars) replicates, a None subtree stays None."""
+    del mesh
+    pdef = _structure(pspecs)
+
+    def walk(node):
+        if node is None:
+            return None
+        if _structure(node) == pdef:
+            return pspecs
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(v) for v in node))
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return P()
+
+    return walk(opt_state)
 
 
 def _batch_dim(name: str) -> int:
@@ -128,6 +199,20 @@ def batch_specs(batch: dict, mesh) -> dict:
         return P(*parts)
 
     return {name: spec(name, x) for name, x in batch.items()}
+
+
+def rank_index(mesh, first: str | None = None, rank: int | None = None) -> int:
+    """The index of ``rank`` (default: this process) over the data-parallel
+    axes: ``first`` (the wire's axis) outermost, then the other data axes
+    in mesh order — the chunk of a microbatch whose rows it computes."""
+    axes = dp_axes(mesh)
+    if first is not None and first in axes:
+        axes = (first,) + tuple(a for a in axes if a != first)
+    coords = mesh.coords(rank) if rank is not None else {a: mesh.index(a) for a in axes}
+    index = 0
+    for a in axes:
+        index = index * mesh.shape[a] + coords[a]
+    return index
 
 
 def rank_rows(batch: dict, mesh, index: int, *, microbatches: int = 1) -> dict:

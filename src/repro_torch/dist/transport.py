@@ -2,9 +2,9 @@
 ``repro.dist.transport``, the data-parallel strategies).
 
 A :class:`GradientTransport` owns the gradient path of a train step: the
-step calls ``prepare`` (the working copy's placement before the forward),
-``reduce`` (the cross-replica mean) and ``finalize`` (the new parameters'
-placement), and names no collective itself.
+step calls ``prepare`` (the working copy's placement before the forward:
+FSDP's gather), ``reduce`` (the cross-replica mean) and ``finalize`` (the
+new parameters' placement), and names no collective itself.
 
 **A replica is a rank.** The reference vmaps each microbatch's n chunks
 onto its wire axis and reduces gradients stacked ``(n, *shape)``. Here a
@@ -28,22 +28,40 @@ Strategies, selected per mesh axis:
   next step (:mod:`repro_torch.optim.grad_compress`): 2 bytes per element
   at bf16. With one replica (no mesh, or the axis absent) the same
   arithmetic runs locally, with no collective.
-* :class:`ReduceScatter` and the f32 pod wire over an FSDP inner
-  (``_Fp32Wire``) are ROADMAP A9.
+* :class:`ReduceScatter` — the FSDP path (:mod:`repro_torch.dist.fsdp`):
+  ``prepare`` gathers the working copy over the FSDP axis, ``reduce``
+  reduce-scatters the gradients onto the parameters' shards, ``finalize``
+  keeps the new parameters sharded. As the inner of a pod wire
+  (:class:`CompressedWire`, or ``_Fp32Wire`` for the f32 one) it is the
+  hierarchical composition: the reduce-scatter within each pod, the wire
+  across pods on the shards. Each rank's residual row is then ``(1,
+  *shard_shape)``; the reference's ``P(wire_axis, *pspec)`` leaf is the
+  stack of those rows.
 
-Both reductions are :func:`~repro_torch.optim.grad_compress.wire_mean`:
-gather, rank-order f32 sum, one rounding to the carrier, so every rank
-gets the same bits on every backend and at every n. The transport counts
-what its wire moved in ``stats`` (:class:`~repro_torch.optim.grad_compress.WireStats`).
+**Each data-parallel axis is reduced exactly once, in the reference's
+order.** Its GSPMD backward sums over the axes that are not the wire's
+inside each wire chunk, before the wire sees the chunk's gradient. Here a
+transport's ``reduce`` runs its inner's reduce-scatter (over the FSDP
+axis) first, then ``within`` — the step's f32 mean over
+:meth:`GradientTransport.hint_axes`, the data axes that neither the
+wire nor the reduce-scatter reduce — and the wire last.
+
+Every reduction is :func:`~repro_torch.optim.grad_compress.wire_mean` or
+its reduce-scatter: gather (or all-to-all), rank-order f32 sum, one
+rounding to the carrier, so every rank holding a value gets the same bits
+on every backend and at every n. The transport counts what its collectives
+moved in ``stats`` (:class:`~repro_torch.optim.grad_compress.WireStats`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import math
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core.formats import BF16, FORMATS, FP32, FloatFormat
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import partition as PT
 from repro_torch.dist.partition import Placement
 from repro_torch.optim import grad_compress as GC
@@ -123,17 +141,20 @@ class GradientTransport:
 
         wc = transport.prepare(compute_params(state.params, policy))
         loss, grads = ...forward/backward of this rank's rows...
-        grads, new_residuals = transport.reduce(grads, state.wire_residuals, key)
+        grads, new_residuals = transport.reduce(grads, state.wire_residuals, key,
+                                                within=mean_over_hint_axes)
         new_params, new_opt = optimizer.update(grads, ...)
         new_params = transport.finalize(new_params)
 
     ``wire_replicas`` (n) and ``wire_axis`` describe the explicit wire;
-    ``replica`` is this rank's index on it. Stateless transports keep
-    ``init_residuals`` at None and pass residuals through."""
+    ``replica`` is this rank's index on it; ``scatter_axis`` is the axis
+    an FSDP inner reduce-scatters (None without one). Stateless transports
+    keep ``init_residuals`` at None and pass residuals through."""
 
     name = "base"
     wire_axis: Optional[str] = None
     wire_replicas: int = 1
+    scatter_axis: Optional[str] = None
     mesh = None
 
     def __init__(self):
@@ -151,21 +172,25 @@ class GradientTransport:
     def prepare(self, wc: PyTree) -> PyTree:
         return wc
 
-    def reduce(self, grads: PyTree, residuals: PyTree | None, key) -> tuple[PyTree, PyTree | None]:
+    def reduce(self, grads: PyTree, residuals: PyTree | None, key, *,
+               within: Callable | None = None) -> tuple[PyTree, PyTree | None]:
         """Cross-replica reduction; returns (mean grads, new residuals).
-        A reducing transport empties ``grads`` (its leaves become None),
-        releasing each leaf once reduced; the residuals it is given are
-        not written (the caller stores the new ones)."""
-        return grads, residuals
+        ``within(grads)`` is the mean over :meth:`hint_axes`, applied after
+        the inner reduce-scatter and before the wire. A reducing transport
+        empties ``grads`` (its leaves become None), releasing each leaf once
+        reduced; the residuals it is given are not written (the caller
+        stores the new ones)."""
+        return (within(grads) if within else grads), residuals
 
     def finalize(self, params: PyTree) -> PyTree:
         return params
 
     def hint_axes(self, mesh) -> tuple[tuple[str, ...], int]:
-        """Every data-parallel axis except the wire's, and their size
-        product: the axes whose mean the reference leaves to GSPMD and the
-        port's step takes explicitly."""
-        axes = tuple(a for a in PT.dp_axes(mesh) if a != self.wire_axis)
+        """Every data-parallel axis except the wire's and the one the inner
+        reduce-scatters, and their size product: the axes whose mean the
+        reference leaves to GSPMD and the port's step takes explicitly."""
+        axes = tuple(a for a in PT.dp_axes(mesh)
+                     if a not in (self.wire_axis, self.scatter_axis))
         size = 1
         for a in axes:
             size *= mesh.shape[a]
@@ -185,7 +210,9 @@ class Fp32Psum(GradientTransport):
         self.mesh = mesh
         self.pspecs = pspecs
 
-    def reduce(self, grads, residuals, key):
+    def reduce(self, grads, residuals, key, *, within=None):
+        if within is not None:
+            grads = within(grads)
         if self.wire_replicas == 1:
             return grads, residuals
         group = self.mesh.group(self.wire_axis)
@@ -198,13 +225,27 @@ class Fp32Psum(GradientTransport):
 
 
 class ReduceScatter(GradientTransport):
-    """The FSDP path (gather the working copy, reduce-scatter gradients):
-    ROADMAP A9."""
+    """The FSDP path (:mod:`repro_torch.dist.fsdp`): ``prepare`` gathers the
+    working copy over the placement's FSDP axis, ``reduce`` reduce-scatters
+    the gradients onto the parameters' shards (then ``within``),
+    ``finalize`` keeps the parameters sharded. No wire axis of its own."""
 
     name = "reduce_scatter"
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError(f"ReduceScatter: {PT.FSDP_ITEM}")
+    def __init__(self, pspecs: PyTree, placement: Placement, mesh=None):
+        super().__init__()
+        self.pspecs = pspecs
+        self.placement = placement
+        self.mesh = mesh
+        self.scatter_axis = placement.fsdp_axis
+
+    def prepare(self, wc):
+        return F.all_gather_params(wc, self.pspecs, self.placement, self.mesh, self.stats)
+
+    def reduce(self, grads, residuals, key, *, within=None):
+        grads = F.reduce_scatter_grads(grads, self.pspecs, self.placement, self.mesh,
+                                       self.stats)
+        return (within(grads) if within else grads), residuals
 
 
 class CompressedWire(GradientTransport):
@@ -231,6 +272,8 @@ class CompressedWire(GradientTransport):
         super().__init__()
         self.mesh = mesh
         self.inner = inner or Fp32Psum()
+        self.inner.stats = self.stats        # one account of the step's collectives
+        self.scatter_axis = self.inner.scatter_axis
         self.pspecs = pspecs
         self.fmt = fmt
         self.policy = policy
@@ -244,17 +287,29 @@ class CompressedWire(GradientTransport):
             return self.fmt.name
         return f"{self.fmt.name}+{self.policy.describe()}"
 
+    def _numel(self, tree: PyTree) -> list[int]:
+        """Each leaf's element count as a parameter's: a rank's shard
+        counts the whole parameter (the keep policy's threshold is about
+        it). Under parameter specs the leaves are this rank's parts."""
+        leaves = tree_leaves(tree)
+        if self.pspecs is None or self.mesh is None:
+            return [leaf.numel() for leaf in leaves]
+        return [math.prod(F.full_shape(leaf.shape, spec, self.mesh))
+                for leaf, spec in zip(leaves, tree_leaves(self.pspecs))]
+
     def leaf_formats(self, tree: PyTree) -> list[FloatFormat]:
-        """Wire format per leaf of ``tree`` (params or grads)."""
+        """Wire format per leaf of ``tree`` (params or grads, whole or this
+        rank's shards: the format follows the parameter's name and size)."""
         leaves = tree_leaves(tree)
         if self.policy is None:
             return [self.fmt] * len(leaves)
-        return [self.policy.format_for(name, leaf.numel(), self.fmt)
-                for name, leaf in zip(leaf_names(tree), leaves)]
+        return [self.policy.format_for(name, n, self.fmt)
+                for name, n in zip(leaf_names(tree), self._numel(tree))]
 
     def payload_bytes(self, params: PyTree) -> int:
-        """Accounted wire bytes for one reduce: Σ n_elem · bits(fmt)/8, the
-        format's width and not the carrier's, rounded up once."""
+        """Accounted wire bytes for one reduce: Σ n_elem · bits(fmt)/8 over
+        the leaves given (a rank's shards under FSDP), the format's width
+        and not the carrier's, rounded up once."""
         bits = sum(leaf.numel() * f.bits
                    for leaf, f in zip(tree_leaves(params), self.leaf_formats(params)))
         return -(-bits // 8)
@@ -270,15 +325,17 @@ class CompressedWire(GradientTransport):
     def finalize(self, params):
         return self.inner.finalize(params)
 
-    def reduce(self, grads, residuals, key):
+    def reduce(self, grads, residuals, key, *, within=None):
         """``key`` is this replica's randomness: ``key.leaf(i)`` rounds
         leaf i (a :class:`~repro_torch.optim.grad_compress.WireKey`, or a
-        ``GivenKey`` of given bits)."""
+        ``GivenKey`` of given bits; under FSDP each rank draws its shard's
+        shape from it, as the reference's ``shard_map`` body does)."""
         if residuals is None:
             raise ValueError(
                 "CompressedWire needs error-feedback residuals: build the "
                 "state with make_train_state(params, opt, transport=...) so "
                 "TrainState.wire_residuals is initialized")
+        grads, _ = self.inner.reduce(grads, None, key, within=within)
         fmts = self.leaf_formats(grads)
         leaves = tree_pop_leaves(grads)
         rows = [r[0] for r in tree_leaves(residuals)]
@@ -315,11 +372,14 @@ def make_transport(*, mesh=None, placement: Placement | None = None,
       ``e5m2``, ``e4m3``) — :class:`CompressedWire` at that format.
 
     ``wire_policy`` adds the per-leaf fp32 keep on a compressed wire and is
-    ignored for ``"fp32"``.
+    ignored for ``"fp32"``. An FSDP placement (with ``pspecs``) makes the
+    inner a :class:`ReduceScatter` (standalone for ``fp32`` without a pod
+    axis); otherwise the inner is the plain mean.
     """
-    if placement is not None and placement.fsdp_axis is not None:
-        raise ValueError(f"an FSDP placement: {PT.FSDP_ITEM}")
-    inner = Fp32Psum()
+    fsdp_on = (placement is not None and placement.fsdp_axis is not None
+                and pspecs is not None)
+    inner = (ReduceScatter(pspecs, placement, mesh) if fsdp_on
+             else Fp32Psum(mesh=mesh, pspecs=pspecs))
     if wire == "fp32":
         axis = wire_axis
         if axis is None and mesh is not None and PT.POD_AXIS in mesh.axis_names:
@@ -327,6 +387,10 @@ def make_transport(*, mesh=None, placement: Placement | None = None,
         if axis is None or _wire_size(mesh, axis) <= 1:
             return inner
         _check_wire_axis_free(axis, mesh, placement)
+        if fsdp_on:
+            # the f32 pod wire over the FSDP inner: the reduce-scatter within
+            # each pod, then the pod mean of the shards
+            return _Fp32Wire(axis=axis, mesh=mesh, inner=inner, pspecs=pspecs)
         return Fp32Psum(axis=axis, mesh=mesh, pspecs=pspecs)
     if wire == "compressed" or wire in FORMATS:
         fmt = BF16 if wire == "compressed" else FORMATS[wire]
@@ -352,3 +416,25 @@ def _check_wire_axis_free(axis, mesh, placement: Placement | None) -> None:
             f"placement ({placement}); give the wire its own data axis — "
             f"a pod axis (--pods) or a dedicated fsdp axis "
             f"(--fsdp-parallel) so the wire can ride 'data'")
+
+
+class _Fp32Wire(Fp32Psum):
+    """The f32 pod wire over an FSDP inner: the inner's reduce-scatter (and
+    ``within``) first, then the pod mean of the shards."""
+
+    def __init__(self, *, axis: str, mesh, inner: GradientTransport,
+                 pspecs: PyTree | None = None):
+        super().__init__(axis=axis, mesh=mesh, pspecs=pspecs)
+        self.inner = inner
+        self.inner.stats = self.stats
+        self.scatter_axis = inner.scatter_axis
+
+    def prepare(self, wc):
+        return self.inner.prepare(wc)
+
+    def reduce(self, grads, residuals, key, *, within=None):
+        grads, _ = self.inner.reduce(grads, None, key, within=within)
+        return super().reduce(grads, residuals, key)
+
+    def finalize(self, params):
+        return self.inner.finalize(params)

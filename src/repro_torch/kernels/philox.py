@@ -9,7 +9,10 @@ of the block j = i // 4, whose counter is (j & 0xffffffff, j >> 32, 0, 0).
 
 :func:`philox_bits` fills an int32 tensor (carrying u32) with those words:
 ``csrc/philox.cu`` for a CUDA device, raising if it cannot launch; the plain
-PyTorch version :func:`philox_bits_ref` only for the CPU. ``fused_adamw``
+PyTorch version :func:`philox_bits_ref` only for the CPU. Given a
+``full_shape``, it fills a shard of the leaf instead (FSDP): the slice of
+``dim`` from ``start``, each element taking the word of its position in
+the full leaf (the kernel's second entry; plain: :func:`philox_bits_at`). ``fused_adamw``
 draws the same words inside its kernel, so every optimizer sees the same
 bits for one seed. The plain version works in int64, every value masked to
 32 bits, and forms the high and low words of a 32×32-bit product from two
@@ -19,12 +22,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["LAUNCHES", "philox4x32_10", "philox_bits", "philox_bits_ref", "split_seed"]
+__all__ = ["LAUNCHES", "philox4x32_10", "philox_bits", "philox_bits_ref", "philox_bits_at",
+           "split_seed"]
 
 M32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # round multipliers
@@ -76,14 +81,43 @@ def philox_bits_ref(seed: int, n: int, device=None) -> torch.Tensor:
     return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
 
 
-def philox_bits(seed: int, shape, device) -> torch.Tensor:
+def _slice_geometry(shape, full_shape, dim: int, start: int) -> tuple[int, int, int]:
+    """(run length, row stride, first index) of the shard of ``shape`` at
+    ``start`` along ``dim`` of a leaf of ``full_shape``: element k of the
+    shard is element (k // run) * stride + first + k % run of the leaf."""
+    shape, full_shape = tuple(int(s) for s in shape), tuple(int(s) for s in full_shape)
+    if len(shape) != len(full_shape) or any(
+            a != b for i, (a, b) in enumerate(zip(shape, full_shape)) if i != dim) \
+            or not 0 <= start <= full_shape[dim] - shape[dim]:
+        raise ValueError(f"a {shape} shard at {start} of dim {dim} does not lie in a "
+                         f"{full_shape} leaf")
+    inner = math.prod(shape[dim + 1:])
+    return shape[dim] * inner, full_shape[dim] * inner, start * inner
+
+
+def philox_bits_at(seed: int, index: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the int32 words of the leaf stream of ``seed``
+    at the element positions ``index`` (int64)."""
+    j = index // 4
+    words = torch.stack(philox4x32_10((j & M32, j >> 32, 0, 0), split_seed(seed)))
+    words = words.gather(0, (index % 4)[None])[0]
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32), words).to(torch.int32)
+
+
+def philox_bits(seed: int, shape, device, *, full_shape=None, dim: int = 0,
+                start: int = 0) -> torch.Tensor:
     """The SR bits of the leaf stream of ``seed`` as an int32 tensor of
-    ``shape`` on ``device`` (row-major element order). CPU devices take
-    the plain version."""
+    ``shape`` on ``device`` (row-major element order); with ``full_shape``,
+    of the shard of that leaf that starts at ``start`` along ``dim``. CPU
+    devices take the plain version."""
     device = torch.device(device)
-    n = 1
-    for s in shape:
-        n *= int(s)
+    n = math.prod(int(s) for s in shape)
+    if full_shape is not None:
+        run, stride, first = _slice_geometry(shape, full_shape, dim, start)
+        if device.type == "cpu":
+            k = torch.arange(n, dtype=torch.int64)
+            return philox_bits_at(seed, (k // run) * stride + first + k % run).reshape(shape)
+        return _launch(seed, shape, n, device, (run, stride, first))
     if device.type == "cpu":
         return philox_bits_ref(seed, n).reshape(shape)
     return _launch(seed, shape, n, device)
@@ -98,7 +132,17 @@ def _kernel():
     return fn
 
 
-def _launch(seed, shape, n, device):
+@functools.cache
+def _slice_kernel():
+    fn = _build.load("philox").repro_philox_bits_slice
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _launch(seed, shape, n, device, geometry=None):
     global LAUNCHES
     if device.type != "cuda":
         raise ValueError(f"philox_bits runs on CUDA or CPU, not {device}")
@@ -106,8 +150,11 @@ def _launch(seed, shape, n, device):
     if n == 0:
         return out
     with torch.cuda.device(device):
-        rc = _kernel()(out.data_ptr(), n, *split_seed(seed),
-                       torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if geometry is None:
+            rc = _kernel()(out.data_ptr(), n, *split_seed(seed), stream)
+        else:
+            rc = _slice_kernel()(out.data_ptr(), n, *geometry, *split_seed(seed), stream)
     if rc != 0:
         raise RuntimeError(f"philox_bits kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -35,20 +35,31 @@ rank, joined by ``--coordinator/--num-processes/--process-id`` or the
         --device cpu --data-parallel 2 --grad-wire bf16 --steps 6 \\
         --ckpt-every 3 --ckpt-dir /tmp/dp
 
+FSDP shards the parameters, the optimizer state and the wire's residual
+rows over an ``fsdp`` axis (``--fsdp-parallel K``) or, with ``--fsdp``
+alone, over ``data`` (ZeRO-3): each step gathers the bf16 working copy
+once, reduce-scatters the gradients and updates the shards::
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \
+        python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
+        --device cpu --fsdp-parallel 2 --fused-update --policy bf16_sr_kahan
+
 A multi-process run with no topology flags is data-parallel over every
-rank; otherwise ``--data-parallel`` or ``--pods`` (one of them above 1 in
-this slice) must multiply to the process count. ``--grad-wire`` selects
+rank; otherwise ``--pods × --data-parallel × --fsdp-parallel`` must equal
+the process count (``--pods 2 --data-parallel 2`` and ``--pods 2
+--fsdp-parallel 2`` are the hierarchical compositions: the inner
+reduction within each pod, the wire across pods). ``--grad-wire`` selects
 the transport on the wire axis (``pod`` when ``--pods > 1``, else
 ``data``): ``fp32`` (with no pod axis, the f32 mean over ``data``), or an
 SR-compressed wire with error-feedback residuals at ``compressed`` (=
 bf16), ``bf16``, ``bf14``, ``bf12``, ``bf10``, ``fp16``, ``e5m2`` or
 ``e4m3``; ``--wire-keep-fp32`` keeps embeddings, norms, biases and small
-leaves at fp32. In a single process a compressed wire runs its local
-arithmetic (one replica, no collective). The process group's backend
-follows the device (NCCL on CUDA, gloo on the CPU); ``--dist-backend
-gloo`` runs several ranks on one card, which NCCL refuses, with the wire's
-payloads through host memory. ``--model-parallel`` (ROADMAP A10),
-``--fsdp-parallel`` and ``--fsdp`` (A9) raise.
+leaves at fp32. A wire on the axis FSDP shards over is refused. In a
+single process a compressed wire runs its local arithmetic (one replica,
+no collective). The process group's backend follows the device (NCCL on
+CUDA, gloo on the CPU); ``--dist-backend gloo`` runs several ranks on one
+card, which NCCL refuses, with the collectives' payloads through host
+memory. ``--model-parallel`` raises (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ from typing import Any, Callable
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy, get_policy
 from repro_torch.data.synthetic import lm_batches
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import multihost as MH
 from repro_torch.dist import partition as PT
 from repro_torch.dist import transport as TR
@@ -112,8 +124,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="the model axis: ROADMAP A10")
     ap.add_argument("--fsdp-parallel", type=int, default=1,
-                    help="a dedicated fsdp axis: ROADMAP A9")
-    ap.add_argument("--fsdp", action="store_true", help="ROADMAP A9")
+                    help="size of a dedicated fsdp mesh axis (implies --fsdp)")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params and optimizer state (Kahan buffers and wire "
+                         "residuals included) over the fsdp axis, else over data")
     ap.add_argument("--pods", type=int, default=1,
                     help="pod mesh axis size: data parallelism whose gradient mean "
                          "rides the --grad-wire")
@@ -145,8 +159,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = _parser().parse_args(argv)
     if args.model_parallel > 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: {PT.MODEL_ITEM}")
-    if args.fsdp or args.fsdp_parallel > 1:
-        raise ValueError(f"--fsdp/--fsdp-parallel: {PT.FSDP_ITEM}")
     return args
 
 
@@ -174,14 +186,14 @@ class TrainRun:
 def _mesh(args) -> Mesh | None:
     """The run's mesh by the reference's topology rule, or None for a
     single process given none."""
-    dp, pods = args.data_parallel, args.pods
-    if MH.active() and dp * pods == 1:
+    dp, fs, pods = args.data_parallel, args.fsdp_parallel, args.pods
+    if MH.active() and dp * fs * pods == 1:
         # multi-process with no explicit topology: data-parallel over every
         # rank (a one-process mesh would leave the collectives unformed)
         dp = MH.process_count()
-    if dp * pods == 1:
+    if dp * fs * pods == 1:
         return None
-    return make_local_mesh(dp, args.model_parallel, fsdp=args.fsdp_parallel, pods=pods)
+    return make_local_mesh(dp, args.model_parallel, fsdp=fs, pods=pods)
 
 
 def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
@@ -207,8 +219,11 @@ def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
                    if args.wire_keep_fp32 is not None else None)
     placement = pspecs = None
     if mesh is not None:
-        placement = PT.default_placement(mesh)
+        placement = PT.default_placement(mesh, fsdp=args.fsdp or args.fsdp_parallel > 1)
         pspecs = PT.param_specs(params, cfg, mesh, placement)
+        # each rank keeps its shards (the whole of a replicated leaf); the
+        # state is then built on them, before the first step
+        params = F.shard_state(params, pspecs, mesh)
     opt = optimizer if optimizer is not None else make_optimizer(args, policy, mesh, pspecs)
     transport = TR.make_transport(mesh=mesh, placement=placement, pspecs=pspecs,
                                   wire=args.grad_wire, wire_policy=wire_policy)

@@ -42,7 +42,8 @@ from repro_torch.kernels.philox import philox_bits
 from repro_torch.kernels.sr_cast import sr_cast
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["UpdateOps", "Optimizer", "LeafNoise", "StepKey", "GivenKey",
+__all__ = ["UpdateOps", "Optimizer", "LeafNoise", "StepKey", "GivenKey", "ShardNoise",
+           "ShardKey",
            "leafwise", "state_ops", "param_ops", "init_params_for_policy",
            "write_back"]
 
@@ -122,6 +123,43 @@ class GivenKey:
 
     def leaf(self, i: int) -> _GivenNoise:
         return _GivenNoise(self._bits[i], self._uniform[i])
+
+
+class ShardNoise:
+    """A leaf's randomness on a shard of it (FSDP): the leaf stream's words
+    at the shard's global positions — the shard along ``dim`` from
+    ``start`` of a leaf of ``full_shape`` — so a sharded update rounds
+    every element with the bits the whole leaf's update gives it (the
+    reference draws ``jax.random.bits`` over the global leaf). ``seed`` is
+    the leaf's: the shard-local fused kernels fold it per shard instead."""
+
+    def __init__(self, noise: LeafNoise, full_shape, dim: int, start: int):
+        self.seed = noise.seed
+        self._noise = noise
+        self.full_shape, self.dim, self.start = tuple(full_shape), dim, start
+
+    def bits(self, shape, device) -> torch.Tensor:
+        return philox_bits(self.seed, shape, device, full_shape=self.full_shape,
+                           dim=self.dim, start=self.start)
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        full = self._noise.uniform(self.full_shape, device)
+        return full.narrow(self.dim, self.start, shape[self.dim]).contiguous()
+
+
+class ShardKey:
+    """A step key over the shards of a sharded tree: leaf ``i`` sits in its
+    full leaf as ``shards[i]`` = ``(full_shape, dim, start)`` (None: the
+    whole leaf). A leaf with given bits keeps them (they are the shard's)."""
+
+    def __init__(self, key, shards: Sequence):
+        self.key, self.shards = key, list(shards)
+
+    def leaf(self, i: int):
+        noise = self.key.leaf(i)
+        if self.shards[i] is None or noise.seed is None:
+            return noise
+        return ShardNoise(noise, *self.shards[i])
 
 
 class UpdateOps:

@@ -1,5 +1,5 @@
 """Kernel-backed optimizers: the fused-update path (port of
-``repro.optim.fused``, single device).
+``repro.optim.fused``).
 
 Same interface as :func:`repro_torch.optim.sgd` / :func:`adamw`, but each
 leaf update is ONE launch of a hand-written CUDA kernel
@@ -21,14 +21,17 @@ leaves: an f32 leaf of the tree (the MoE router, Mamba's ``A_log`` and
 its bf16 result replaces the leaf — what the reference's wrappers do
 (``repro/kernels/fused_adamw.py:105``: every operand padded as bf16).
 
-Shard-local mode (``mesh=``/``pspecs=``): the reference runs the update
-inside ``shard_map`` on each device's shard and folds each leaf's key with
-the shard's index over the axes its spec names, so replicated leaves draw
-the same bits everywhere. On a data-parallel mesh every spec is ``P()``:
-the shard is the whole leaf, nothing is folded, and the update is the
-plain per-rank update — every rank draws the same bits, and the replicas
-stay bitwise equal. A spec that names an axis (FSDP, A9; the model axis,
-A10) raises.
+Shard-local mode (``mesh=``/``pspecs=``): each rank's launches run on its
+own contiguous shard of (w, m, v, g, c), as the reference's run inside
+``shard_map`` on each device's shard. A leaf whose spec names mesh axes
+has its seed folded with the shard's index linearised over exactly those
+axes (``_mix(seed, idx)``, the counterpart of the reference's
+``_shard_key``), so its shards draw distinct bits; a replicated leaf
+(``P()``, every leaf of a data-parallel mesh) draws the same bits on every
+rank, and the replicas stay bitwise equal. As in the reference, a fused
+FSDP run is therefore not bitwise its fused data-parallel run (the
+non-fused update is: :class:`~repro_torch.optim.base.ShardKey`). A
+``GivenKey`` leaf carries its shard's own bits.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels.fused_adamw import fused_adamw
 from repro_torch.kernels.fused_sgd import fused_sgd
 from repro_torch.optim.adamw import AdamWState, init_state, snap
-from repro_torch.optim.base import Optimizer, state_ops
+from repro_torch.optim.base import LeafNoise, Optimizer, _mix, state_ops
 from repro_torch.optim.sgd import SGDState
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -52,10 +55,29 @@ def _check(policy: PrecisionPolicy, mesh, pspecs):
             f"policy {policy.name!r} is not supported")
     if (mesh is None) != (pspecs is None):
         raise ValueError("shard-local mode needs both mesh= and pspecs=")
-    for spec in tree_leaves(pspecs) if pspecs is not None else ():
-        if spec.axes:
-            raise ValueError(f"a parameter sharded over {spec.axes}: the shard-local "
-                             f"update of sharded leaves is ported with ROADMAP A9/A10")
+
+
+def _shard_indices(mesh, pspecs, n_leaves: int) -> list[int | None]:
+    """Per leaf, the shard's index linearised over the axes its spec names,
+    in dim order (None for a replicated leaf, or without a mesh)."""
+    if pspecs is None:
+        return [None] * n_leaves
+    out = []
+    for spec in tree_leaves(pspecs):
+        idx = None
+        for ax in spec.axes:
+            idx = (idx or 0) * mesh.shape[ax] + (mesh.index(ax) if mesh.shape[ax] > 1 else 0)
+        out.append(idx)
+    return out
+
+
+def _noise(key, i: int, idx: int | None):
+    """Leaf i's randomness on this rank: a seeded leaf's stream, its seed
+    folded with the shard index ``idx``; a given leaf's bits as given."""
+    leaf = key.leaf(i)
+    if leaf.seed is None or idx is None:
+        return leaf if leaf.seed is None else LeafNoise(leaf.seed)
+    return LeafNoise(_mix(leaf.seed, idx))
 
 
 def _leaves(params, *trees):
@@ -93,10 +115,12 @@ def fused_sgd_optimizer(policy: PrecisionPolicy, *, momentum: float = 0.9,
     def update(grads, state, params, *, step, key, lr):
         del step
         new_w = []
+        leaves = _leaves(params, grads, state.momentum, state.kahan_c)
+        shard = _shard_indices(mesh, pspecs, len(leaves))
         with torch.no_grad():
-            for i, (w, g, m, c) in enumerate(_leaves(params, grads, state.momentum,
-                                                     state.kahan_c)):
-                bits = key.leaf(i).bits(w.shape, w.device) if stochastic else None
+            for i, (w, g, m, c) in enumerate(leaves):
+                bits = (_noise(key, i, shard[i]).bits(w.shape, w.device) if stochastic
+                        else None)
                 new_w.append(_bf16(w))
                 fused_sgd(new_w[-1], m, _grad(g), c=c, bits=bits,
                           stochastic=stochastic, lr=lr, momentum=momentum,
@@ -126,11 +150,12 @@ def fused_adamw_optimizer(policy: PrecisionPolicy, *, b1: float = 0.9,
             c2 = sops.q(sops.f32(state.c2) * b2q)
             c1f, c2f = float(c1), float(c2)       # one host read per step
             new_w = []
-            for i, (w, g, m, v, c) in enumerate(_leaves(params, grads, state.m, state.v,
-                                                        state.kahan_c)):
+            leaves = _leaves(params, grads, state.m, state.v, state.kahan_c)
+            shard = _shard_indices(mesh, pspecs, len(leaves))
+            for i, (w, g, m, v, c) in enumerate(leaves):
                 noise = dict()
                 if stochastic:
-                    leaf = key.leaf(i)
+                    leaf = _noise(key, i, shard[i])
                     noise = (dict(seed=leaf.seed) if leaf.seed is not None
                              else dict(bits=leaf.bits(w.shape, w.device)))
                 new_w.append(_bf16(w))

@@ -28,10 +28,20 @@ of the same payloads, so the reduced gradients are bitwise equal across
 ranks. A gloo group with CUDA tensors (several ranks rehearsed on one
 card) gathers through host copies of the payloads, counted apart in
 :class:`WireStats`.
+
+**The reduce-scatter** (FSDP's gradient reduction, :func:`reduce_scatter_mean`)
+keeps that arithmetic: each rank sends chunk j of its payload to rank j
+(``all_to_all_single``), sums the n chunks it receives in rank order in
+f32, rounds once to the payload's dtype and divides by n, so a shard's
+elements equal the same elements of :func:`wire_mean`'s result, on every
+rank that holds the shard and on every backend. ``reduce_scatter_tensor``
+is not used: its summation order is the backend's. A rank holds its
+payload and the n received chunks (one leaf's worth), never n leaves.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import NamedTuple, Sequence
 
@@ -44,7 +54,7 @@ from repro_torch.kernels.sr_cast import sr_cast
 from repro_torch.optim.base import LeafNoise, _mix
 
 __all__ = ["WIRE_TAG", "WireKey", "WireStats", "init_residual", "compress_leaf",
-           "wire_mean", "compressed_psum"]
+           "gather_parts", "wire_mean", "reduce_scatter_mean", "compressed_psum"]
 
 # the reference folds 7 into a step's key for its wire (train/step.py)
 WIRE_TAG = 7
@@ -65,15 +75,24 @@ class WireKey(NamedTuple):
 
 @dataclasses.dataclass
 class WireStats:
-    """What the wire moved: payload bytes sent per rank, by carrier dtype,
-    and the seconds spent copying payloads between the card and the host
-    (a gloo group with CUDA tensors)."""
+    """What the collectives moved, per rank: the gradient payloads (wire
+    means and reduce-scatters) by carrier dtype, the reduce-scatters' share
+    of them, the FSDP gathers of the working copy by dtype, and the seconds
+    spent copying payloads between the card and the host (a gloo group
+    with CUDA tensors). A payload counts once, at the size this rank hands
+    the collective."""
     bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
+    scatter_bytes: int = 0
+    gather_bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     host_copy_s: float = 0.0
 
-    def count(self, t: torch.Tensor) -> None:
+    def count(self, t: torch.Tensor, kind: str = "reduce") -> None:
         name = str(t.dtype).replace("torch.", "")
-        self.bytes_by_dtype[name] = self.bytes_by_dtype.get(name, 0) + t.numel() * t.element_size()
+        nbytes = t.numel() * t.element_size()
+        into = self.gather_bytes_by_dtype if kind == "gather" else self.bytes_by_dtype
+        into[name] = into.get(name, 0) + nbytes
+        if kind == "scatter":
+            self.scatter_bytes += nbytes
 
 
 def init_residual(grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -109,45 +128,95 @@ def compress_leaf(g: torch.Tensor, residual: torch.Tensor, noise,
     return q, corrected - q.to(torch.float32)
 
 
-def _gather(payload: torch.Tensor, group, stats: WireStats | None) -> list[torch.Tensor]:
+def _via_host(payload: torch.Tensor, group) -> bool:
+    """A gloo group moves CUDA payloads through host memory."""
+    return payload.is_cuda and dist.get_backend(group) != "nccl"
+
+
+def _to_host(src: torch.Tensor, stats: WireStats | None) -> torch.Tensor:
+    """A pinned host copy of a CUDA payload, its time counted apart."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(src.device)      # the copy's time, not the producer's
+    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    host.copy_(src)
+    if stats is not None:
+        stats.host_copy_s += time.perf_counter() - t0
+    return host
+
+
+def _to_device(parts, device, stats: WireStats | None):
+    t0 = time.perf_counter()
+    parts = [p.to(device) for p in parts]
+    torch.cuda.synchronize(device)
+    if stats is not None:
+        stats.host_copy_s += time.perf_counter() - t0
+    return parts
+
+
+def gather_parts(payload: torch.Tensor, group, stats: WireStats | None = None,
+                 kind: str = "reduce") -> list[torch.Tensor]:
     """Every rank's ``payload`` of ``group``, in rank order, on the
-    payload's device. A gloo group gathers CUDA payloads through pinned
-    host copies."""
+    payload's device (counted in ``stats`` as ``kind``). A gloo group
+    gathers CUDA payloads through pinned host copies."""
     n = dist.get_world_size(group)
-    via_host = payload.is_cuda and dist.get_backend(group) != "nccl"
+    via_host = _via_host(payload, group)
     src = payload.contiguous()
     if via_host:
-        t0 = time.perf_counter()
-        torch.cuda.synchronize(payload.device)    # the copy's time, not the producer's
-        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        host.copy_(src)
-        src = host
-        if stats is not None:
-            stats.host_copy_s += time.perf_counter() - t0
+        src = _to_host(src, stats)
     parts = [torch.empty(src.shape, dtype=src.dtype, device=src.device,
                          pin_memory=via_host) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     if stats is not None:
-        stats.count(src)
+        stats.count(src, kind)
     if via_host:
-        t0 = time.perf_counter()
-        parts = [p.to(payload.device) for p in parts]
-        torch.cuda.synchronize(payload.device)
-        if stats is not None:
-            stats.host_copy_s += time.perf_counter() - t0
+        parts = _to_device(parts, payload.device, stats)
     return parts
+
 
 
 def wire_mean(payload: torch.Tensor, group, stats: WireStats | None = None) -> torch.Tensor:
     """The f32 mean of ``payload`` over ``group``: the rank-order f32 sum
     of the gathered payloads, rounded once to the payload's dtype, then
     divided by n in f32 (see the module's note)."""
-    parts = _gather(payload, group, stats)
+    parts = gather_parts(payload, group, stats)
     acc = parts[0].to(torch.float32, copy=True)
     for p in parts[1:]:
         acc += p.to(torch.float32)
     del parts
     return acc.to(payload.dtype).to(torch.float32) / dist.get_world_size(group)
+
+
+def reduce_scatter_mean(payload: torch.Tensor, dim: int, group,
+                        stats: WireStats | None = None) -> torch.Tensor:
+    """This rank's chunk of :func:`wire_mean` ``(payload, group)``: the
+    payload split into n equal chunks along ``dim``, rank r of the group
+    keeping chunk r. Each rank receives every rank's copy of its chunk
+    (``all_to_all_single``), sums them in rank order in f32, rounds the sum
+    once to the payload's dtype and divides by n in f32."""
+    n = dist.get_world_size(group)
+    shape = tuple(payload.shape)
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {shape} payload does not split {n} ways")
+    outer = math.prod(shape[:dim])
+    ext = shape[dim] // n
+    # (n, outer, ext, inner): chunk j, for rank j, leading and contiguous
+    send = payload.reshape(outer, n, ext, -1).transpose(0, 1).contiguous()
+    via_host = _via_host(payload, group)
+    if via_host:
+        send = _to_host(send, stats)
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device, pin_memory=via_host)
+    dist.all_to_all_single(recv, send, group=group)
+    if stats is not None:
+        stats.count(send, "scatter")
+    del send
+    if via_host:
+        recv = _to_device([recv], payload.device, stats)[0]
+    acc = recv[0].to(torch.float32, copy=True)
+    for p in recv[1:]:
+        acc += p.to(torch.float32)
+    del recv
+    out_shape = shape[:dim] + (ext,) + shape[dim + 1:]
+    return (acc.to(payload.dtype).to(torch.float32) / n).reshape(out_shape)
 
 
 def compressed_psum(grads: list[torch.Tensor], residuals: Sequence[torch.Tensor], key,

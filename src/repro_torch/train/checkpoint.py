@@ -1,5 +1,5 @@
 """Fault-tolerant checkpointing: atomic, async, keep-N (port of
-``repro.train.checkpoint``, single process).
+``repro.train.checkpoint``).
 
 Layout (one directory per step), the reference's own, so each package
 restores the other's checkpoints::
@@ -30,19 +30,23 @@ bf16 leaves are stored as their raw bits, ``uint16``, with the dtype tag
   the queue is empty and re-raises a background failure.
 * **keep_n** — oldest-first GC that never removes the LATEST target.
 * **Multi-process** (``torch.distributed``, one process per rank) —
-  :func:`snapshot` is *collective* when given the wire's process group
-  (``rows=``): every process calls it at the same step, the ranks' rows of
-  the gradient wire's error-feedback residuals are gathered, in rank
-  order, into the reference's ``(n, *shape)`` leaves, and only process 0
-  copies the rest of the state (the same on every rank) and touches the
-  filesystem: it writes, repairs LATEST and prunes. All processes see the
-  same paths.
+  :func:`snapshot` is *collective* when given the state's specs
+  (``specs=``, one per leaf: :func:`repro_torch.dist.fsdp.train_state_specs`,
+  and the ``mesh``): every process calls it at the same step, every leaf a
+  spec shards (FSDP shards, the gradient wire's residual rows) is gathered
+  into the reference's full leaf on process 0
+  (:func:`repro_torch.dist.fsdp.gather_full`; the residual rows into the
+  reference's ``(n, *shape)`` stacks), and only process 0 copies the rest
+  and touches the filesystem: it writes, repairs LATEST and prunes. All
+  processes see the same paths. So a checkpoint holds full leaves whatever
+  the mesh that wrote it.
 
 :func:`restore` copies the stored values into the tensors of ``like`` in
 place (casting to their dtype, on their device), so restoring a state
-costs no second copy of it on the card; ``rows=``/``row=`` give a rank its
-row of the stacked residual leaves, and ``skip=`` leaves stale leaves
-unread.
+costs no second copy of it on the card; ``specs=``/``mesh=`` give a rank
+its part of every full leaf (the counterpart of the reference's
+``shardings=``: a checkpoint restores under any mesh), and ``skip=``
+leaves stale leaves unread.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import multihost as MH
 
 __all__ = ["save", "restore", "latest_step", "manifest", "snapshot", "flatten",
@@ -156,35 +161,24 @@ class Snapshot:
     manifest: dict
 
 
-def _gather_rows(row: torch.Tensor, group) -> np.ndarray | None:
-    """Every rank's ``(1, *shape)`` row of ``group``, stacked in rank order
-    on process 0 (None elsewhere). The rows travel on the group's device."""
-    dev = MH.group_device(group)
-    src = row.detach().to(dev).contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))] \
-        if MH.is_primary() else None
-    dist.gather(src, parts, dst=0, group=group)
-    if parts is None:
-        return None
-    return _leaf_to_host(torch.cat(parts))[0]
-
-
 def snapshot(tree: PyTree, step: int, *, extra: dict | None = None,
-             rows=None) -> Snapshot | None:
+             specs=None, mesh=None) -> Snapshot | None:
     """Copy every leaf to host memory the snapshot owns.
 
-    ``rows`` (the wire's process group) makes it collective: ``tree`` is a
-    ``TrainState`` whose ``wire_residuals`` hold this rank's rows; each is
-    gathered into the reference's ``(n, *shape)`` leaf. Only process 0
-    copies the rest and gets the snapshot; the others get None."""
-    if rows is None:
+    ``specs`` (one per leaf, in flatten order) makes it collective: each
+    leaf a spec shards is gathered into its full leaf on process 0 (every
+    process must call), the others are process 0's own. Only process 0
+    gets the snapshot; the others get None."""
+    if specs is None:
         host = [_leaf_to_host(leaf) for leaf in flatten(tree)]
     else:
-        stacked = [_gather_rows(r, rows) for r in flatten(tree.wire_residuals)]
+        host = []
+        for leaf, spec in zip(flatten(tree), specs):
+            if isinstance(leaf, torch.Tensor) and F.sharded_dims(spec):
+                leaf = F.gather_full(leaf, spec, mesh)
+            host.append(_leaf_to_host(leaf) if MH.is_primary() else None)
         if not MH.is_primary():
             return None
-        host = [_leaf_to_host(leaf) for leaf in flatten(tree._replace(wire_residuals=None))]
-        host += [(a, "float32") for a in stacked]
     man = {
         "step": int(step),
         "time": time.time(),
@@ -228,10 +222,10 @@ def _commit(directory: Path, snap: Snapshot, keep_n: int) -> Path:
 
 
 def save(directory: str | Path, step: int, tree: PyTree, *,
-         keep_n: int = 3, extra: dict | None = None, rows=None) -> Path:
-    """Synchronous snapshot and commit; collective with ``rows`` (only
+         keep_n: int = 3, extra: dict | None = None, specs=None, mesh=None) -> Path:
+    """Synchronous snapshot and commit; collective with ``specs`` (only
     process 0 writes)."""
-    snap = snapshot(tree, step, extra=extra, rows=rows)
+    snap = snapshot(tree, step, extra=extra, specs=specs, mesh=mesh)
     if snap is None:
         return Path(directory) / f"step_{step:09d}"
     return _commit(Path(directory), snap, keep_n)
@@ -322,7 +316,7 @@ def _stored_tensor(arr: np.ndarray, tag: str) -> torch.Tensor:
 
 
 def restore(directory: str | Path, like: PyTree, *, step: int | None = None,
-            skip=(), rows=(), row: int = 0) -> tuple[PyTree, int]:
+            skip=(), specs=None, mesh=None) -> tuple[PyTree, int]:
     """Restore into the structure of ``like``: each tensor leaf of ``like``
     receives its stored value in place (cast to its dtype, on its device:
     a checkpoint of another policy restores into this one's formats), and
@@ -331,9 +325,9 @@ def restore(directory: str | Path, like: PyTree, *, step: int | None = None,
     ``step`` is given).
 
     ``skip`` (leaf indices) leaves those stored leaves unread: ``like``'s
-    leaf comes back as it is. ``rows`` (leaf indices) are stacked one row
-    per replica, ``(n, *shape)``, and ``like`` holds one ``(1, *shape)``:
-    it receives row ``row``."""
+    leaf comes back as it is. ``specs`` (one per leaf, with ``mesh``) give
+    each leaf this rank's part of the stored full leaf
+    (:func:`repro_torch.dist.fsdp.local_slice`)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -344,7 +338,7 @@ def restore(directory: str | Path, like: PyTree, *, step: int | None = None,
     leaves = flatten(like)
     if man["n_leaves"] != len(leaves):
         raise ValueError(f"checkpoint has {man['n_leaves']} leaves, expected {len(leaves)}")
-    skip, rows = frozenset(skip), frozenset(rows)
+    skip = frozenset(skip)
     out = []
     with np.load(src / "arrays.npz") as data:
         for i, ref in enumerate(leaves):
@@ -354,10 +348,8 @@ def restore(directory: str | Path, like: PyTree, *, step: int | None = None,
             arr = data[f"a{i}"]
             if list(arr.shape) != man["shapes"][i]:
                 raise ValueError(f"leaf {i}: stored shape {arr.shape} != manifest")
-            if i in rows:
-                if not 0 <= row < arr.shape[0]:
-                    raise ValueError(f"leaf {i}: no row {row} in a stack of {arr.shape[0]}")
-                arr = arr[row:row + 1]
+            if specs is not None and F.sharded_dims(specs[i]):
+                arr = F.local_slice(arr, specs[i], mesh)
             if isinstance(ref, torch.Tensor):
                 if tuple(arr.shape) != tuple(ref.shape):
                     raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != model "
@@ -449,15 +441,17 @@ class CheckpointManager:
 
     def __init__(self, directory: str | Path, *, every_steps: int = 100,
                  keep_n: int = 3, async_saves: bool = False,
-                 max_pending: int = 2, extra: dict | None = None, rows=None):
+                 max_pending: int = 2, extra: dict | None = None, specs=None,
+                 mesh=None):
         self.directory = Path(directory)
         self.every_steps = every_steps
         self.keep_n = keep_n
         # run-level metadata stamped into every manifest (the gradient
         # wire's format, so a resume under another wire sees stale residuals)
         self.extra = dict(extra) if extra else {}
-        # the wire's process group: snapshots gather the residual rows
-        self.rows = rows
+        # multi-process: the state's specs (one per leaf) and mesh, so that
+        # snapshots gather sharded leaves and residual rows to process 0
+        self.specs, self.mesh = specs, mesh
         self._async = AsyncCheckpointer(max_pending=max_pending) if async_saves else None
 
     def maybe_save(self, step: int, tree: PyTree, *, force: bool = False):
@@ -467,8 +461,8 @@ class CheckpointManager:
             return None
         if self._async is None:
             return save(self.directory, step, tree, keep_n=self.keep_n, extra=self.extra,
-                        rows=self.rows)
-        snap = snapshot(tree, step, extra=self.extra, rows=self.rows)
+                        specs=self.specs, mesh=self.mesh)
+        snap = snapshot(tree, step, extra=self.extra, specs=self.specs, mesh=self.mesh)
         if snap is not None:
             self._async.submit(self.directory, snap, self.keep_n)
         return self.directory / f"step_{step:09d}"
@@ -488,12 +482,13 @@ class CheckpointManager:
         self.close()
         return False
 
-    def restore_latest(self, like: PyTree, step: int | None = None, *, skip=(), rows=(),
-                       row: int = 0):
+    def restore_latest(self, like: PyTree, step: int | None = None, *, skip=(),
+                       specs=None):
         """Restore the newest checkpoint — or, with ``step``, that one —
-        after the queued commits (see :func:`restore`)."""
+        after the queued commits (see :func:`restore`; ``specs`` with the
+        manager's mesh)."""
         self.drain()
-        return restore(self.directory, like, step=step, skip=skip, rows=rows, row=row)
+        return restore(self.directory, like, step=step, skip=skip, specs=specs, mesh=self.mesh)
 
     def has_checkpoint(self) -> bool:
         self.drain()

@@ -39,8 +39,11 @@ the whole call is retried, as in the reference.
 
 **Multi-process** (``torch.distributed``, one process per rank, see
 :mod:`repro_torch.dist.multihost`): every process runs the loop in lock
-step. Checkpoint snapshots are collective (the wire's residual rows are
-gathered) and only process 0 writes; all processes barrier around
+step. Checkpoint snapshots are collective (FSDP shards and the wire's
+residual rows are gathered into full leaves) and only process 0 writes,
+whatever the transport; a restore gives each rank its part of every full
+leaf, so a checkpoint resumes under another mesh (FSDP ↔ data-parallel ↔
+one process); all processes barrier around
 restore, and the restore step, at startup and on a spike rollback, is
 process 0's LATEST after its commits, broadcast (only process 0 has
 queued commits that move LATEST). The SIGTERM flag is agreed every
@@ -69,6 +72,7 @@ from typing import Callable, Iterator, Union
 
 import torch
 
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import multihost as MH
 from repro_torch.train.checkpoint import CheckpointManager, flatten, latest_step, manifest
 from repro_torch.train.train_state import TrainState
@@ -145,7 +149,7 @@ def _zero(tree) -> None:
 
 
 def _restore(mgr: CheckpointManager, state: TrainState, log, *, step: int | None = None,
-             wire_format: str | None = None, transport=None):
+             wire_format: str | None = None, transport=None, specs=None):
     """Restore ``state`` in place from ``mgr``'s checkpoint at ``step``
     (LATEST when None), tolerant of gradient-wire residual drift in every
     direction a restart can change the wire (the reference's four cases,
@@ -153,9 +157,16 @@ def _restore(mgr: CheckpointManager, state: TrainState, log, *, step: int | None
     one ``(replicas, *param shape)`` leaf per parameter after the rest of
     the state (the reference's legacy 3-field state has the bare layout);
     a checkpoint of neither layout falls through to ``restore``'s own
-    validation error."""
+    validation error. ``specs`` (the state's spec tree, with the manager's
+    mesh) give this rank its part of every stored leaf, its row of the
+    residual stacks among them; without them (one process) the stored
+    leaves are this state's whole."""
     residuals = state.wire_residuals
-    params = tree_leaves(state.params)
+    params = [tuple(p.shape) for p in tree_leaves(state.params)]
+    flat = pflat = None
+    if specs is not None:       # the stored leaves are full: compare full shapes
+        flat, pflat = F.flat_specs(specs), F.flat_specs(specs.params)
+        params = [F.full_shape(p, s, mgr.mesh) for p, s in zip(params, pflat)]
     man = manifest(mgr.directory, step=step)
     n_ckpt, shapes = man["n_leaves"], man["shapes"]
     n_state = len(flatten(state))
@@ -166,14 +177,15 @@ def _restore(mgr: CheckpointManager, state: TrainState, log, *, step: int | None
         tail = shapes[start:]
         if len(tail) != len(params) or not tail:
             return None
-        ok = all(len(t) == p.dim() + 1 and t[1:] == list(p.shape) and t[0] == tail[0][0]
+        ok = all(len(t) == len(p) + 1 and t[1:] == list(p) and t[0] == tail[0][0]
                  for t, p in zip(tail, params))
         return tail[0][0] if ok else None
 
     if residuals is not None:
         n_bare = n_state - len(params)
         if n_ckpt == n_bare:
-            restored, at = mgr.restore_latest(state._replace(wire_residuals=None), step=step)
+            restored, at = mgr.restore_latest(state._replace(wire_residuals=None), step=step,
+                                              specs=None if flat is None else flat[:n_bare])
             _zero(residuals)
             log("[loop] checkpoint has no wire_residuals; zero-initialized "
                 "error-feedback buffers")
@@ -188,26 +200,25 @@ def _restore(mgr: CheckpointManager, state: TrainState, log, *, step: int | None
             stale = (f"gradient-wire format changed since checkpoint "
                      f"({stored_fmt} -> {wire_format})")
         if stale is not None:
-            restored, at = mgr.restore_latest(state, step=step, skip=range(n_bare, n_state))
+            restored, at = mgr.restore_latest(state, step=step, skip=range(n_bare, n_state),
+                                              specs=flat)
             _zero(residuals)
             log(f"[loop] {stale}; zero-initialized error-feedback buffers")
             return restored, at
-        if stored_n is not None:
-            return mgr.restore_latest(state, step=step, rows=range(n_bare, n_state),
-                                      row=transport.replica if transport else 0)
     elif n_ckpt == n_state + len(params) and stored_replicas(n_state) is not None:
         # params stand in as structure-matching placeholders, left unread
         like = state._replace(wire_residuals=state.params)
-        restored, at = mgr.restore_latest(like, step=step, skip=range(n_state, n_ckpt))
+        restored, at = mgr.restore_latest(like, step=step, skip=range(n_state, n_ckpt),
+                                          specs=None if flat is None else flat + pflat)
         log("[loop] dropping checkpointed wire_residuals (stateless gradient transport)")
         return restored._replace(wire_residuals=None), at
-    return mgr.restore_latest(state, step=step)
+    return mgr.restore_latest(state, step=step, specs=flat)
 
 
 def run_training(state: TrainState, train_step: Callable, batches: Batches,
                  cfg: TrainLoopConfig, *, log: Callable[[str], None] = print,
                  fault_hook: Callable[[int], None] | None = None,
-                 transport=None) -> tuple[TrainState, dict]:
+                 transport=None, specs=None) -> tuple[TrainState, dict]:
     """Run from ``state.step`` (or the latest checkpoint under
     ``cfg.ckpt_dir``) to ``cfg.total_steps``. Returns the final state and
     ``{"history", "stragglers", "preempted", "rollbacks"}``.
@@ -221,20 +232,24 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
     same batch. ``fault_hook(step)`` runs at the start of each attempt of
     the gradient phase and may raise to simulate a failure.
 
-    ``transport`` (the step's gradient transport) places the wire's
-    residual rows: this rank's row on restore, every rank's gathered on
-    save (the reference passes its state shardings instead).
+    ``transport`` (the step's gradient transport) places the state: under
+    multi-process its parameter specs (FSDP shards; none: replicated), its
+    wire axis (the residual rows) and its mesh give the state's specs
+    (:func:`repro_torch.dist.fsdp.train_state_specs`), by which snapshots
+    gather full leaves and a restore keeps this rank's parts (the
+    reference passes its state shardings instead). ``specs`` overrides
+    them.
     """
     multiproc = MH.active()
-    rows = None
-    if transport is not None and transport.wire_replicas > 1 \
-            and state.wire_residuals is not None:
-        rows = transport.mesh.group(transport.wire_axis)
+    mesh = getattr(transport, "mesh", None)
+    if specs is None and multiproc:
+        specs = F.train_state_specs(state, getattr(transport, "pspecs", None), transport)
     mgr = CheckpointManager(cfg.ckpt_dir, every_steps=cfg.ckpt_every, keep_n=cfg.keep_n,
                             async_saves=cfg.async_saves, max_pending=cfg.max_pending_saves,
                             extra=({"wire_format": cfg.wire_format}
                                    if cfg.wire_format else None),
-                            rows=rows) if cfg.ckpt_dir else None
+                            specs=None if specs is None else F.flat_specs(specs),
+                            mesh=mesh) if cfg.ckpt_dir else None
     batches_fn = batches if callable(batches) else None
     if cfg.spike_factor is not None:
         if mgr is None:
@@ -251,7 +266,7 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
         at_step = _agreed_restore_step(mgr)
         if at_step is not None:
             state, at = _restore(mgr, state, log, step=at_step, wire_format=cfg.wire_format,
-                                 transport=transport)
+                                 transport=transport, specs=specs)
             log(f"[loop] resumed from checkpoint at step {at}")
             MH.barrier("repro:loop:restored")
     gradients, update = _phases(train_step)
@@ -350,7 +365,8 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
                         raise RuntimeError(f"loss diverged at step {step} after "
                                            f"{rollbacks} rollbacks; giving up")
                     state, at = _restore(mgr, state, log, step=at_step,
-                                         wire_format=cfg.wire_format, transport=transport)
+                                         wire_format=cfg.wire_format, transport=transport,
+                                         specs=specs)
                     MH.barrier("repro:loop:rolled-back")
                     saved_at[0] = None
                     rollbacks += 1

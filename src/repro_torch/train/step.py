@@ -10,12 +10,14 @@ runs k microbatches over one working copy, accumulating f32 gradients,
 before one update on their mean.
 
 Every gradient collective goes through a
-:class:`repro_torch.dist.transport.GradientTransport`: on a data-parallel
-mesh each rank computes the rows the reference gives its replica
-(``dist/partition.py::rank_rows``), ``transport.reduce`` takes the
-cross-rank mean on the wire axis, and the step itself takes the f32 mean
-over the other data-parallel axes (the mean the reference leaves to GSPMD
-inside its backward).
+:class:`repro_torch.dist.transport.GradientTransport`: on a mesh each rank
+computes the rows the reference gives its device
+(``dist/partition.py::rank_rows``), ``transport.prepare`` gathers an FSDP
+working copy (once per step, outside the microbatch loop), and
+``transport.reduce`` reduce-scatters over the FSDP axis, takes the step's
+f32 mean over the other data-parallel axes (the mean the reference leaves
+to GSPMD inside its backward) and the mean on the wire axis, in that
+order. Under FSDP the optimizer then updates this rank's shards.
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ import torch
 from repro_torch.core.formats import round_nearest
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import partition as PT
 from repro_torch.dist import transport as T
 from repro_torch.kernels import dispatch
 from repro_torch.models import registry as R
-from repro_torch.optim.base import StepKey, write_back
-from repro_torch.optim.grad_compress import WireKey, wire_mean
+from repro_torch.optim.base import ShardKey, StepKey, write_back
+from repro_torch.optim.grad_compress import WireKey, gather_parts, wire_mean
 from repro_torch.serve import cache as SC
 from repro_torch.train.train_state import TrainState, softmax_xent
 from repro_torch.tree import (tree_leaves, tree_map, tree_paths, tree_pop_leaves,
@@ -92,14 +95,6 @@ def step_keys(seed: int, step: int, replica: int) -> tuple:
     return StepKey(seed, step), WireKey(seed, step, replica)
 
 
-def _dp_axis(mesh) -> str | None:
-    """The one data-parallel axis of ``mesh`` above size 1 (None if none)."""
-    if mesh is None:
-        return None
-    axes = [a for a in PT.dp_axes(mesh) if mesh.shape[a] > 1]
-    return axes[0] if axes else None
-
-
 def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
                     remat: bool = True, attn_chunk: int = 1024,
                     loss_fn: Callable | None = None, pspecs=None, placement=None,
@@ -127,7 +122,14 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     ``gradients``.
 
     The gradient path belongs to ``transport``; without one it is derived
-    from ``mesh``/``placement``/``pspecs`` (the f32 data-parallel mean).
+    from ``mesh``/``placement``/``pspecs`` (the f32 data-parallel mean; with
+    an FSDP placement and its ``pspecs``, the reduce-scatter). Under FSDP
+    ``state`` holds this rank's shards (:func:`repro_torch.dist.fsdp.shard_state`):
+    the working copy is gathered once per step, the gradients land on the
+    shards, the optimizer updates them (a non-fused SR write rounds a shard
+    with its leaf's Philox words at the shard's positions, so the result
+    equals the data-parallel update's bit for bit), and ``grad_norm`` sums
+    the shards' squares over the FSDP group.
     ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; the transport's
     when not given) places this process: every rank is handed the same
     global batch and computes the rows of its replica, the loss is the mean
@@ -144,12 +146,25 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         transport = T.make_transport(mesh=mesh, placement=placement, pspecs=pspecs)
     if mesh is None:
         mesh = transport.mesh
-    dp_axis = _dp_axis(mesh)
+    split = mesh is not None and PT.dp_size(mesh) > 1
     # the mean the reference leaves to GSPMD: every data-parallel axis above
-    # size 1 that is not the wire's (in this slice at most one)
+    # size 1 that neither the wire nor the FSDP reduce-scatter reduces
     mean_groups = ([] if mesh is None else
                    [mesh.group(a) for a in transport.hint_axes(mesh)[0] if mesh.shape[a] > 1])
+    # under FSDP: the parameters' specs (the update's shards) and the group
+    # over which the gradient norm sums its shards
+    scatter_group = (mesh.group(transport.scatter_axis)
+                     if mesh is not None and transport.scatter_axis is not None else None)
+    shard_specs = transport.pspecs if scatter_group is not None else None
     qa = QArith(policy)
+
+    def within(grads):
+        for group in mean_groups:
+            flat = tree_pop_leaves(grads)
+            for i in range(len(flat)):
+                flat[i] = wire_mean(flat[i].to(torch.float32), group, transport.stats)
+            grads = tree_unflatten(grads, flat)
+        return grads
 
     def _loss(wc, batch):
         logits = R.forward_logits(qa, wc, cfg, batch, remat=remat, attn_chunk=attn_chunk)
@@ -171,8 +186,9 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         return loss.detach(), grads
 
     def gradients(state: TrainState, batch, seed) -> Gradients:
-        if dp_axis is not None:
-            batch = PT.rank_rows(batch, mesh, mesh.index(dp_axis), microbatches=grad_accum)
+        if split:
+            batch = PT.rank_rows(batch, mesh, PT.rank_index(mesh, transport.wire_axis),
+                                 microbatches=grad_accum)
         # the working copy, as fresh autograd leaves sharing its storage
         wc = transport.prepare(compute_params(state.params, policy))
         leaves = [w.detach().requires_grad_(True) for w in tree_leaves(wc)]
@@ -198,22 +214,24 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         del wc, leaves
         grads = tree_unflatten(state.params, grads)
         _, wire_key = keys(int(seed), int(state.step), transport.replica)
-        grads, residuals = transport.reduce(grads, state.wire_residuals, wire_key)
-        for group in mean_groups:
-            flat = tree_pop_leaves(grads)
-            for i in range(len(flat)):
-                flat[i] = wire_mean(flat[i].to(torch.float32), group, transport.stats)
-            grads = tree_unflatten(grads, flat)
+        grads, residuals = transport.reduce(grads, state.wire_residuals, wire_key,
+                                            within=within)
         loss = loss.to(torch.float32)
-        if dp_axis is not None:
-            loss = wire_mean(loss.reshape(1), mesh.group(dp_axis))[0]
-        grad_norm = _global_norm(grads)
+        if split:
+            loss = wire_mean(loss.reshape(1), mesh.dp_group())[0]
+        if scatter_group is None:
+            grad_norm = _global_norm(grads)
+        else:
+            grad_norm = _sharded_norm(grads, shard_specs, scatter_group)
         float(grad_norm)    # the sync: a device fault of this phase surfaces here
         return Gradients(grads, loss, grad_norm,
                          None if residuals is state.wire_residuals else residuals)
 
     def update(state: TrainState, g: Gradients, seed) -> tuple[TrainState, dict]:
         key, _ = keys(int(seed), int(state.step), transport.replica)
+        if scatter_group is not None:
+            # a shard's SR bits: its leaf's stream at the shard's positions
+            key = ShardKey(key, F.shard_positions(state.params, shard_specs, mesh))
         lr = lr_schedule(state.step)
         new_params, new_opt = optimizer.update(g.grads, state.opt_state, state.params,
                                                step=state.step, key=key, lr=lr)
@@ -238,6 +256,26 @@ def _global_norm(tree) -> torch.Tensor:
     with torch.no_grad():
         return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                               for g in tree_leaves(tree)))
+
+
+def _sharded_norm(tree, pspecs, group) -> torch.Tensor:
+    """The global norm of gradients held as shards over ``group``: each
+    leaf's sum of squares, summed over the group's shards in rank order for
+    a sharded leaf and counted once for a replicated one, then over the
+    leaves in order; the same bits on every rank."""
+    with torch.no_grad():
+        leaves = tree_leaves(tree)
+        own = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in leaves])
+        parts = gather_parts(own, group)
+        sharded = [bool(F.sharded_dims(s)) for s in tree_leaves(pspecs)]
+        total = None
+        for i, is_sharded in enumerate(sharded):
+            sq = parts[0][i].clone()
+            if is_sharded:
+                for p in parts[1:]:
+                    sq += p[i]
+            total = sq if total is None else total + sq
+        return torch.sqrt(total)
 
 
 def make_eval_step(cfg, policy: PrecisionPolicy, *, attn_chunk: int = 1024):

@@ -708,6 +708,26 @@ def test_philox_fill_matches_plain(cuda, n):
     assert torch.equal(got, PH.philox_bits_ref(seed, n, cuda))
 
 
+@pytest.mark.parametrize("full_shape,dim,start,ext", [
+    ((8, 6), 0, 4, 4), ((2, 12, 5), 1, 6, 6), ((3, 10, 7), 1, 5, 5), ((5, 9), 1, 3, 3),
+    ((2, 2048, 11008), 2, 5504, 5504)])
+def test_philox_shard_entry_matches_plain(cuda, full_shape, dim, start, ext):
+    """An FSDP shard's words (the fill's shard entry) ≡ the plain version
+    and the whole leaf's fill at the shard's positions."""
+    seed = 0x0BAD_5EED + start
+    shape = list(full_shape)
+    shape[dim] = ext
+    before = PH.LAUNCHES
+    got = PH.philox_bits(seed, shape, cuda, full_shape=full_shape, dim=dim, start=start)
+    torch.cuda.synchronize()
+    assert PH.LAUNCHES == before + 1
+    whole = PH.philox_bits(seed, full_shape, cuda)
+    assert torch.equal(got, whole.narrow(dim, start, ext))
+    if got.numel() <= 1 << 20:
+        assert torch.equal(got.cpu(), PH.philox_bits(seed, shape, "cpu", full_shape=full_shape,
+                                                     dim=dim, start=start))
+
+
 @pytest.mark.parametrize("n", [1, 5, 4099, 1_000_003])
 @pytest.mark.parametrize("offset", [(0, 0), (3, 3), (1, 0)], ids=["aligned", "head", "mixed"])
 @pytest.mark.parametrize("kahan", [False, True])

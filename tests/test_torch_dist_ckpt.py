@@ -45,6 +45,7 @@ from repro.train.train_state import make_train_state as j_make_train_state
 from repro_torch.convert import from_jax_train_state, to_jax_wire_residuals
 from repro_torch.core.policy import get_policy
 from repro_torch.data.synthetic import lm_batches
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import transport as T
 from repro_torch.models import registry as R
 from repro_torch.optim import adamw, constant
@@ -146,8 +147,10 @@ def test_reference_residual_checkpoint_restores_in_the_port(tmp_path):
     for a, b in zip(C.flatten(out)[1:], C.flatten(want)[1:]):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert any(float(r.abs().max()) > 0 for r in tree_leaves(out.wire_residuals))
-    # a reference stack of 2 replicas gives each rank its row, and the rows
-    # go back to the reference's stack
+    # a reference stack of 2 replicas gives each rank its row (through the
+    # state's specs, as a multi-process run restores: this process stands
+    # in for each rank of a 2-rank data mesh), and the rows go back to the
+    # reference's stack
     stack = jax.tree_util.tree_map(
         lambda r: np.concatenate([np.asarray(r), 2 * np.asarray(r)]), jstate.wire_residuals)
     JC.save(tmp_path / "two", 2, jstate._replace(wire_residuals=stack),
@@ -155,9 +158,11 @@ def test_reference_residual_checkpoint_restores_in_the_port(tmp_path):
     rows = []
     for rank in range(2):
         st, _, _ = _port_run()
-        mgr = C.CheckpointManager(tmp_path / "two")
-        st, _ = _restore(mgr, st, print, wire_format="bf16",
-                         transport=SimpleNamespace(wire_replicas=2, replica=rank))
+        mesh = SimpleNamespace(shape={"data": 2}, index=lambda axis, rank=rank: rank)
+        mgr = C.CheckpointManager(tmp_path / "two", mesh=mesh)
+        wire = SimpleNamespace(wire_replicas=2, replica=rank, wire_axis="data")
+        st, _ = _restore(mgr, st, print, wire_format="bf16", transport=wire,
+                         specs=F.train_state_specs(st, None, wire))
         rows.append(st.wire_residuals)
         ref_rows = from_jax_train_state(
             jax.tree_util.tree_map(np.asarray, jstate._replace(wire_residuals=stack)),

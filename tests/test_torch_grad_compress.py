@@ -241,15 +241,20 @@ def test_make_transport_refusals_match_reference():
         JT.CompressedWire(fmt=JF.FP32)
     with pytest.raises(ValueError, match="Fp32Psum"):
         T.CompressedWire(fmt=TF.FP32)
-    # FSDP (the reference's ReduceScatter inner) and the model axis are
-    # later items of the port
-    with pytest.raises(ValueError, match="A9"):
-        PT.Placement(fsdp_axis="fsdp")
-    with pytest.raises(ValueError, match="A9"):
-        T.ReduceScatter({}, None)
-    with pytest.raises(ValueError, match="A9"):
-        T.make_transport(placement=SimpleNamespace(fsdp_axis="data", tp_axis="model"),
-                         wire="bf16")
+    # FSDP (ported with A9): the placement sizes its axis as the reference's
+    # does, ReduceScatter takes its specs, and an FSDP placement without
+    # specs leaves the plain inner under the wire in both packages; the
+    # model axis is a later item of the port
+    smesh = SimpleNamespace(axis_names=("data", "fsdp", "model"),
+                            shape={"data": 1, "fsdp": 2, "model": 1})
+    assert PT.Placement(fsdp_axis="fsdp").fsdp_size(smesh) == \
+        JPT.Placement(fsdp_axis="fsdp").fsdp_size(smesh) == 2
+    assert T.ReduceScatter({}, PT.Placement(fsdp_axis="fsdp")).scatter_axis == "fsdp"
+    pl = SimpleNamespace(fsdp_axis="data", tp_axis="model")
+    want = JT.make_transport(placement=pl, wire="bf16")
+    got = T.make_transport(placement=pl, wire="bf16")
+    assert (type(got).__name__, type(got.inner).__name__) == \
+        (type(want).__name__, type(want.inner).__name__) == ("CompressedWire", "Fp32Psum")
     with pytest.raises(ValueError, match="A10"):
         PT.Placement().tp_size(Mesh(("data", "model"), (1, 2)))
     # a compressed wire needs its residuals, in both packages

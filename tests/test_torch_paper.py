@@ -112,7 +112,7 @@ def test_runner_lists_the_reference_sections():
     ported = [name for name, mod in runner.SECTIONS if not mod.startswith("ROADMAP")]
     assert ported == ["fig2_theory", "table3_bottleneck", "table4_accuracy",
                       "fig5_tradeoff", "fig9_cancellation", "fig10_sub16",
-                      "fig11_combined", "fig12_fp16", "grad_wire_sweep"]
+                      "fig11_combined", "fig12_fp16", "fsdp_memory", "grad_wire_sweep"]
 
 
 def _run(*args):
@@ -135,11 +135,13 @@ def test_runner_fails_loudly_on_a_section_not_ported(capsys):
     assert runner.main(["--only", "appB,fsdp,serve_batching", "--device", "cpu"]) == 1
     out = capsys.readouterr()
     assert "appB_kernels is not ported yet (ROADMAP A6)" in out.err
-    assert "fsdp_memory is not ported yet (ROADMAP A9)" in out.err
     assert "serve_batching is not ported yet (ROADMAP A8)" in out.err
-    # the sections after the first failure still ran
+    # the sections after the first failure still ran; fsdp_memory (ported
+    # with A9) prints its rows between the two failures
+    assert "fsdp_memory" not in out.err.replace("section fsdp_memory took", "")
     assert [line.split(",")[0] for line in out.out.splitlines()] == [
-        "name", "appB_kernels_ERROR", "fsdp_memory_ERROR", "serve_batching_ERROR"]
+        "name", "appB_kernels_ERROR", "fsdp_compare_dp_step", "fsdp_compare_fsdp_step",
+        "fsdp_vs_dp_state_bytes_ratio", "serve_batching_ERROR"]
 
 
 def test_runner_needs_a_card_or_the_cpu_flag():

@@ -28,7 +28,6 @@ import os
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +48,7 @@ from repro_torch.convert import from_jax_params, from_jax_train_state
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qarith import QArith
 from repro_torch.data.synthetic import TokenStream, lm_batches
-from repro_torch.dist.partition import Placement, param_specs
+from repro_torch.dist.partition import Placement, default_placement, param_specs
 from repro_torch.dist.transport import make_transport
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch import train as launch_train
@@ -227,7 +226,8 @@ def test_eval_step_and_dist_arguments():
     # the dist arguments: a one-replica compressed wire trains, its residual
     # rows written in the update phase (bf12: the bf16 gradients lose bits);
     # replicated specs and the data-parallel placement are the default path;
-    # an FSDP placement raises (ROADMAP A9)
+    # an FSDP placement with its specs takes the reduce-scatter transport,
+    # which on one process trains as the default path does
     opt = adamw(policy, b2=0.997)
     tr = make_transport(wire="bf12")
     state = make_train_state(params, opt, transport=tr)
@@ -245,9 +245,17 @@ def test_eval_step_and_dist_arguments():
                            pspecs=param_specs(params, cfg, mesh), placement=Placement())
     _, metrics = step(make_train_state(params, opt), batch, 0)
     assert np.isfinite(float(metrics["loss"]))
-    with pytest.raises(ValueError, match="A9"):
-        make_train_step(cfg, policy, opt, constant(1e-3),
-                        placement=SimpleNamespace(fsdp_axis="fsdp", tp_axis="model"))
+    fsdp = default_placement(mesh, fsdp=True)
+    tr = make_transport(mesh=mesh, placement=fsdp, pspecs=param_specs(params, cfg, mesh,
+                                                                      fsdp))
+    assert (tr.name, fsdp.fsdp_axis, tr.scatter_axis) == ("reduce_scatter", "data", "data")
+    fresh = R.init(cfg, 0, policy.param_dtype, device="cpu")
+    step = make_train_step(cfg, policy, opt, constant(1e-3), attn_chunk=CHUNK, transport=tr)
+    _, fsdp_metrics = step(make_train_state(fresh, opt), batch, 0)
+    fresh = R.init(cfg, 0, policy.param_dtype, device="cpu")
+    plain = make_train_step(cfg, policy, opt, constant(1e-3), attn_chunk=CHUNK)
+    _, plain_metrics = plain(make_train_state(fresh, opt), batch, 0)
+    assert float(fsdp_metrics["loss"]) == float(plain_metrics["loss"])
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +317,7 @@ def test_launcher_needs_a_card_or_the_cpu_flag():
 
 
 # the flags of the dist slice's later items, and the item each names
-LATER_ITEMS = {"--fsdp": "A9", "--fsdp-parallel": "A9", "--model-parallel": "A10"}
+LATER_ITEMS = {"--model-parallel": "A10"}
 
 
 @pytest.mark.parametrize("flags,slice_", [
@@ -322,8 +330,8 @@ LATER_ITEMS = {"--fsdp": "A9", "--fsdp-parallel": "A9", "--model-parallel": "A10
 ])
 def test_launcher_refuses_flags_of_later_slices(flags, slice_):
     """The dist slice's flags parse (a mesh that needs more processes than
-    the run has raises when the run is built); its later items' flags raise
-    naming their ROADMAP item."""
+    the run has raises when the run is built), FSDP's (A9) among them; the
+    model axis's flag raises naming its ROADMAP item."""
     argv = ["--reduced", "--device", "cpu", *flags]
     if slice_ is None:
         cfg = launch_train.loop_config(launch_train.parse_args(argv))
@@ -334,8 +342,8 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
             launch_train.parse_args(argv)
         return
     args = launch_train.parse_args(argv)
-    assert getattr(args, flags[0][2:].replace("-", "_")) == type(
-        getattr(args, flags[0][2:].replace("-", "_")))(flags[1])
+    value = getattr(args, flags[0][2:].replace("-", "_"))
+    assert value == (True if len(flags) == 1 else type(value)(flags[1]))
     if args.data_parallel * args.pods > 1:
         with pytest.raises(ValueError, match="needs 2 processes"):
             launch_train.build(args)
@@ -344,5 +352,14 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
 @pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "A10"),
                                         (["--fsdp-parallel", "2"], "A9")])
 def test_launcher_refuses_the_later_dist_items(flags, item):
-    with pytest.raises(ValueError, match=item):
-        launch_train.parse_args(["--reduced", "--device", "cpu", *flags])
+    """The model axis (A10) is refused; FSDP's ``--fsdp-parallel`` (ported
+    with A9) parses, and a single process cannot build its 2-process mesh."""
+    argv = ["--reduced", "--device", "cpu", *flags]
+    if item == "A10":
+        with pytest.raises(ValueError, match=item):
+            launch_train.parse_args(argv)
+        return
+    args = launch_train.parse_args(argv)
+    assert args.fsdp_parallel == 2
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        launch_train.build(args)
