@@ -50,21 +50,22 @@ Phases, each printing its lines (a failed check exits non-zero):
    position) — beside ``torch.mean``'s RMSNorm and cuBLAS's product,
    reported only; ``row_mean_sq`` ``torch.equal`` to its plain version,
    and its time;
-6. serve (main path of contiguous serving): full-width qwen2.5-3b (36
-   layers, random weights from a seed) served by the continuous-batching
+6. serve (main path of contiguous serving): full-width qwen2.5-3b (12 of
+   its 36 layers, random weights from a seed) served by the continuous-batching
    engine with the serve step's kernels (decode attention, ``qmatmul``
    for every dense product, ``row_mean_sq``) — 12 requests from the
    synthetic stream, first with the eager step (timed, its tokens kept),
    then with the engine's CUDA graphs (the first step of a width eager,
    every later one a replay); every request must finish, the graph must
-   hold 36 decode, 252 ``qmatmul`` and 73 ``row_mean_sq`` launches and the
+   hold 12 decode, 84 ``qmatmul`` and 25 ``row_mean_sq`` launches and the
    run must have made that many per serve step (the launches of the eager
    first step plus the graph's per replay), and the tokens must equal the
-   eager step's and the port's ``generate`` (same kernels, batched to the
-   engine's 8 rows) bit for bit, and the run captures no logits graph
+   eager step's, and on the 4 shortest requests the port's ``generate``'s
+   (same kernels, batched to the engine's 8 rows), bit for bit, and the
+   run captures no logits graph
    (greedy traffic); then the same stream with
    ``prefill_chunk=32`` (graphs of widths 1 and 32): tokens equal to the
-   chunk-1 run's on every request, 36 decode launches per step at both
+   chunk-1 run's on every request, 12 decode launches per step at both
    widths, ms per step of each width;
 7. serve-paged (main path of paged serving): the same model served by
    the paged engine (8 slots, max_len 1024, pages of 16, 64 pages — below
@@ -74,13 +75,13 @@ Phases, each printing its lines (a failed check exits non-zero):
    finishes with the tokens and steps of the eager step and the tokens of
    a contiguous fused engine on the same stream, at least one preemption
    and one prefix hit, pool invariants at drain and no live page after
-   ``clear_prefix``, 36 paged-kernel launches per serve step; then the
+   ``clear_prefix``, 12 paged-kernel launches per serve step; then the
    same stream with ``prefill_chunk=32`` (graphs of widths 1 and 32) in
    fewer steps, its tokens equal to the chunk-1 run's on every request,
-   36 paged launches per step at both widths, ms per step of each width;
+   12 paged launches per step at both widths, ms per step of each width;
    then the chunk probe (ROADMAP C10): one 32-token chunk step against 32
    single-token steps from an empty cache, 8 lanes, K, V and positions of
-   all 36 layers and the last-row logits ``torch.equal``; then a profile
+   all 12 layers and the last-row logits ``torch.equal``; then a profile
    of steady-state serve steps of each engine, contiguous and paged, with
    the host wall time per step before, under and after the profiler, the
    device time and idle share per step, graph launches and the kernels
@@ -88,9 +89,9 @@ Phases, each printing its lines (a failed check exits non-zero):
    launches per step as the profiler counts them (the profiles come last:
    the profiler may slow the launches of later work);
 7b. families (ROADMAP A4 items 1-4; after the sample phase and the serve
-   profiles): yi-9b (48 layers), mistral-nemo-12b (2 of 40),
-   command-r-35b (8 of 40), mixtral-8x22b (4 of 56), llama4-scout (4 of
-   48), falcon-mamba-7b (64) and recurrentgemma-2b (26) at their published
+   profiles): yi-9b (6 of 48 layers), mistral-nemo-12b (2 of 40),
+   command-r-35b (4 of 40), mixtral-8x22b (2 of 56), llama4-scout (2 of
+   48), falcon-mamba-7b (8 of 64) and recurrentgemma-2b (12 of 26) at their published
    widths, random weights from seed 0 drawn on the card, each freed before
    the next: 12 greedy requests on 8 slots (max_len 256, prompts of 8-48
    tokens, 24 new tokens, 4 of them in recycled slots) through the fused
@@ -117,13 +118,15 @@ Phases, each printing its lines (a failed check exits non-zero):
    decode and 54 ``qmatmul`` launches per step, ms per step; then 3 fused
    AdamW steps (``bf16_sr_kahan``) on one audio batch (8 × 1500 frames, 448
    tokens): falling loss, one launch per leaf per step; qwen2-vl:
-   qwen2-vl-7b at full width and depth served as the families are
+   qwen2-vl-7b at full width, 7 of 28 layers, served as the families are
    (eager == graphs == ``generate``, paged == contiguous, kernel counts,
-   row probe, profile), a vlm lock-step decode of 8 lanes over 16 text
+   row probe, profile), a vlm lock-step decode at full depth of 8 lanes
+   over 16 text
    embeddings, a 1 × 8 × 8 image grid and 16 more with their M-RoPE
    positions (last logits within 0.05 of ``forward_logits``; 28 decode,
    196 ``qmatmul``, 57 ``row_mean_sq`` launches per step), 3 fused AdamW
-   steps of a 2-layer cut on a vlm batch (falling loss); resnet:
+   steps of a 2-layer cut on a vlm batch (falling loss); resnet (run
+   beside the paper sections, phase 13):
    ``RESNET_CIFAR_SMALL`` on ``image_batches`` (batch 128), 200 SGD-momentum
    steps under ``fp32``, ``bf16_standard``, ``bf16_sr`` and ``bf16_kahan``
    (``fused_sgd`` once per leaf per step): falling loss, final accuracy;
@@ -159,7 +162,14 @@ Phases, each printing its lines (a failed check exits non-zero):
    nearest, and SR at the model's shapes, beside TFLOP/s, the bound, the
    ``mma.sync`` kernel's time on the same inputs, the plain version's and
    ``torch.matmul``'s (nearest: no single call rounds by SR; the port
-   never calls it); then ``sr_cast_op``, ``adamw_update_op`` and
+   never calls it); then the f32-result entry (``qmatmul_f32``, the
+   row-parallel partials of the tp phase) at the row-parallel shapes of
+   qwen2.5-3b at model 2 for 8 lanes and one training shape: rounded to
+   bf16 ``torch.equal`` to the bf16 entry on both paths, rows bitwise at
+   1, 8, 256 and 4096 rows, within the f32 accumulation bound of its plain
+   version; device time beside its bound, the bf16 entry's, the plain
+   version's and ``torch.mm(..., out_dtype=torch.float32)``'s; then
+   ``sr_cast_op``, ``adamw_update_op`` and
    ``sgd_update_op`` once each at a ragged n, ``torch.equal`` to the
    plain version on the generator's bits and to themselves under a
    re-seeded generator;
@@ -204,9 +214,9 @@ Phases, each printing its lines (a failed check exits non-zero):
     ``repro_torch.benchmarks`` (fig2, table3, table4, fig5, fig9, fig10,
     fig11, fig12) at the reference's step counts, each in a process of its
     own, all at once (host-bound harnesses: one after another they took
-    390-630 s), their CSV rows after a line with the card's name and power
-    limit; first one
-    ``bf16_sr`` SGD step of the DLRM (13 leaves, the tables 8 × 1000 × 16)
+    390-630 s; table4 in five: one per LM policy, one for its DLRM runs),
+    their CSV rows after a line with the card's name and power limit; first
+    one ``bf16_sr`` SGD step of the DLRM (13 leaves, the tables 8 × 1000 × 16)
     through ``sr_cast`` ``torch.equal`` to the same step through its plain
     version on the same Philox bits; ``sr_cast`` and ``philox`` counted
     over the sections; the reference's conclusions, with margins set from
@@ -220,9 +230,12 @@ Phases, each printing its lines (a failed check exits non-zero):
     ``bf16_sr`` DLRM run bitwise equal to table4's (losses and AUC); beside
     them the runner's ``grad_wire_sweep`` and ``fsdp_memory`` (4 ranks, 2
     data x 2 fsdp: DP / FSDP state bytes per rank >= 1.9); µs per step of
-    every run and the phase's wall time;
-14. ckpt (main path of checkpointed training; it runs last): the train
-    cell cut to 2 layers (465 M parameters) through the launcher's
+    every run and the phase's wall time. The tp launches (phase 16), the
+    ckpt phase and the resnet run beside the sections: all four are
+    host-bound, and one after another they took ~380 s; their times are
+    taken under that contention;
+14. ckpt (main path of checkpointed training; beside the paper sections):
+    the train cell cut to 2 layers (465 M parameters) through the launcher's
     ``build`` and ``train`` with ``--ckpt-every 2``, keep-N 2, under a
     temporary directory removed at the end (its free space printed first):
     (a) two uninterrupted 6-step runs, the second checkpointing
@@ -236,7 +249,7 @@ Phases, each printing its lines (a failed check exits non-zero):
 15. dist (ROADMAP A5, data parallelism; it runs last): (a) in a 1-rank
     NCCL group the train cell with ``--grad-wire bf16`` (the one-replica
     wire: every leaf SR-rounded by the ``philox`` fill and ``sr_cast``),
-    4 steps: falling loss, one launch of each per leaf per step, one
+    8 steps: falling loss, one launch of each per leaf per step, one
     leaf's q and residual ``torch.equal`` to the plain ``compress_leaf``
     (also with a nonzero residual), ms per step beside the train phase's,
     the wire's ms (CUDA events), residual and peak GiB; (b) 2 ranks on
@@ -265,7 +278,23 @@ Phases, each printing its lines (a failed check exits non-zero):
     gather and reduce-scatter bytes, host-copy ms, peak GiB per rank. The
     first launch's runs share the card and the host with the 4-rank one,
     so their step walls are not the isolated metric; ``tools/port_fsdp.py``
-    times DP-2 and FSDP-2 alone.
+    times DP-2 and FSDP-2 alone;
+16. tp (ROADMAP A10's serving part; launched beside the paper sections,
+    checked before the dist phase): ranks sharing this card over gloo
+    through ``repro_torch.launch.dist_launch`` (``chip_smoke.py
+    --tp-worker``): (a) 1 data x 2 model, full-width qwen2.5-3b (the serve
+    phase's 12 layers), the serve phase's 12 requests on 8 slots, eager steps (no
+    graphs under a model group): both ranks' tokens bitwise equal, engine
+    == lock-step ``generate`` under the same mesh on the shortest request,
+    the first prefill step's logits within 0.05 of the 1-rank step's
+    largest |logit|, 24 ``qmatmul_f32`` and 12 decode launches per step;
+    prints the token agreement with the serve phase's 1-rank engine,
+    weight and KV bytes per rank against one rank's, ms per eager step and
+    the model axis's collective and host-copy ms per step; (b) paged 1 x 2
+    at 2 layers on the paged stream's first 10 requests (32 pages of 16,
+    prefix cache): a preemption and a prefix hit, chunk 32 == chunk 1
+    bitwise; (c) 2 data x 2 model on 4 ranks at 2 layers, beside (b):
+    tokens == the 1 x 2 run's bitwise.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -300,13 +329,17 @@ PAGED_MAX_LEN = 1024        # the paged engine's max_len: its views are 64 pages
 PAGED_N_PAGES = 64          # below byte parity (8 x 64 = 512), so the run preempts
 LONG_VIEW = 32768           # qwen2.5-3b's max_position_embeddings: the longest view timed
 CHUNK = 32                  # the chunked reruns' prefill chunk
+# the serving phases' depth cut of full-width qwen2.5-3b (12 of its 36
+# layers), also the tp phase's (a): the script's time within its limit
+SERVE_LAYERS = 12
+MAIN_GENERATE = 4           # serve: the requests (the shortest) lock-step generate re-derives
 # the sample phase: every other request of the serve streams samples so
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, seed=1)
 SAMPLE_DRAWS = 20000        # draws on one logits row, card against the CPU
 SOURCES = ("decode_attention", "sr_cast", "fused_adamw", "fused_sgd", "qmatmul", "philox",
            "row_mean_sq")
 KERNELS = ("decode_attention", "paged_decode_attention", "sr_cast", "fused_adamw",
-           "fused_sgd", "qmatmul", "philox", "row_mean_sq")
+           "fused_sgd", "qmatmul", "qmatmul_f32", "philox", "row_mean_sq")
 # (M, N, K) of the qmatmul phase: full-width qwen2.5-3b products (d_model
 # 2048, d_ff 11008, 2 KV heads x 128) at the train phase's 2 x 2048 rows and
 # at one serve step's 8 lanes, then odd shapes that take every edge path
@@ -787,20 +820,23 @@ def graph_summary(eng) -> str:
 
 
 def serve_model():
-    """Full-width qwen2.5-3b with random weights from seed 0, on the card,
-    under ``bf16_standard``: what both serving phases serve."""
+    """Full-width qwen2.5-3b cut to ``SERVE_LAYERS`` with random weights from
+    seed 0, on the card, under ``bf16_standard``: what both serving phases
+    serve."""
     import torch
     from repro_torch.core.policy import get_policy
     from repro_torch.models import registry as R
 
     policy = get_policy("bf16_standard")
-    cfg = R.get_config("qwen2.5-3b")
+    full = R.get_config("qwen2.5-3b")
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = R.init(cfg, 0, policy.param_dtype, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[main] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    print(f"[main] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (depth cut for the "
+          f"script's time), d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({policy.name}) initialised on the card "
           f"in {time.perf_counter() - t0:.2f}s; peak device memory during init "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1020,11 +1056,14 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
           f"{graph_summary(eng)}; tokens == the eager step's for all "
           f"{len(res.completions)} requests")
 
-    # the reference: lock-step generate through the same kernel, each batch
-    # padded with dummy prompts to the engine's row count (cuBLAS picks its
-    # GEMM by the row count, so rows agree bitwise only at equal counts)
+    # the reference: lock-step generate through the same kernel on the
+    # MAIN_GENERATE shortest requests (each prompt token is an eager step),
+    # each batch padded with dummy prompts to the engine's row count
+    # (cuBLAS picks its GEMM by the row count, so rows agree bitwise only
+    # at equal counts)
     groups = {}
-    for c in res.completions:
+    for c in sorted(res.completions,
+                    key=lambda c: (c.prompt.size + c.tokens.size, c.rid))[:MAIN_GENERATE]:
         groups.setdefault((c.prompt.size, c.tokens.size), []).append(c)
     with dispatch.fused_decode():
         for (s0, gen), cs in groups.items():
@@ -1038,8 +1077,9 @@ def phase_main_path(card: str, params, cfg, policy) -> tuple:
                       f"{ref[i, s0:].tolist()}")
     toks = np.concatenate([c.tokens for c in res.completions])
     check(bool(((toks >= 0) & (toks < cfg.vocab)).all()), "token out of vocab")
-    print(f"[main] engine tokens == generate tokens for all {len(res.completions)} "
-          f"requests ({len(groups)} reference batches of {n_slots} rows)")
+    print(f"[main] engine tokens == generate tokens for the {MAIN_GENERATE} shortest of "
+          f"{len(res.completions)} requests ({len(groups)} reference batches of {n_slots} "
+          f"rows)")
 
     # ROADMAP C10: the same stream with chunked prefill gives the same tokens
     want = {c.rid: c.tokens for c in res.completions}
@@ -1663,13 +1703,17 @@ def phase_profile(eng, cfg, card: str, tag: str, steps: int = 3, strict: bool = 
 # the families phase: (arch, layers on the card — None for all — , what
 # else it serves). Widths are the published ones; depth is cut only where
 # one card's memory or the script's time forces it.
-FAMILIES = (("yi-9b", None, ("paged", "chunk")),
+# depth cuts: memory (mistral-nemo 2 of 40) and the script's time within
+# its 1200 s (yi-9b 6 of 48, command-r 4 of 40, mixtral 2 of 56,
+# llama4-scout 2 of 48, falcon-mamba 8 of 64, recurrentgemma 12 of 26:
+# four (rec, rec, attn) periods)
+FAMILIES = (("yi-9b", 6, ("paged", "chunk")),
             ("mistral-nemo-12b", 2, ()),
-            ("command-r-35b", 8, ()),
-            ("mixtral-8x22b", 4, ("paged",)),
-            ("llama4-scout-17b-a16e", 4, ()),
-            ("falcon-mamba-7b", None, ()),
-            ("recurrentgemma-2b", None, ("paged",)))
+            ("command-r-35b", 4, ()),
+            ("mixtral-8x22b", 2, ("paged",)),
+            ("llama4-scout-17b-a16e", 2, ()),
+            ("falcon-mamba-7b", 8, ()),
+            ("recurrentgemma-2b", 12, ("paged",)))
 FAMILY_PROFILE = ("yi-9b", "mixtral-8x22b", "falcon-mamba-7b", "recurrentgemma-2b",
                   "qwen2-vl-7b")
 FAMILY_GEN = 24
@@ -2040,6 +2084,7 @@ WHISPER_TRAIN_STEPS = 3
 WHISPER_LR = 1e-5                 # fused AdamW, bf16_sr_kahan, one audio batch repeated
 VLM_TEXT, VLM_GRID = 16, 8        # the vlm decode: text, a 1 x 8 x 8 image, text
 VLM_TRAIN_LAYERS, VLM_TRAIN_SEQ, VLM_TRAIN_BATCH, VLM_LR = 2, 256, 2, 1e-6
+VLM_SERVE_LAYERS = 7              # the families-style serve checks' depth cut
 RESNET_POLICIES = ("fp32", "bf16_standard", "bf16_sr", "bf16_kahan")
 RESNET_STEPS, RESNET_BATCH = 200, 128
 HP_RESNET = dict(lr=0.05, momentum=0.9, weight_decay=1e-4)
@@ -2347,12 +2392,12 @@ def _train_vlm(card: str) -> int:
 
 def phase_vlm(card: str) -> dict:
     """qwen2-vl-7b (ROADMAP A4 item 6): its text served as a family at full
-    width and depth (28 layers, 7.6 B parameters; G = 7) through
-    ``serve_family`` — eager == graphs == ``generate``, paged ==
-    contiguous, kernel counts per step, the row probe, a profile — with
-    then the vlm lock-step decode on the same weights and the 2-layer
-    train cut. Returns the launches."""
-    launches, row_dependent = serve_family(card, "qwen2-vl-7b", None, ("paged",))
+    width, ``VLM_SERVE_LAYERS`` of its 28 layers (G = 7; the cut is the
+    script's time) through ``serve_family`` — eager == graphs
+    == ``generate``, paged == contiguous, kernel counts per step, the row
+    probe, a profile — with then the vlm lock-step decode at full depth
+    and the 2-layer train cut. Returns the launches."""
+    launches, row_dependent = serve_family(card, "qwen2-vl-7b", VLM_SERVE_LAYERS, ("paged",))
     for k, n in _vlm_decode(card).items():
         launches[k] += n
     launches["fused_adamw"] = _train_vlm(card)
@@ -2428,7 +2473,8 @@ def phase_resnet(card: str) -> dict:
         want = 0 if pol.update_rounding == "exact" else n_leaves * RESNET_STEPS
         check(fused == want, f"resnet {name}: fused_sgd launched {fused}, expected {want}")
         print(f"[resnet] {name} on {card}: {RESNET_STEPS} steps of batch {RESNET_BATCH}, "
-              f"{ms:.2f} ms per step (host wall); mean loss first 20 {first:.4f}, last 20 "
+              f"{ms:.2f} ms per step (host wall, beside the paper sections: contended); "
+              f"mean loss first 20 {first:.4f}, last 20 "
               f"{last:.4f}; final batch accuracy {acc:.3f}; "
               + (f"fused_sgd {fused} launches ({n_leaves} leaves)" if fused else
                  "non-fused exact SGD"))
@@ -3238,19 +3284,37 @@ def _paper_parity(card: str):
           f"torch.equal to the plain versions on {card}")
 
 
+# the paper phase's longest section in processes of its own, one per LM
+# policy and one for its DLRM runs (``bench_accuracy.run_lm``,
+# ``run_dlrm``): the phase lasts as long as its longest process. Unit:
+# (part, function of the section's module, its keywords)
+PAPER_SPLIT = {"table4_accuracy": [
+    *((f"lm-{pol}", "run_lm", {"policies": [pol]})
+      for pol in ("fp32", "bf16_standard", "bf16_sr", "bf16_kahan")),
+    ("dlrm", "run_dlrm", {})]}
+
+
 def paper_section(name: str, out: str) -> None:
     """One paper section on the card in this process: its CSV rows on
     stdout; its numbers, its seconds and its ``sr_cast`` and ``philox``
     launches pickled to ``out``. ``phase_paper`` runs each section so, all
     at once: the harnesses are host-bound (the card idles 92-95% under
-    one), and one after another they took 390-630 s."""
+    one), and one after another they took 390-630 s. ``name`` may be
+    ``section:part``, a part of a section in :data:`PAPER_SPLIT`."""
+    import importlib
     import pickle
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.benchmarks import run as BR
     SC, PH = kernel_module("sr_cast"), kernel_module("philox")
     t = time.perf_counter()
-    res = BR.run_section(name, device="cuda")
+    if ":" in name:
+        section, part = name.split(":")
+        _, fn, kw = next(u for u in PAPER_SPLIT[section] if u[0] == part)
+        mod = importlib.import_module(f"repro_torch.benchmarks.{dict(BR.SECTIONS)[section]}")
+        res = getattr(mod, fn)(device="cuda", **kw)
+    else:
+        res = BR.run_section(name, device="cuda")
     torch.cuda.synchronize()
     with open(out, "wb") as f:
         pickle.dump({"res": res, "s": time.perf_counter() - t,
@@ -3297,7 +3361,7 @@ def _run_sections(sections, while_running) -> tuple[dict, dict, dict]:
     return res, took, launches
 
 
-def phase_paper(card: str) -> dict:
+def phase_paper(card: str, beside=None) -> dict:
     """The paper's eight sections (``repro_torch.benchmarks``) and the
     runner's ``grad_wire_sweep`` (its training rows, ROADMAP A5) on the card
     at the reference's step counts, each in a process of its own, all at
@@ -3307,8 +3371,10 @@ def phase_paper(card: str) -> dict:
     ``bf16_sr`` DLRM in this process (meanwhile) bitwise its run. The µs
     per step it prints are taken with the eight sections and the rerun
     sharing the card and the host: they are not the isolated per-step
-    metric, which ``tools/port_paper_steps.py`` measures. Returns the
-    sections' ``sr_cast`` and ``philox`` launches."""
+    metric, which ``tools/port_paper_steps.py`` measures. ``beside()``,
+    if given, runs here after the rerun while the sections still run.
+    Returns the sections' ``sr_cast`` and ``philox`` launches."""
+    import importlib
     import math
     from repro_torch.benchmarks import run as BR
     from repro_torch.benchmarks.common import train_dlrm
@@ -3316,6 +3382,8 @@ def phase_paper(card: str) -> dict:
     _paper_parity(card)
 
     sections = [name for name, mod in BR.SECTIONS if not mod.startswith("ROADMAP")]
+    units = [f"{name}:{part}" if name in PAPER_SPLIT else name for name in sections
+             for part, _, _ in PAPER_SPLIT.get(name, [(None, None, None)])]
     print(card)
     print(f"[paper] {len(sections)} sections and a DLRM rerun at once on one card and host: "
           "their us_per_call are taken under that contention, not the isolated per-step "
@@ -3326,12 +3394,21 @@ def phase_paper(card: str) -> dict:
     def second_dlrm():
         rerun["losses"], rerun["auc"], _, rerun["us"] = train_dlrm("bf16_sr", steps=400,
                                                                     device="cuda")
+        if beside is not None:
+            beside()
     t0 = time.perf_counter()
-    res, took, launches = _run_sections(sections, second_dlrm)
+    res, took, launches = _run_sections(units, second_dlrm)
     wall = time.perf_counter() - t0
-    print(f"[paper] {len(sections)} sections in {wall:.1f}s on {card}, one process each, "
-          "all at once (" + ", ".join(f"{n} {s:.1f}s" for n, s in took.items())
-          + f"); launches {launches}")
+    for name, parts in PAPER_SPLIT.items():
+        merged = {}         # each part's dicts by policy, merged key by key
+        for part, _, _ in parts:
+            for k, v in res.pop(f"{name}:{part}").items():
+                merged.setdefault(k, {}).update(v)
+        mod = importlib.import_module(f"repro_torch.benchmarks.{dict(BR.SECTIONS)[name]}")
+        res[name] = mod.gaps(merged)
+    print(f"[paper] {len(sections)} sections in {wall:.1f}s on {card}, one process each "
+          f"({', '.join(PAPER_SPLIT)} in parts), all at once ("
+          + ", ".join(f"{n} {s:.1f}s" for n, s in took.items()) + f"); launches {launches}")
 
     f2, t3, t4 = res["fig2_theory"], res["table3_bottleneck"], res["table4_accuracy"]
     f9, f12 = res["fig9_cancellation"], res["fig12_fp16"]
@@ -3504,7 +3581,8 @@ def phase_ckpt(card: str):
         busy = [(k, 1e3 * (e - s), 1e3 * (ref_steps[k][1] - ref_steps[k][0]))
                 for k, (s, e) in enumerate(b_steps)
                 if any(cs < e and ce > s for cs, ce in spans["commit"])]
-        print(f"[ckpt] (a) on {card}: two uninterrupted {len(losses)}-step runs agree "
+        print(f"[ckpt] (a) on {card} (beside the paper sections and the tp launches: the "
+              f"times are contended): two uninterrupted {len(losses)}-step runs agree "
               f"bitwise on all {len(CK.flatten(ref)) - 1} leaves and every loss, the second "
               f"keeping {kept} (keep-N {CKPT_KEEP}) "
               f"({[round(x, 4) for x in losses]}); {n_params / 1e6:.1f} M parameters, "
@@ -4270,6 +4348,450 @@ def _fsdp_checks(card: str, fres: dict, dp_fused: list, fkept: int, fat: int,
           f"fsdp 2: the pods' shards bitwise equal, wire bytes by dtype as counted")
 
 
+# ROADMAP A10's serving part: tensor-parallel serving on (data, model) meshes
+TP_LAYERS = 2             # (b)'s and (c)'s depth cut of full-width qwen2.5-3b
+TP_GENERATE = 1           # (a): requests (the shortest) lock-step generate re-derives
+# (b): the serve-paged stream's first 10 requests on a pool of 32 pages of
+# 16 (views of 512 tokens): 10 preemptions and 9 prefix hits at chunk 1
+TP_PAGED_REQUESTS, TP_PAGED_MAX_LEN, TP_PAGED_PAGES = 10, 512, 32
+# (a): the 1 x 2 step's first-prefill logits against the 1-rank step's, at
+# most this share of the largest |logit| of the 1-rank step: the model axis
+# reassociates the row-parallel f32 sums (ROADMAP C18) and a bf16 rounding
+# that flips moves through 12 layers; the reference's own prefill ==
+# decode bound, as the families' lock-step checks use
+TP_LOGIT_BAR = 0.05
+# (d): the f32 entry's shapes: the row-parallel products of qwen2.5-3b at
+# model 2 for one serve step's 8 lanes (wo: 1024 -> 2048, w_down: 5504 ->
+# 2048), and one training-size product
+QMATMUL_F32_SHAPES = {"tp wo, 8 lanes": (8, 2048, 1024),
+                      "tp w_down, 8 lanes": (8, 2048, 5504),
+                      "mlp down, 4096 rows": (4096, 2048, 11008)}
+QMATMUL_F32_ROW = "tp w_down, 8 lanes"     # the kernels line's shape
+
+
+def _tp_model(spec: dict, layers: int | None):
+    """The tp runs' model: full-width qwen2.5-3b (``layers`` cut), or the
+    reduced config in a CPU rehearsal."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import registry as R
+    cfg = R.get_config("qwen2.5-3b")
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    elif layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    policy = get_policy("bf16_standard")
+    return R.init(cfg, 0, policy.param_dtype, device=spec["device"]), cfg, policy
+
+
+def _tp_counts() -> dict:
+    """Zero every serve-step kernel count; returns the modules."""
+    mods = {k: kernel_module(k) for k in ("decode_attention", "qmatmul", "row_mean_sq")}
+    for m in mods.values():
+        m.LAUNCHES = 0
+    mods["decode_attention"].PAGED_LAUNCHES = mods["qmatmul"].F32_LAUNCHES = 0
+    return mods
+
+
+def _tp_read(mods) -> dict:
+    return {"decode_attention": mods["decode_attention"].LAUNCHES,
+            "paged_decode_attention": mods["decode_attention"].PAGED_LAUNCHES,
+            "qmatmul": mods["qmatmul"].LAUNCHES, "qmatmul_f32": mods["qmatmul"].F32_LAUNCHES,
+            "row_mean_sq": mods["row_mean_sq"].LAUNCHES}
+
+
+def tp_worker(spec_path: str) -> None:
+    """One rank of the tp phase (``python3 chip_smoke.py --tp-worker SPEC``
+    under ``repro_torch.launch.dist_launch``, gloo on the one card):
+    scenario ``full`` (2 ranks: (a) at full depth), ``cut`` (2 ranks: (b)
+    and (c)'s 1 x 2 at ``TP_LAYERS``) or ``quad`` (4 ranks: (c)'s 2 x 2).
+    Writes ``<out>/<scenario>.rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.dist import axes
+    from repro_torch.dist import fsdp as F
+    from repro_torch.dist import multihost as MH
+    from repro_torch.dist import partition as PT
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.models import registry as R
+    from repro_torch.serve.decode import generate
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train.step import make_serve_step
+    from repro_torch.tree import tree_leaves
+
+    spec = json.loads(Path(spec_path).read_text())
+    dev = spec["device"]
+    MH.initialize(device=dev, backend="gloo", timeout_secs=300)
+    rank = MH.process_index()
+    out = {"rank": rank}
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def tokens_of(res):
+        return {str(c.rid): c.tokens.tolist() for c in res.completions}
+
+    def shard(params, cfg, mesh):
+        local = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        return local
+
+    try:
+        if spec["scenario"] == "quad":
+            mesh = make_local_mesh(2, 2)
+            params, cfg, policy = _tp_model(spec, TP_LAYERS)
+            params = shard(params, cfg, mesh)
+            eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                         device=dev, mesh=mesh)
+            res = serve_stream(eng, main_stream(cfg.vocab))
+            out.update(tokens=tokens_of(res), coords=mesh.coords(rank), slots=eng.pool.slots,
+                       steps=res.calls, seconds=res.seconds,
+                       token_gather_s=eng.token_gather.seconds)
+        elif spec["scenario"] == "cut":
+            mesh = make_local_mesh(1, 2)
+            params, cfg, policy = _tp_model(spec, TP_LAYERS)
+            params = shard(params, cfg, mesh)
+            pstream = paged_stream(cfg.vocab)[:TP_PAGED_REQUESTS]
+            out["paged"] = {"n_layers": cfg.n_layers}
+            for chunk in (1, CHUNK):
+                eng = Engine(params, cfg, policy, n_slots=8, max_len=TP_PAGED_MAX_LEN,
+                             fused_decode=True, device=dev, mesh=mesh, paged=True,
+                             page_size=PAGE, n_pages=TP_PAGED_PAGES, prefill_chunk=chunk)
+                mods = _tp_counts()
+                res = serve_stream(eng, pstream)
+                eng.pool.check_invariants()
+                out["paged"][str(chunk)] = dict(
+                    tokens=tokens_of(res), steps=res.calls, seconds=res.seconds,
+                    preemptions=eng.stats.preemptions, prefix_hits=eng.stats.prefix_hits,
+                    launches=_tp_read(mods), finished=eng.stats.finished)
+                del eng
+            eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                         device=dev, mesh=mesh)
+            res = serve_stream(eng, main_stream(cfg.vocab))
+            out["cut"] = dict(tokens=tokens_of(res), steps=res.calls, seconds=res.seconds)
+        else:
+            mesh = make_local_mesh(1, 2)
+            # (a) the serve phase's depth: the first prefill step, 1 rank
+            # against 1 x 2
+            params, cfg, policy = _tp_model(spec, SERVE_LAYERS)
+            stream = main_stream(cfg.vocab)
+            first = torch.tensor([[int(p[0])] for _, p, _ in stream[:8]], dtype=torch.int32,
+                                 device=dev)
+            pos0 = torch.zeros(8, dtype=torch.int32, device=dev)
+            on = torch.ones(8, dtype=torch.bool, device=dev)
+
+            def first_step(p, m):
+                step = make_serve_step(cfg, policy, fused_decode=True, return_logits=True,
+                                       mesh=m)
+                cache = R.make_cache(p, cfg, batch_size=8, max_len=MAIN_SC,
+                                     dtype=policy.compute_dtype, mesh=m)
+                with torch.no_grad():
+                    _, logits, _ = step(p, cache, first, pos0, on, on)
+                kv = sum(t.numel() * t.element_size() for blk in cache["layers"].values()
+                         for t in blk)
+                return logits.float().cpu(), kv
+
+            one_logits, one_kv = first_step(params, None)
+            one_weights = nbytes(params)
+            params = shard(params, cfg, mesh)
+            tp_logits, tp_kv = first_step(params, mesh)
+            out["first_logits_diff"] = float((tp_logits - one_logits).abs().max())
+            out["first_logits_scale"] = float(one_logits.abs().max())
+            out["first_logits_equal"] = bool(torch.equal(tp_logits, one_logits))
+            out["weights"] = [one_weights, nbytes(params)]
+            out["kv"] = [one_kv, tp_kv]
+            # (a) the engine on the serve phase's traffic, eager steps
+            axis = axes.for_mesh(mesh)
+            eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                         device=dev, mesh=mesh)
+            warm = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                          device=dev, mesh=mesh)
+            warm.submit(np.arange(4, dtype=np.int32), 2)
+            warm.run()
+            del warm
+            sync()
+            calls0, s0, h0 = axis.stats.calls, axis.stats.seconds, axis.stats.host_copy_s
+            mods = _tp_counts()
+            res = serve_stream(eng, stream)
+            out["launches"] = _tp_read(mods)
+            out.update(tokens=tokens_of(res), steps=res.calls, n_layers=cfg.n_layers, seconds=res.seconds,
+                       graphs=len(eng.graphs), kv_pool=eng.pool.nbytes(),
+                       collectives=axis.stats.calls - calls0,
+                       collective_s=axis.stats.seconds - s0,
+                       host_copy_s=axis.stats.host_copy_s - h0,
+                       finished=eng.stats.finished)
+            # engine == lock-step generate under the same mesh, the batch
+            # padded to the engine's 8 rows
+            gen = {}
+            with dispatch.fused_decode():
+                for c in sorted(res.completions,
+                                key=lambda c: c.prompt.size + c.tokens.size)[:TP_GENERATE]:
+                    rows = np.stack([c.prompt] + [np.zeros(c.prompt.size, np.int32)] * 7)
+                    ref = generate(params, cfg, policy, rows, max_new_tokens=c.tokens.size,
+                                   cache_len=MAIN_SC, device=dev, mesh=mesh)
+                    gen[str(c.rid)] = ref[0, c.prompt.size:].tolist()
+            out["generate"] = gen
+        sync()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
+        Path(spec["out"], f"{spec['scenario']}.rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        MH.shutdown()
+
+
+def _tp_start(root: Path, scenario: str, n: int, device: str = "cuda",
+              reduced: bool = False) -> tuple:
+    """Start ``scenario`` on n ranks through the port's launcher;
+    :func:`_tp_wait` ends it."""
+    spec = {"out": str(root), "scenario": scenario, "device": device, "reduced": reduced}
+    spec_path = root / f"tp-{scenario}.json"
+    spec_path.write_text(json.dumps(spec))
+    log_dir = root / f"tp-{scenario}-logs"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
+           "560", "--log-dir", str(log_dir), "--", sys.executable, str(ROOT / "chip_smoke.py"),
+           "--tp-worker", str(spec_path)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT)
+    return proc, time.perf_counter(), root, scenario, n
+
+
+def _tp_wait(launch: tuple) -> tuple[list, float]:
+    """Every rank's result and the launch's wall seconds; fails with the
+    ranks' log tails if a rank failed, and kills the launch at 600 s."""
+    proc, t0, root, scenario, n = launch
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log_dir = root / f"tp-{scenario}-logs"
+    check(proc.returncode == 0, f"[tp] {scenario}: exit {proc.returncode}\n" + "\n".join(
+        (log_dir / f"rank{i}.log").read_text()[-3000:] for i in range(n)) + err[-3000:])
+    wall = time.perf_counter() - t0
+    return [json.loads((root / f"{scenario}.rank{r}.json").read_text()) for r in range(n)], wall
+
+
+def tp_start(*, rehearsal: bool = False) -> dict:
+    """Start the tp phase's launches on a thread of this process: (a), then
+    (b) and (c) side by side; :func:`phase_tp` joins it. A launch still
+    running when this process exits is ended (its launcher forwards the
+    SIGTERM to its ranks)."""
+    import atexit
+    import tempfile
+    import threading
+    kw = dict(device="cpu", reduced=True) if rehearsal else {}
+    run = {"root": Path(tempfile.mkdtemp(prefix="repro-tp-")), "t0": time.perf_counter(),
+           "procs": []}
+
+    def start(name, n):
+        launch = _tp_start(run["root"], name, n, **kw)
+        run["procs"].append(launch[0])
+        return launch
+
+    def go():
+        try:
+            run["full"] = _tp_wait(start("full", 2))
+            launches = [start(name, n) for name, n in (("cut", 2), ("quad", 4))]
+            run["cut"], run["quad"] = [_tp_wait(x) for x in launches]
+        except BaseException as e:      # check() exits: re-raised by phase_tp
+            run["error"] = e
+
+    def end():
+        for p in run["procs"]:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+    atexit.register(end)
+    run["thread"] = threading.Thread(target=go, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def phase_tp(card: str, one_rank_tokens: dict, run: dict | None = None, *,
+             rehearsal: bool = False) -> dict:
+    """ROADMAP A10's serving part on the card: ``Engine(mesh=)`` over ranks
+    that share the card over gloo (``repro_torch.launch.dist_launch``).
+
+    (a) 1 x 2 (model 2), full-width qwen2.5-3b (``SERVE_LAYERS``, seed 0,
+    ``bf16_standard``), the serve phase's traffic (8 slots, max_len 256, 12
+    greedy requests, fused decode), eager steps: both ranks' tokens
+    bitwise equal; engine == lock-step ``generate`` under the same mesh
+    for ``TP_GENERATE`` requests; the first prefill step's logits within
+    ``TP_LOGIT_BAR`` of the 1-rank step's largest |logit|; the token
+    agreement with the serve phase's 1-rank engine (``one_rank_tokens``),
+    weight and KV bytes per rank against one rank's, ms per eager step,
+    the model axis's collective and host-copy ms per step, and the
+    kernels' launches per step (``qmatmul_f32`` twice per layer).
+    (b) paged 1 x 2 at ``TP_LAYERS`` on the paged phase's first
+    ``TP_PAGED_REQUESTS`` requests (``TP_PAGED_PAGES`` pages of 16, prefix
+    cache): at least one preemption and one prefix hit, and chunk 32 ==
+    chunk 1 bitwise.
+    (c) 2 x 2 on 4 ranks at ``TP_LAYERS``: tokens == the 1 x 2 run's at the
+    same cut, bitwise. (b) and (c) run side by side. ``run`` is
+    :func:`tp_start`'s (started here if None). Returns the (a) run's kernel
+    launches. ``rehearsal`` runs the reduced config on the CPU, where no
+    kernel launches."""
+    import shutil
+    import numpy as np
+    run = run or tp_start(rehearsal=rehearsal)
+    run["thread"].join()
+    shutil.rmtree(run["root"], ignore_errors=True)
+    if "error" in run:
+        raise run["error"]
+    (full, full_wall), (cut, cut_wall), (quad, quad_wall) = run["full"], run["cut"], run["quad"]
+    r0, c0 = full[0], cut[0]
+    for res in full[1:]:
+        check((res["tokens"], res["generate"]) == (r0["tokens"], r0["generate"]),
+              f"[tp] (a) rank {res['rank']}'s tokens != rank 0's")
+        check(res["launches"] == r0["launches"] and res["steps"] == r0["steps"],
+              f"[tp] (a) rank {res['rank']}: launches or steps differ from rank 0's")
+    for res in cut[1:]:
+        check(res["cut"]["tokens"] == c0["cut"]["tokens"] and all(
+            res["paged"][c]["tokens"] == c0["paged"][c]["tokens"] for c in ("1", str(CHUNK))),
+            f"[tp] (b) rank {res['rank']}'s tokens != rank 0's")
+    # (a)
+    check(r0["finished"] == 12 and r0["graphs"] == 0,
+          f"[tp] (a) finished {r0['finished']}/12, graphs {r0['graphs']} (eager steps)")
+    for rid, toks in r0["generate"].items():
+        check(toks == r0["tokens"][rid], f"[tp] rid {rid}: engine {r0['tokens'][rid]} != "
+              f"generate {toks}")
+    share = r0["first_logits_diff"] / r0["first_logits_scale"]
+    check(share <= TP_LOGIT_BAR, f"[tp] first prefill logits differ by {share:.4f} of the "
+          f"largest |logit| (bar {TP_LOGIT_BAR})")
+    same = sum(int(np.sum(np.asarray(r0["tokens"][str(rid)]) == np.asarray(t)))
+               for rid, t in one_rank_tokens.items())
+    total = sum(len(t) for t in one_rank_tokens.values())
+    firsts = sum(r0["tokens"][str(rid)][0] == t[0] for rid, t in one_rank_tokens.items())
+    per = {k: n / r0["steps"] for k, n in r0["launches"].items() if n}
+    n_layers = r0["n_layers"]
+    check(rehearsal or (per.get("qmatmul_f32") == 2 * n_layers
+                        and per.get("decode_attention") == n_layers),
+          f"[tp] (a) launches per step {per}: expected 2 qmatmul_f32 and 1 decode per layer")
+    step_ms = 1e3 * r0["seconds"] / r0["steps"]
+    (w1, w2), (k1, k2) = r0["weights"], r0["kv"]
+    print(f"[tp] (a) on {card}: 1 x 2 over gloo, qwen2.5-3b {n_layers} layers, "
+          f"{r0['steps']} eager serve steps (no graphs) in {r0['seconds']:.2f}s -> "
+          f"{step_ms:.2f} ms per step; model-axis collectives {r0['collectives'] / r0['steps']:.0f} "
+          f"per step taking {1e3 * r0['collective_s'] / r0['steps']:.2f} ms per step, of which "
+          f"host copies {1e3 * r0['host_copy_s'] / r0['steps']:.2f} ms; launches per step "
+          f"{per}; weights {w2 / 2**30:.3f} GiB per rank ({w2 / w1:.4f} of one rank's "
+          f"{w1 / 2**30:.3f}), KV {k2 / 2**20:.1f} MiB ({k2 / k1:.4f} of {k1 / 2**20:.1f}); "
+          f"peak {r0['peak_gib']:.2f} GiB per rank; both ranks' tokens bitwise equal; "
+          f"engine == generate on {len(r0['generate'])} requests; first prefill logits "
+          f"within {share:.5f} of the largest |logit| {r0['first_logits_scale']:.3f} "
+          f"(bar {TP_LOGIT_BAR}; bitwise equal: {r0['first_logits_equal']}); tokens equal "
+          f"to the 1-rank engine's: {same}/{total}, first tokens {firsts}/{len(one_rank_tokens)}; "
+          f"launch wall {full_wall:.1f}s (beside the paper sections and the ckpt phase: "
+          f"the walls are contended)")
+    # (b)
+    p1, p32 = c0["paged"]["1"], c0["paged"][str(CHUNK)]
+    check(p1["finished"] == p32["finished"] == TP_PAGED_REQUESTS,
+          "[tp] (b) a paged run did not finish")
+    check(p1["preemptions"] >= 1 and p1["prefix_hits"] >= 1,
+          f"[tp] (b) chunk 1: {p1['preemptions']} preemptions, {p1['prefix_hits']} hits")
+    check(p32["tokens"] == p1["tokens"], "[tp] (b) paged chunk 32 != chunk 1")
+    check(rehearsal or p1["launches"]["paged_decode_attention"]
+          == c0["paged"]["n_layers"] * p1["steps"],
+          f"[tp] (b) paged launches {p1['launches']} for {p1['steps']} steps")
+    print(f"[tp] (b) on {card}: paged 1 x 2 at {c0['paged']['n_layers']} layers, "
+          f"{TP_PAGED_REQUESTS} requests, {TP_PAGED_PAGES} pages of {PAGE}: chunk 1 "
+          f"{p1['steps']} steps ({1e3 * p1['seconds'] / p1['steps']:.2f} ms per step), "
+          f"{p1['preemptions']} preemptions, {p1['prefix_hits']} prefix hits; chunk {CHUNK} "
+          f"{p32['steps']} steps ({1e3 * p32['seconds'] / p32['steps']:.2f} ms per step), "
+          f"{p32['preemptions']} preemptions; tokens == chunk 1's on all {TP_PAGED_REQUESTS} "
+          f"(beside (c)'s launch: the walls are contended); launch wall {cut_wall:.1f}s")
+    # (c)
+    check(sorted((q["coords"]["data"], q["coords"]["model"]) for q in quad) ==
+          [(0, 0), (0, 1), (1, 0), (1, 1)], "[tp] (c) mesh coordinates")
+    for q in quad:
+        check(q["tokens"] == c0["cut"]["tokens"],
+              f"[tp] (c) rank {q['rank']}: 2 x 2 tokens != the 1 x 2 run's")
+    print(f"[tp] (c) on {card}: 2 x 2 on 4 ranks at {c0['paged']['n_layers']} layers, slots "
+          f"{[q['slots'] for q in quad]}: tokens == 1 x 2 on all 12 requests; "
+          f"{1e3 * quad[0]['seconds'] / quad[0]['steps']:.2f} ms per step (1 x 2: "
+          f"{1e3 * c0['cut']['seconds'] / c0['cut']['steps']:.2f}), token gather "
+          f"{1e3 * quad[0]['token_gather_s'] / quad[0]['steps']:.2f} ms per step; launch "
+          f"wall {quad_wall:.1f}s")
+    print(f"[tp] phase took {time.perf_counter() - run['t0']:.1f}s from its first launch")
+    return r0["launches"]
+
+
+def phase_qmatmul_f32(card: str) -> dict:
+    """(d) The f32-result entry of ``qmatmul``: rounded to bf16 it is the
+    bf16 entry bit for bit on both paths, its rows do not depend on the
+    row count, it lies within the f32 accumulation bound of its plain
+    version; its time beside its bound, the plain version's and
+    ``torch.mm(..., out_dtype=torch.float32)``'s."""
+    import torch
+    QM = kernel_module("qmatmul")
+    row, max_err = None, 0.0
+    for i, (name, (M, N, K)) in enumerate(QMATMUL_F32_SHAPES.items()):
+        g = _gen(300 + i)
+        x = torch.randn((M, K), generator=g, device="cuda").to(torch.bfloat16)
+        y = torch.randn((K, N), generator=g, device="cuda").to(torch.bfloat16)
+        f32 = QM.qmatmul_f32(x, y)
+        check(f32.dtype == torch.float32 and f32.shape == (M, N), f"{name}: f32 entry output")
+        check(_equal(f32.to(torch.bfloat16), QM.qmatmul(x, y)),
+              f"{name}: the f32 entry rounded != the bf16 entry")
+        sync = QM._launch(x, y, None, entry="repro_qmatmul_f32_sync")
+        check(_equal(sync.to(torch.bfloat16), QM._launch(x, y, None,
+                                                         entry="repro_qmatmul_sync")),
+              f"{name}: the mma.sync f32 entry rounded != the mma.sync bf16 entry")
+        plain = QM.qmatmul_ref(x, y, out_dtype=torch.float32)
+        e = _accumulation_bound(x, y)
+        used = float(((f32.double() - plain.double()).abs() / e.clamp_min(1e-30)).max())
+        check(used <= 1.0, f"{name}: the f32 entry lies {used:.3f}x the f32 accumulation "
+              "bound from its plain version")
+        err = float((f32 - plain).abs().max())
+        max_err = max(max_err, err)
+        big = x if M >= 4096 else torch.randn((4096, K), generator=g,
+                                              device="cuda").to(torch.bfloat16)
+        full = QM.qmatmul_f32(big, y)
+        for m in QMATMUL_ROWS[:-1]:
+            check(torch.equal(QM.qmatmul_f32(big[:m], y), full[:m]),
+                  f"{name}: f32 rows at M={m} != rows at M=4096")
+        del big, full, e, plain, sync
+        n_in = (M * K + K * N) * 2 + M * N * 4
+        copies = [(x, y)] + [(x.clone(), y.clone())
+                             for _ in range(-(-100 * 2**20 // n_in) - 1)]
+        ms = time_ms([lambda c=c: QM.qmatmul_f32(c[0], c[1]) for c in copies])
+        bf16_ms = time_ms([lambda c=c: QM.qmatmul(c[0], c[1]) for c in copies])
+        library_ms = time_ms([lambda c=c: torch.mm(c[0], c[1], out_dtype=torch.float32)
+                              for c in copies])
+        plain_ms = time_ms([lambda c=c: QM.qmatmul_ref(c[0], c[1], out_dtype=torch.float32)
+                            for c in copies], calls=16)
+        flop = 2 * M * N * K
+        t_bytes = ((M * K + K * N) * 2 + M * N * 4) / HBM_BYTES_PER_S
+        t_ops = flop / BF16_FLOP_PER_S
+        bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                          else "operations")
+        print(f"[qmatmul_f32] {name} ({M}x{K} @ {K}x{N}) on {card}: {QM.plan(x, y).path}; "
+              f"rounded == the bf16 entry on both paths (torch.equal), rows bitwise at M in "
+              f"{QMATMUL_ROWS}, within {used:.3f} of the f32 accumulation bound of the plain "
+              f"version (max |diff| {err:.3e}); kernel {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+              f"{bound_by}; {bound_ms / ms:.1%} of it), the bf16 entry {bf16_ms:.4f} ms, "
+              f"torch.mm(out_dtype=float32) {library_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(device time, {len(copies)} input copies rotated)")
+        if name == QMATMUL_F32_ROW:
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        del copies
+    torch.cuda.empty_cache()
+    row["max_abs_err"] = max_err
+    return row
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4308,6 +4830,7 @@ def main():
     launches["paged_decode_attention"], engines["paged"], greedy["serve-paged"] = \
         phase_serve_paged(card, *model)
     sample_fills = phase_sample(card, *model, greedy)
+    one_rank_tokens = {str(r): t.tolist() for r, t in greedy["serve"]["tokens"].items()}
     del greedy
     for tag, eng in engines.items():     # last: the profiler may slow later launches
         phase_profile(eng, model[1], card, tag)
@@ -4317,11 +4840,11 @@ def main():
     families = phase_families(card)
     for k in ("decode_attention", "paged_decode_attention", "qmatmul", "row_mean_sq"):
         launches[k] += families[k]
-    stamp("slice 11 (whisper, qwen2-vl, resnet)")
+    stamp("slice 11 (whisper, qwen2-vl; the resnet beside the paper sections)")
     rows["decode_attention"]["max_abs_err"] = max(rows["decode_attention"]["max_abs_err"],
                                                   phase_kernel_d64(card))
     slice11 = {}
-    for ran in (phase_whisper(card), phase_vlm(card), phase_resnet(card)):
+    for ran in (phase_whisper(card), phase_vlm(card)):
         for k, n in ran.items():
             slice11[k] = slice11.get(k, 0) + n
     for k in ("decode_attention", "paged_decode_attention", "qmatmul", "row_mean_sq"):
@@ -4329,6 +4852,7 @@ def main():
     stamp("update kernels")
     rows.update(phase_update_kernels(card))
     rows["qmatmul"], op_launches = phase_qmatmul(card)
+    rows["qmatmul_f32"] = phase_qmatmul_f32(card)
     phase_update_ops()
     stamp("train")
     run, state, launches["fused_adamw"], train_ref = phase_train(card)
@@ -4338,13 +4862,26 @@ def main():
     parity = phase_parity(run, state, card)
     del run, state
     torch.cuda.empty_cache()
-    stamp("paper")
-    paper = phase_paper(card)
+    # the paper sections, the tp launches, the ckpt phase and the resnet side
+    # by side: host-bound all four, on ~45 GiB of the card together
+    stamp("paper, the tp launches beside it")
+    tp_run = tp_start()
+
+    def beside():
+        stamp("ckpt (beside the paper sections and the tp launches)")
+        phase_ckpt(card)
+        stamp("resnet (beside the paper sections and the tp launches)")
+        for k, n in phase_resnet(card).items():
+            slice11[k] = slice11.get(k, 0) + n
+    paper = phase_paper(card, beside=beside)
     launches["fused_sgd"] = parity["fused_sgd"] + slice11["fused_sgd"]
     launches["sr_cast"] = parity["sr_cast"] + paper["sr_cast"] + slice11["sr_cast"]
     launches["philox"] = parity["philox"] + sample_fills + paper["philox"] + slice11["philox"]
-    stamp("ckpt")
-    phase_ckpt(card)
+    stamp("tp checks")
+    tp = phase_tp(card, one_rank_tokens, tp_run)
+    launches["qmatmul_f32"] = tp.pop("qmatmul_f32")
+    for k, n in tp.items():
+        launches[k] += n
     stamp("dist")
     for k, n in phase_dist(card, *train_ref).items():
         launches[k] += n
@@ -4359,6 +4896,9 @@ def main():
         "fused_adamw": ("fused_adamw", "src/repro/kernels/fused_adamw.py:36"),
         "fused_sgd": ("fused_sgd", "src/repro/kernels/fused_sgd.py:18"),
         "qmatmul": ("qmatmul", "src/repro/kernels/qmatmul.py:22"),
+        # the f32-result entry of the same kernel: the row-parallel partials
+        # whose f32 sum the reference's all-reduce rounds once
+        "qmatmul_f32": ("qmatmul", "src/repro/kernels/qmatmul.py:22"),
         # not TPU kernels: the reference's jax.random.bits draw of a leaf's SR
         # bits and its jax.random.gumbel draw of a sampled token, and its
         # jnp.mean under RMSNorm
@@ -4379,5 +4919,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         dist_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2])
     else:
         main()

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.dist.fsdp import shard_state
+from repro_torch.dist.fsdp import local_slice, shard_state
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.sgd import SGDState
 from repro_torch.train.train_state import TrainState
@@ -89,12 +89,24 @@ def _convert(tree, schema, path: str, device):
             for k, v in tree.items()}
 
 
-def from_jax_params(tree: Any, *, device=None) -> dict:
+def from_jax_params(tree: Any, *, device=None, specs=None, mesh=None) -> dict:
     """Nested dict of numpy arrays (the reference's ``R.init`` tree passed
     through ``np.asarray``) → the port's params on ``device`` (CUDA unless
     ``"cpu"``): any decoder-only family or the encoder-decoder. Raises on
-    a leaf the ported models do not have."""
+    a leaf the ported models do not have. ``specs`` (the parameters'
+    specs, ``partition.param_specs``, with ``mesh``) makes them this rank's
+    shards, each cut from the numpy leaf before it reaches the device
+    (:func:`repro_torch.dist.fsdp.local_slice`: a model axis's or an FSDP
+    axis's dims alike)."""
+    if specs is not None:
+        tree = _shards(tree, specs, mesh)
     return _convert(tree, _LM, "", resolve_device(device))
+
+
+def _shards(tree, specs, mesh):
+    if isinstance(tree, dict):
+        return {k: _shards(v, specs[k], mesh) for k, v in tree.items()}
+    return local_slice(np.asarray(tree), specs, mesh)
 
 
 def from_jax_resnet_params(tree: Any, *, device=None) -> dict:

@@ -1,22 +1,32 @@
 """Mesh axes, placement and the batch rows of a rank (port of
-``repro.dist.partition``, its data-parallel and FSDP parts).
+``repro.dist.partition``).
 
 The port's processes form the mesh (:mod:`repro_torch.launch.mesh`). Every
-axis but ``model`` carries data parallelism: the batch's rows are split
-over all of them. A :class:`Placement` with an ``fsdp_axis`` (the ``fsdp``
-axis, or ``data`` as in ZeRO-3) also shards every parameter leaf over
-that axis, on its largest dimension the axis size divides
-(:func:`param_specs`), and :func:`state_shardings` co-shards every
-parameter-shaped optimizer buffer with its parameter. Without one every
-parameter spec is ``P()``. The ``model`` axis (tensor and expert
-parallelism) is ROADMAP A10.
+axis but ``model`` carries data parallelism: the batch's rows, and a serve
+engine's slots, are split over all of them. The ``model`` axis carries
+Megatron-style tensor parallelism, inferred from leaf names as in the
+reference: column-parallel kernels (:data:`_COL_PARALLEL`) shard their
+output features, row-parallel ones (:data:`_ROW_PARALLEL`) their input
+features, the embedding its vocab rows; biases, norms and anything the
+axis does not divide replicate. A :class:`Placement` with an
+``fsdp_axis`` (the ``fsdp`` axis, or ``data`` as in ZeRO-3) also shards
+every parameter leaf over that axis, on its largest dimension the axis
+size divides that the model axis did not claim (:func:`param_specs`), and
+:func:`state_shardings` co-shards every parameter-shaped optimizer buffer
+with its parameter.
 
-:func:`batch_specs` gives the reference's specs; :func:`rank_rows` applies
-them: a rank takes the rows the reference gives its device — with
-``microbatches=k``, of each of the k microbatches the chunk of its index
-over the data-parallel axes (microbatch split first, then the wire's
-chunk, then the remaining data axes in mesh order:
-:func:`rank_index`, ``repro/train/step.py``).
+What the port runs on a model axis above 1 is serving the dense
+decoder-only families (:func:`serve_refusal`); training there is ROADMAP
+A11, the other families, padded head counts and paged pools under a data
+axis above 1 are A12.
+
+:func:`batch_specs`, :func:`cache_specs` and :func:`serve_input_specs`
+give the reference's specs; :func:`rank_rows` applies the batch's: a rank
+takes the rows the reference gives its device — with ``microbatches=k``,
+of each of the k microbatches the chunk of its index over the
+data-parallel axes (microbatch split first, then the wire's chunk, then
+the remaining data axes in mesh order: :func:`rank_index`,
+``repro/train/step.py``).
 """
 from __future__ import annotations
 
@@ -25,11 +35,11 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.tree import tree_map
-
-__all__ = ["MODEL_AXIS", "DATA_AXIS", "POD_AXIS", "FSDP_AXIS", "KNOWN_AXES", "P",
-           "Placement", "default_placement", "dp_axes", "dp_size", "param_specs",
-           "state_shardings", "batch_specs", "rank_index", "rank_rows"]
+__all__ = ["MODEL_AXIS", "DATA_AXIS", "POD_AXIS", "FSDP_AXIS", "KNOWN_AXES",
+           "STACKED_CACHE_ROOTS", "TRAIN_ITEM", "SERVE_ITEM", "P", "Placement",
+           "default_placement", "dp_axes", "dp_size", "mp_size", "param_specs",
+           "state_shardings", "batch_specs", "cache_specs", "serve_input_specs",
+           "serve_refusal", "rank_index", "rank_rows"]
 
 PyTree = Any
 
@@ -40,7 +50,29 @@ FSDP_AXIS = "fsdp"
 # Every mesh axis name the stack understands, outermost-first.
 KNOWN_AXES = (POD_AXIS, DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
 
-MODEL_ITEM = "the model axis (tensor and expert parallelism) is ported with ROADMAP A10"
+# where the model axis's refusals point
+TRAIN_ITEM = "training on the model axis is ROADMAP A11"
+SERVE_ITEM = "ROADMAP A12"
+
+# Column-parallel: shard the output-feature (last) dim of the kernel.
+_COL_PARALLEL = frozenset({
+    "wq", "wk", "wv",                  # attention in-projections
+    "w_gate", "w_up",                  # dense MLP
+    "we_gate", "we_up",                # MoE expert FFN (TP-in-expert)
+    "in_proj", "in_x", "in_gate",      # mamba / rg-lru in-projections
+    "w_r", "w_i",                      # rg-lru gates
+    "dt_proj",                         # mamba dt head (R -> d_inner)
+    "lm_head",
+})
+# Row-parallel: shard the input-feature (second-to-last) dim of the kernel.
+_ROW_PARALLEL = frozenset({
+    "wo", "w_down", "we_down", "out_proj", "out", "x_proj",
+})
+# Root keys whose leaves carry a leading stacked-layer dim.
+_STACKED_ROOTS = frozenset({"layers", "enc_layers", "dec_layers"})
+#: Decode-cache roots whose leaves carry a leading stacked-layer dim, so the
+#: slot dim sits at index 1 instead of 0.
+STACKED_CACHE_ROOTS = _STACKED_ROOTS | {"self", "cross"}
 
 
 class P(tuple):
@@ -66,10 +98,10 @@ class P(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Which mesh axes carry parameter sharding: ``fsdp_axis``, when set,
-    shards every parameter leaf and its optimizer buffers over that axis;
-    ``tp_axis`` names an axis that the mesh keeps at size 1 (A10). Axes
-    absent from the mesh count as size 1."""
+    """Which mesh axes carry parameter sharding: ``tp_axis`` the tensor
+    parallelism of the name rules, ``fsdp_axis``, when set, every parameter
+    leaf and its optimizer buffers besides. Axes absent from the mesh count
+    as size 1."""
     fsdp_axis: Optional[str] = None
     tp_axis: Optional[str] = MODEL_AXIS
 
@@ -81,10 +113,7 @@ class Placement:
     def tp_size(self, mesh) -> int:
         if self.tp_axis is None or self.tp_axis not in mesh.axis_names:
             return 1
-        if mesh.shape[self.tp_axis] > 1:
-            raise ValueError(f"tp_axis {self.tp_axis!r} of size "
-                             f"{mesh.shape[self.tp_axis]}: {MODEL_ITEM}")
-        return 1
+        return mesh.shape[self.tp_axis]
 
 
 def default_placement(mesh, *, fsdp: bool = False) -> Placement:
@@ -107,27 +136,97 @@ def dp_size(mesh) -> int:
     return n
 
 
+def mp_size(mesh) -> int:
+    """The size of the model axis (1 when the mesh has none)."""
+    return mesh.shape[MODEL_AXIS] if mesh is not None and MODEL_AXIS in mesh.axis_names else 1
+
+
+def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
+    """Why the port cannot serve ``cfg`` on ``mesh`` (None when it can).
+    On a model axis above 1 it serves the families whose blocks are
+    attention and a dense MLP, with the axis dividing the head counts, the
+    MLP width and the vocabulary (the other families, padded head counts:
+    A12); a paged pool takes no data axis above 1 (a lane's block table may
+    name any page row, so its rows would need a cross-rank gather every
+    step: A12)."""
+    if mesh is None:
+        return None
+    mp = mp_size(mesh)
+    if paged and dp_size(mesh) > 1:
+        return (f"a paged pool on {dp_size(mesh)} data-parallel ranks is {SERVE_ITEM} "
+                "(any lane's block table may name any page row)")
+    if mp == 1:
+        return None
+    if cfg.encdec or cfg.family == "ssm" or cfg.block_pattern or cfg.n_experts:
+        return (f"{cfg.name}: only dense attention + MLP blocks serve on a model axis; "
+                f"MoE, Mamba, RG-LRU and encoder-decoder models there are {SERVE_ITEM}")
+    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+        if n % mp:
+            return (f"{cfg.name}: model axis {mp} does not divide {what} {n}; padded "
+                    f"shards are {SERVE_ITEM}")
+    return None
+
+
+def _path_names(path: str) -> list[str]:
+    """The string keys along a dotted leaf path, list indices skipped."""
+    return [k for k in path.split(".") if k and not k.isdigit()]
+
+
 def param_specs(params: PyTree, cfg, mesh, placement: Placement | None = None) -> PyTree:
-    """The spec of every parameter leaf: replicated (``P()``) without an
-    FSDP axis; with one, each leaf sharded over it on its largest
-    dimension the axis size divides (the first of equal ones), a leaf with
-    no such dimension replicated. A model axis above 1 raises (A10)."""
-    del cfg  # the rules read shapes only, as the reference's FSDP rule does
+    """The spec of every parameter leaf (reference ``partition.py:143``),
+    tensors or arrays (a reference tree through ``np.asarray``).
+    On a model axis above 1 the name rules shard a kernel's output features
+    (column-parallel), its input features (row-parallel) or the
+    embedding's vocab rows, each where the axis divides the dim; biases
+    and anything else replicate. With an FSDP axis every leaf is also
+    sharded over it, on its largest dimension the axis size divides that
+    the model axis did not claim (the first of equal ones); a leaf with no
+    such dimension replicates over it. Stacked leaves count their dims
+    from the end."""
+    del cfg  # the rules read names and shapes only, as the reference's do
     placement = placement or Placement()
-    placement.tp_size(mesh)
+    mp = placement.tp_size(mesh)
     fs = placement.fsdp_size(mesh)
 
-    def spec(leaf):
-        if not isinstance(leaf, torch.Tensor):
+    def spec(path, leaf):
+        if not hasattr(leaf, "shape"):
             return P()
-        parts = [None] * leaf.dim()
-        if fs > 1 and leaf.dim():
-            dim = _fsdp_dim(tuple(leaf.shape), parts, fs)
-            if dim is not None:
-                parts[dim] = placement.fsdp_axis
+        ndim = len(leaf.shape)
+        parts = [None] * ndim
+        names = _path_names(path)
+        if mp > 1 and names and ndim:
+            stacked = names[0] in _STACKED_ROOTS
+            erank = ndim - (1 if stacked else 0)
+            leafname = names[-1]
+            base = (names[-2] if len(names) >= 2
+                    and leafname in ("kernel", "bias", "w", "b") else leafname)
+            dim = None
+            if erank >= 2 and leafname != "bias":
+                if leafname == "embedding":
+                    dim = ndim - 2                 # vocab rows
+                elif base in _COL_PARALLEL:
+                    dim = ndim - 1
+                elif base in _ROW_PARALLEL:
+                    dim = ndim - 2
+            if dim is not None and leaf.shape[dim] % mp == 0:
+                parts[dim] = placement.tp_axis
+        if fs > 1 and ndim:
+            fdim = _fsdp_dim(tuple(leaf.shape), parts, fs)
+            if fdim is not None:
+                parts[fdim] = placement.fsdp_axis
         return P(*parts)
 
-    return tree_map(spec, params)
+    return _map_paths(spec, params)
+
+
+def _map_paths(fn, tree: PyTree, prefix: str = "") -> PyTree:
+    """``tree_map`` whose function also gets the leaf's dotted path."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, tree[k], f"{prefix}{k}.") for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map_paths(fn, t, f"{prefix}{i}.") for i, t in enumerate(tree)]
+    return fn(prefix.rstrip("."), tree)
 
 
 def _fsdp_dim(shape, parts, fs: int) -> int | None:
@@ -199,6 +298,74 @@ def batch_specs(batch: dict, mesh) -> dict:
         return P(*parts)
 
     return {name: spec(name, x) for name, x in batch.items()}
+
+
+def cache_specs(cache: PyTree, cfg, mesh) -> PyTree:
+    """Specs of a decode cache (reference ``partition.py:246``): the slot
+    (or page-row) dim over every data axis where they divide it, and on
+    the model axis the kv-head dim of an attention leaf (effective rank 4)
+    or the channel dim of recurrent state, where it divides. Stacked roots
+    (:data:`STACKED_CACHE_ROOTS`) put the slot dim at 1. A contiguous
+    attention cache is the tuple ``(k, v, k_pos)``; its positions are i32
+    and stay off the model axis, as the reference's are."""
+    del cfg
+    dp = dp_axes(mesh)
+    n = dp_size(mesh)
+    mp = mp_size(mesh)
+
+    def spec(path, leaf):
+        ndim = leaf.dim()
+        parts = [None] * ndim
+        names = _path_names(path)
+        stacked = bool(names) and names[0] in STACKED_CACHE_ROOTS
+        bdim = 1 if stacked else 0
+        if n > 1 and ndim > bdim and leaf.shape[bdim] % n == 0:
+            parts[bdim] = dp
+        if mp > 1 and leaf.is_floating_point():
+            erank = ndim - (1 if stacked else 0)
+            leafname = names[-1] if names else ""
+            dim = None
+            if leafname == "conv" or (leafname == "h" and erank == 2):
+                dim = ndim - 1                     # channel-last state
+            elif leafname == "h" and erank == 3:
+                dim = ndim - 2                     # mamba (B, d_inner, N)
+            elif erank == 4:
+                dim = ndim - 2                     # the KV cache's head axis
+            if dim is not None and dim != bdim and leaf.shape[dim] % mp == 0:
+                parts[dim] = MODEL_AXIS
+        return P(*parts)
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(node[k], f"{prefix}{k}.") for k in sorted(node)}
+        if isinstance(node, tuple):           # (k, v, k_pos): the reference's tuple leaves
+            return tuple(spec(f"{prefix}{i}", t) for i, t in enumerate(node))
+        return spec(prefix.rstrip("."), node)
+
+    return walk(cache, "")
+
+
+def serve_input_specs(n_slots: int, mesh, *, paged: bool = False, n_rows: int | None = None,
+                      chunk: int = 1) -> dict:
+    """Specs of the serve step's slot-indexed inputs (reference
+    ``partition.py:302``): ``token``, ``pos``, ``active``, ``reset`` (and
+    ``block_table``, ``n_tok``) co-shard their slot dim with the pool's over
+    every data axis, or replicate when the slots do not divide; paged,
+    ``page_reset`` co-shards with the page rows and the copy-on-write lists
+    replicate."""
+    dp = dp_axes(mesh)
+    n = dp_size(mesh)
+    slot = dp if (n > 1 and n_slots % n == 0) else None
+    specs = {"token": P(slot, None), "pos": P(slot), "active": P(slot), "reset": P(slot)}
+    if paged:
+        page = dp if (n > 1 and n_rows is not None and n_rows % n == 0) else None
+        specs["block_table"] = P(slot, None)
+        specs["page_reset"] = P(page)
+        specs["copy_dst"] = P(None)
+        specs["copy_src"] = P(None)
+    if chunk > 1:
+        specs["n_tok"] = P(slot)
+    return specs
 
 
 def rank_index(mesh, first: str | None = None, rank: int | None = None) -> int:

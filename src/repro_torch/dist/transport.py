@@ -372,10 +372,13 @@ def make_transport(*, mesh=None, placement: Placement | None = None,
       ``e5m2``, ``e4m3``) — :class:`CompressedWire` at that format.
 
     ``wire_policy`` adds the per-leaf fp32 keep on a compressed wire and is
-    ignored for ``"fp32"``. An FSDP placement (with ``pspecs``) makes the
+    ignored for ``"fp32"``. A model axis above 1 raises: training there
+    is ROADMAP A11. An FSDP placement (with ``pspecs``) makes the
     inner a :class:`ReduceScatter` (standalone for ``fp32`` without a pod
     axis); otherwise the inner is the plain mean.
     """
+    if PT.mp_size(mesh) > 1:
+        raise ValueError(f"a gradient transport on a {mesh.shape} mesh: {PT.TRAIN_ITEM}")
     fsdp_on = (placement is not None and placement.fsdp_axis is not None
                 and pspecs is not None)
     inner = (ReduceScatter(pspecs, placement, mesh) if fsdp_on

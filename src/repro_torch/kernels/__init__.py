@@ -39,4 +39,5 @@ def launch_counts() -> dict[str, int]:
             "row_mean_sq", "sr_cast")}
     counts = {name: m.LAUNCHES for name, m in mod.items()}
     counts["paged_decode_attention"] = mod["decode_attention"].PAGED_LAUNCHES
+    counts["qmatmul_f32"] = mod["qmatmul"].F32_LAUNCHES
     return counts

@@ -58,6 +58,19 @@
 // bits depend on M, which the row-independence rule forbids. The consumer
 // warpgroup whose 64 rows all lie past M skips its MMAs.
 //
+// The f32-result entry (repro_qmatmul_f32; nearest only, no bits) runs the
+// same paths with the same K chain and writes the f32 accumulators instead
+// of rounding them, so rounding its result to bf16 gives repro_qmatmul's
+// output bit for bit, and its rows too are independent of M. It is the
+// row-parallel partial product of tensor parallelism (dist/axes.py): the
+// model group's f32 partials are summed and rounded once, as the
+// reference's all-reduce of f32 partials does. The wgmma path writes the
+// f32 tile straight from the accumulator registers (8 bytes a store, a
+// warp's store covering whole 32-byte sectors): staging it would take 64 KB
+// of shared memory, which the 3-stage ring leaves no room for. Bytes bound
+// it at the serving shapes as they bound the bf16 entry, plus the f32
+// output's 4 bytes per element.
+//
 // Plain C entry points, loaded with ctypes: launch on the caller's stream,
 // allocate nothing, return the CUDA error.
 #include <cuda.h>
@@ -167,10 +180,10 @@ __device__ __forceinline__ void load_b(__nv_bfloat16* sb, const __nv_bfloat16* y
   }
 }
 
-template <bool A_VEC, bool B_VEC, bool SR>
+template <bool A_VEC, bool B_VEC, bool SR, bool F32>
 __global__ void __launch_bounds__(kThreads)
 qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-               const uint32_t* __restrict__ bits, __nv_bfloat16* __restrict__ out,
+               const uint32_t* __restrict__ bits, void* __restrict__ out,
                long long M, long long N, long long K) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* const sa = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -253,15 +266,19 @@ qmatmul_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
         const long long col = n0 + wn + j * 8 + (lane & 3) * 2 + (r & 1);
         if (row < M && col < N) {
           const long long o = row * N + col;
-          out[o] = SR ? repro::sr(acc[i][j][r], bits[o]) : repro::bf(acc[i][j][r]);
+          if constexpr (F32)
+            static_cast<float*>(out)[o] = acc[i][j][r];
+          else
+            static_cast<__nv_bfloat16*>(out)[o] =
+                SR ? repro::sr(acc[i][j][r], bits[o]) : repro::bf(acc[i][j][r]);
         }
       }
 }
 
-template <bool A_VEC, bool B_VEC, bool SR>
+template <bool A_VEC, bool B_VEC, bool SR, bool F32>
 int launch(const void* x, const void* y, const void* bits, void* out, long long M,
            long long N, long long K, cudaStream_t stream) {
-  auto* kernel = qmatmul_kernel<A_VEC, B_VEC, SR>;
+  auto* kernel = qmatmul_kernel<A_VEC, B_VEC, SR, F32>;
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (configured != cudaSuccess) return static_cast<int>(configured);
@@ -269,15 +286,17 @@ int launch(const void* x, const void* y, const void* bits, void* out, long long 
                   static_cast<unsigned>((M + kBM - 1) / kBM));
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(y),
-      static_cast<const uint32_t*>(bits), static_cast<__nv_bfloat16*>(out), M, N, K);
+      static_cast<const uint32_t*>(bits), out, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the output: f32 accumulators (f32), else bf16 rounded nearest or with bits
 template <bool A_VEC, bool B_VEC>
 int launch_rounding(const void* x, const void* y, const void* bits, void* out, long long M,
-                    long long N, long long K, cudaStream_t stream) {
-  return bits ? launch<A_VEC, B_VEC, true>(x, y, bits, out, M, N, K, stream)
-              : launch<A_VEC, B_VEC, false>(x, y, bits, out, M, N, K, stream);
+                    long long N, long long K, bool f32, cudaStream_t stream) {
+  if (f32) return launch<A_VEC, B_VEC, false, true>(x, y, nullptr, out, M, N, K, stream);
+  return bits ? launch<A_VEC, B_VEC, true, false>(x, y, bits, out, M, N, K, stream)
+              : launch<A_VEC, B_VEC, false, false>(x, y, bits, out, M, N, K, stream);
 }
 
 }  // namespace edge
@@ -414,13 +433,14 @@ __device__ __forceinline__ void tile_coords(int t, int num_m, int num_n, int& tm
   tn = r / rows;
 }
 
-template <bool SR>
+template <bool SR, bool F32>
 __global__ void __launch_bounds__(kThreads, 1)
 qmatmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                      const __grid_constant__ CUtensorMap y_map,
                      const __grid_constant__ CUtensorMap out_map,
                      const __grid_constant__ CUtensorMap bits_map,
-                     const uint32_t* __restrict__ bits, int M, int N, int K) {
+                     const uint32_t* __restrict__ bits, float* __restrict__ out32, int M,
+                     int N, int K) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // swizzle atoms: 1 KB
   const uint32_t full = base + kStages * kStageBytes + 4 * kOutBoxBytes;
@@ -505,6 +525,24 @@ qmatmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         if (++s == kStages) { s = 0; phase ^= 1; }
       }
       if (!live) continue;
+      if constexpr (F32) {
+        // the f32 tile from the registers: accumulator elements 4j + 2 half
+        // and + 1 are adjacent columns of one row (N is a multiple of 8 on
+        // this path, so the pair lies wholly inside or outside the matrix)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 16 * warp + lane / 4 + 8 * half;
+          if (row >= M) continue;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = tn * kBN + 8 * j + 2 * (lane % 4);
+            if (col < N)
+              *reinterpret_cast<float2*>(out32 + static_cast<long long>(row) * N + col) =
+                  make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+          }
+        }
+        continue;
+      }
       // epilogue: the rounded tile through shared memory (two 64x64 boxes
       // per warpgroup, 128-byte swizzled, so the writes meet no bank
       // conflict) to one TMA store per box, which clips rows past M and
@@ -596,10 +634,10 @@ bool make_map(CUtensorMap* map, const void* ptr, long long rows, long long cols,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool SR>
+template <bool SR, bool F32>
 int launch(const void* x, const void* y, const void* bits, void* out, long long M,
            long long N, long long K, cudaStream_t stream) {
-  auto* kernel = qmatmul_wgmma_kernel<SR>;
+  auto* kernel = qmatmul_wgmma_kernel<SR, F32>;
   static const cudaError_t configured = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (configured != cudaSuccess) return static_cast<int>(configured);
@@ -607,16 +645,17 @@ int launch(const void* x, const void* y, const void* bits, void* out, long long 
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  CUtensorMap x_map, y_map, out_map, bits_map = {};
+  CUtensorMap x_map, y_map, out_map = {}, bits_map = {};
   if (!make_map(&x_map, x, M, K, 128, 2) || !make_map(&y_map, y, K, N, 128, 2) ||
-      !make_map(&out_map, out, M, N, 64, 2) ||
+      (!F32 && !make_map(&out_map, out, M, N, 64, 2)) ||
       (SR && !make_map(&bits_map, bits, M, N, 128, 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      x_map, y_map, out_map, bits_map, static_cast<const uint32_t*>(bits), static_cast<int>(M),
-      static_cast<int>(N), static_cast<int>(K));
+      x_map, y_map, out_map, bits_map, static_cast<const uint32_t*>(bits),
+      F32 ? static_cast<float*>(out) : nullptr, static_cast<int>(M), static_cast<int>(N),
+      static_cast<int>(K));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -643,10 +682,11 @@ extern "C" int repro_qmatmul_path(const void* x, const void* y, const void* bits
   return choose_path(x, y, bits, N, K);
 }
 
-// The mma.sync path on any operands (16-byte loads where alignment allows),
-// to time it beside the wgmma path on the same inputs.
-extern "C" int repro_qmatmul_sync(const void* x, const void* y, const void* bits, void* out,
-                                  long long M, long long N, long long K, void* stream) {
+namespace {
+
+// the mma.sync path on any operands (16-byte loads where alignment allows)
+int run_sync(const void* x, const void* y, const void* bits, void* out, long long M,
+             long long N, long long K, bool f32, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if ((M + edge::kBM - 1) / edge::kBM > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const bool a_vec = K % 8 == 0 && aligned(x, 16);
@@ -654,10 +694,33 @@ extern "C" int repro_qmatmul_sync(const void* x, const void* y, const void* bits
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using namespace edge;
   if (a_vec)
-    return b_vec ? launch_rounding<true, true>(x, y, bits, out, M, N, K, s)
-                 : launch_rounding<true, false>(x, y, bits, out, M, N, K, s);
-  return b_vec ? launch_rounding<false, true>(x, y, bits, out, M, N, K, s)
-               : launch_rounding<false, false>(x, y, bits, out, M, N, K, s);
+    return b_vec ? launch_rounding<true, true>(x, y, bits, out, M, N, K, f32, s)
+                 : launch_rounding<true, false>(x, y, bits, out, M, N, K, f32, s);
+  return b_vec ? launch_rounding<false, true>(x, y, bits, out, M, N, K, f32, s)
+               : launch_rounding<false, false>(x, y, bits, out, M, N, K, f32, s);
+}
+
+// the path choose_path picks; f32: the accumulators, else the rounded bf16
+int run(const void* x, const void* y, const void* bits, void* out, long long M, long long N,
+        long long K, bool f32, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if ((M + edge::kBM - 1) / edge::kBM > 65535 || N >= (1LL << 31) || K >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!choose_path(x, y, bits, N, K)) return run_sync(x, y, bits, out, M, N, K, f32, stream);
+  if (!aligned(out, 16)) return static_cast<int>(cudaErrorInvalidValue);  // allocated aligned
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) return wg::launch<false, true>(x, y, nullptr, out, M, N, K, s);
+  return bits ? wg::launch<true, false>(x, y, bits, out, M, N, K, s)
+              : wg::launch<false, false>(x, y, bits, out, M, N, K, s);
+}
+
+}  // namespace
+
+// The mma.sync path on any operands, to time it beside the wgmma path on
+// the same inputs.
+extern "C" int repro_qmatmul_sync(const void* x, const void* y, const void* bits, void* out,
+                                  long long M, long long N, long long K, void* stream) {
+  return run_sync(x, y, bits, out, M, N, K, false, stream);
 }
 
 // x (M,K) and y (K,N) bf16 row-major, bits (M,N) u32 or null (nearest),
@@ -665,12 +728,18 @@ extern "C" int repro_qmatmul_sync(const void* x, const void* y, const void* bits
 // below 2^31.
 extern "C" int repro_qmatmul(const void* x, const void* y, const void* bits, void* out,
                              long long M, long long N, long long K, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if ((M + edge::kBM - 1) / edge::kBM > 65535 || N >= (1LL << 31) || K >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!choose_path(x, y, bits, N, K)) return repro_qmatmul_sync(x, y, bits, out, M, N, K, stream);
-  if (!aligned(out, 16)) return static_cast<int>(cudaErrorInvalidValue);  // allocated aligned
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bits ? wg::launch<true>(x, y, bits, out, M, N, K, s)
-              : wg::launch<false>(x, y, bits, out, M, N, K, s);
+  return run(x, y, bits, out, M, N, K, false, stream);
+}
+
+// The f32-result entry: out (M,N) f32, the accumulators repro_qmatmul
+// rounds (nearest; no bits). The same limits.
+extern "C" int repro_qmatmul_f32(const void* x, const void* y, void* out, long long M,
+                                 long long N, long long K, void* stream) {
+  return run(x, y, nullptr, out, M, N, K, true, stream);
+}
+
+// The f32-result entry on the mma.sync path, beside repro_qmatmul_sync.
+extern "C" int repro_qmatmul_f32_sync(const void* x, const void* y, void* out, long long M,
+                                      long long N, long long K, void* stream) {
+  return run_sync(x, y, nullptr, out, M, N, K, true, stream);
 }

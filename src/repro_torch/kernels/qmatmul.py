@@ -22,6 +22,13 @@ the function, so :func:`qmatmul` has none. Unlike the TPU kernel it takes
 every shape: the CUDA kernel masks the ragged edge of M, N and K itself.
 Bits are u32 carried in an int32 tensor, as in :mod:`.sr_cast`.
 
+:func:`qmatmul_f32` is the kernel's f32-result entry: the same paths and
+K chain, the accumulators written instead of rounded, so its result
+rounded to bf16 is :func:`qmatmul`'s bit for bit, rows independent of M.
+It computes the f32 partial sums of a row-parallel product under tensor
+parallelism (:mod:`repro_torch.dist.axes`), which the model group sums and
+rounds once.
+
 CUDA tensors launch the kernel (or raise); only CPU tensors take the plain
 PyTorch version :func:`qmatmul_ref`, which the tests and ``chip_smoke.py``
 hold the kernel against. The tensor cores sum a group of exact products in
@@ -41,21 +48,30 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.sr_cast import sr_to_bf16
 
-__all__ = ["LAUNCHES", "Plan", "plan", "qmatmul", "qmatmul_ref"]
+__all__ = ["LAUNCHES", "F32_LAUNCHES", "Plan", "plan", "qmatmul", "qmatmul_f32", "qmatmul_ref"]
 
 MAX_M = 65535 * 128        # grid rows (blockIdx.y) x the mma.sync path's 128-row tile
 MAX_NK = 2**31 - 1         # N and K are int32 inside the kernels
 
-# Kernel launches made by qmatmul (incremented per launch).
+# Kernel launches made by qmatmul and by qmatmul_f32 (incremented per launch).
 LAUNCHES = 0
+F32_LAUNCHES = 0
 
 
-def qmatmul_ref(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = None
-                ) -> torch.Tensor:
+def qmatmul_ref(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = None,
+                out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Plain PyTorch version: the bf16 operands' product in full f32, then
     the nearest cast, or SR with ``bits`` (a non-finite accumulator takes the
-    nearest cast). ``repro/kernels/ref.py::qmatmul_ref``."""
+    nearest cast). ``repro/kernels/ref.py::qmatmul_ref``. ``out_dtype=
+    torch.float32`` returns the f32 product unrounded (the plain version of
+    :func:`qmatmul_f32`; no bits)."""
     acc = x.to(torch.bfloat16).float() @ y.to(torch.bfloat16).float()
+    if out_dtype == torch.float32:
+        if bits is not None:
+            raise ValueError("the f32 result takes no rounding bits")
+        return acc
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"qmatmul_ref returns bf16 or f32, not {out_dtype}")
     return acc.to(torch.bfloat16) if bits is None else sr_to_bf16(acc, bits)
 
 
@@ -89,6 +105,16 @@ def qmatmul(x: torch.Tensor, y: torch.Tensor, *, bits: torch.Tensor | None = Non
     return _launch(x, y, bits)
 
 
+def qmatmul_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x`` (M,K) bf16 @ ``y`` (K,N) bf16 → (M,N) f32: the accumulators
+    :func:`qmatmul` rounds, unrounded (nearest's path; :func:`plan` with no
+    bits gives it). CPU tensors take the plain version."""
+    _check(x, y, None)
+    if x.device.type == "cpu":
+        return qmatmul_ref(x, y, out_dtype=torch.float32)
+    return _launch(x, y, None, entry="repro_qmatmul_f32")
+
+
 def _check(x, y, bits):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"qmatmul runs on CUDA or CPU, not {x.device}")
@@ -110,11 +136,16 @@ def _check(x, y, bits):
                              f"{(x.shape[0], y.shape[1])}")
 
 
+# the f32-result entries take no bits pointer
+_F32_ENTRIES = ("repro_qmatmul_f32", "repro_qmatmul_f32_sync")
+
+
 @functools.cache
 def _kernel(entry: str = "repro_qmatmul"):
     fn = getattr(_build.load("qmatmul"), entry)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    n_ptr = 3 if entry in _F32_ENTRIES else 4
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     return fn
 
 
@@ -136,10 +167,10 @@ def kernel_path(x: torch.Tensor, y: torch.Tensor, bits: torch.Tensor | None = No
 
 
 def _launch(x, y, bits, *, entry: str = "repro_qmatmul"):
-    """One launch. ``entry="repro_qmatmul_sync"`` forces the mma.sync path,
-    which ``chip_smoke.py`` times beside the chosen path on the same
-    inputs."""
-    global LAUNCHES
+    """One launch. ``entry="repro_qmatmul_sync"`` (``"repro_qmatmul_f32_sync"``)
+    forces the mma.sync path, which ``chip_smoke.py`` times beside the
+    chosen path on the same inputs; the ``_f32`` entries write f32."""
+    global LAUNCHES, F32_LAUNCHES
     for name, t in {"x": x, "y": y, "bits": bits}.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (row-major)")
@@ -147,13 +178,20 @@ def _launch(x, y, bits, *, entry: str = "repro_qmatmul"):
     if M > MAX_M or max(N, K) > MAX_NK:
         raise ValueError(f"qmatmul takes at most {MAX_M} rows and N, K up to {MAX_NK}, "
                          f"got {(M, N, K)}")
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    f32 = entry in _F32_ENTRIES
+    out = torch.empty((M, N), dtype=torch.float32 if f32 else torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    ptrs = [x.data_ptr(), y.data_ptr()]
+    if not f32:
+        ptrs.append(None if bits is None else bits.data_ptr())
     with torch.cuda.device(x.device):
-        rc = _kernel(entry)(x.data_ptr(), y.data_ptr(), None if bits is None else bits.data_ptr(),
-                       out.data_ptr(), M, N, K, torch.cuda.current_stream().cuda_stream)
+        rc = _kernel(entry)(*ptrs, out.data_ptr(), M, N, K,
+                            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    if f32:
+        F32_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out

@@ -5,12 +5,15 @@ A :class:`Mesh` names its axes' sizes over the world's ranks, rank-major
 in axis order, as ``jax.make_mesh`` lays devices out: ``(data, model)``,
 ``(data, fsdp, model)`` with an ``fsdp`` axis, and a leading ``pod``. Any
 data-parallel axes may exceed 1 together (``pods`` with ``data`` is the
-hierarchical pod-over-data composition); ``model > 1`` is ROADMAP A10.
+hierarchical pod-over-data composition). The ``model`` axis is innermost,
+so a model group is consecutive ranks; what runs on it is serving the
+dense families (``dist/partition.py::serve_refusal``).
 
 :func:`make_local_mesh` creates the process group of every axis above 1 —
-the ranks that differ only along it — and the group over all
-data-parallel ranks, on every rank, in the same order, once: ``new_group``
-is collective, so a group made later on some ranks only would hang.
+the ranks that differ only along it: one model group per data coordinate,
+the data groups across them — and the group over all data-parallel ranks,
+on every rank, in the same order, once: ``new_group`` is collective, so a
+group made later on some ranks only would hang.
 """
 from __future__ import annotations
 
@@ -105,8 +108,6 @@ def make_local_mesh(data: int = 1, model: int = 1, fsdp: int = 1, pods: int = 1)
     with ``fsdp > 1``, a leading ``pod`` with ``pods > 1`` — over this
     process group, with its process groups. A mesh of more than one
     process must span exactly the group's processes."""
-    if model > 1:
-        raise ValueError(f"model={model}: {PT.MODEL_ITEM}")
     sizes: tuple = (data, model)
     axes: tuple = (PT.DATA_AXIS, PT.MODEL_AXIS)
     if fsdp > 1:

@@ -33,6 +33,22 @@ runs and preemption recomputes reproduce their tokens):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced \\
         --device cpu --temperature 0.8 --top-k 50 --top-p 0.95 --sample-seed 1
+
+On a ``(data, model)`` mesh of processes (``--data-parallel D
+--model-parallel M`` under ``repro_torch.launch.dist_launch -n D*M``; no
+mesh without ``--data-parallel``, as the reference's launcher): the
+weights are drawn whole from ``--seed`` and each rank keeps its shards
+(``partition.param_specs``), the slots split over the data ranks and the
+kv heads over the model ranks. A model axis above 1 serves the dense
+decoder-only families (qwen2.5, yi, mistral-nemo, command-r, qwen2-vl's
+text) and runs its step eagerly; ``--paged`` takes no data axis above 1
+(ROADMAP A12). Several ranks share one card with ``--dist-backend gloo``:
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
+        python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu \\
+        --data-parallel 1 --model-parallel 2 --fused-decode
+    python -m repro_torch.launch.dist_launch -n 4 -- python -m repro_torch.launch.serve \\
+        --data-parallel 2 --model-parallel 2 --dist-backend gloo --fused-decode
 """
 from __future__ import annotations
 
@@ -45,9 +61,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import get_policy
+from repro_torch.dist import fsdp as F
+from repro_torch.dist import multihost as MH
+from repro_torch.dist import partition as PT
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import registry as R
 from repro_torch.serve.engine import Completion, Engine
 from repro_torch.serve.sampling import validate_sampling
+from repro_torch.tree import tree_leaves
 
 
 def synthetic_stream(rng: np.random.Generator, n_requests: int, *,
@@ -153,6 +174,13 @@ def main(argv=None):
                     help="disable prompt-prefix page sharing (with --paged it "
                          "is on by default for attention-only full-context "
                          "stacks)")
+    ap.add_argument("--data-parallel", type=int, default=0,
+                    help="the mesh's data axis (0: no mesh); the slots split over it")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the mesh's model axis: tensor-parallel weights and kv heads")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the process group's backend (default: NCCL on CUDA, gloo on "
+                         "the CPU; gloo for several ranks sharing one card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back")
     args = ap.parse_args(argv)
@@ -166,14 +194,29 @@ def main(argv=None):
     cfg = R.get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    mesh = None
+    if args.data_parallel:
+        MH.initialize(device=device, backend=args.dist_backend)
+        mesh = make_local_mesh(args.data_parallel, args.model_parallel)
+    try:
+        _serve(args, cfg, policy, device, mesh, ap)
+    finally:
+        MH.shutdown()
+
+
+def _serve(args, cfg, policy, device, mesh, ap):
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
+    if mesh is not None:
+        params = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
+        if device.type == "cuda":      # ranks may share the card: free the whole tree
+            torch.cuda.empty_cache()
     engine = Engine(params, cfg, policy, n_slots=args.slots,
                     max_len=args.max_len, eos_id=args.eos_id,
                     fused_decode=args.fused_decode, paged=args.paged,
                     page_size=args.page_size, n_pages=args.n_pages,
                     prefill_chunk=args.prefill_chunk,
                     prefix_cache=False if args.no_prefix_cache else None,
-                    device=device)
+                    device=device, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
     # every request must fit the pool: clamp generation lengths to what the
@@ -188,8 +231,20 @@ def main(argv=None):
                               gen_lens=(min(args.gen_lens[0], hi), hi),
                               vocab=cfg.vocab)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    knobs = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                 seed=args.sample_seed)
     layout = (f"paged page={args.page_size} pages={engine.pool.n_pages}"
               if args.paged else "contiguous")
+    if mesh is not None:
+        weight = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        print(f"[serve] rank {MH.process_index()} of mesh {mesh.shape}: slots "
+              f"{engine.pool.slots[0]}..{engine.pool.slots[1] - 1}, weights "
+              f"{weight / 2**20:.1f} MiB, KV {engine.pool.nbytes() / 2**20:.1f} MiB; "
+              f"{'eager steps (model group)' if engine.axis else 'graphs on CUDA'}",
+              flush=True)
+    if not MH.is_primary():
+        serve_stream(engine, stream, lambda i: knobs)
+        return
     print(f"[serve] {cfg.name} policy={policy.name} slots={args.slots} "
           f"max_len={args.max_len} kv_dtype={engine.pool.dtype} {layout} "
           f"pool={engine.pool.nbytes() / 2**20:.1f} MiB chunk={args.prefill_chunk} "
@@ -197,8 +252,6 @@ def main(argv=None):
     if args.temperature > 0:
         print(f"[serve] sampling: temperature={args.temperature} top_k={args.top_k} "
               f"top_p={args.top_p} seed={args.sample_seed}")
-    knobs = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-                 seed=args.sample_seed)
     res = serve_stream(engine, stream, lambda i: knobs)
     st = engine.stats
     print(f"[serve] {st.finished}/{args.requests} finished in {st.steps} "

@@ -59,7 +59,7 @@ single process a compressed wire runs its local arithmetic (one replica,
 no collective). The process group's backend follows the device (NCCL on
 CUDA, gloo on the CPU); ``--dist-backend gloo`` runs several ranks on one
 card, which NCCL refuses, with the collectives' payloads through host
-memory. ``--model-parallel`` raises (ROADMAP A10).
+memory. ``--model-parallel`` raises: training on the model axis is ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -122,7 +122,7 @@ def _parser() -> argparse.ArgumentParser:
                          "every this many steps")
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis: ROADMAP A10")
+                    help="the model axis: training there is ROADMAP A11")
     ap.add_argument("--fsdp-parallel", type=int, default=1,
                     help="size of a dedicated fsdp mesh axis (implies --fsdp)")
     ap.add_argument("--fsdp", action="store_true",
@@ -158,7 +158,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     """The launcher's flags; those of later ROADMAP items raise."""
     args = _parser().parse_args(argv)
     if args.model_parallel > 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: {PT.MODEL_ITEM}")
+        raise ValueError(f"--model-parallel {args.model_parallel}: {PT.TRAIN_ITEM}")
     return args
 
 

@@ -19,15 +19,16 @@ import math
 import torch
 
 from repro_torch.core.qarith import QArith, f32_product, on_tensor_cores
+from repro_torch.dist import axes
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   fused_decode_attention,
                                                   fused_paged_decode_attention)
-from repro_torch.kernels.qmatmul import qmatmul
+from repro_torch.kernels.qmatmul import qmatmul, qmatmul_f32
 from repro_torch.kernels.row_mean_sq import row_mean_sq
 
-__all__ = ["dense_init", "dense", "project", "f32_rows_product", "embed_init", "norm_init",
-           "norm_apply", "rope", "mrope", "flash_attention", "decode_attention",
+__all__ = ["dense_init", "dense", "project", "project_f32", "project_row_parallel",
+           "f32_rows_product", "embed_init", "norm_init", "norm_apply", "rope", "mrope", "flash_attention", "decode_attention",
            "attention_as_lanes", "paged_attention_as_lanes", "attention_init",
            "attention_apply", "copy_page_rows"]
 
@@ -106,6 +107,31 @@ def project(qa: QArith, x, w):
     return qa.einsum("...d,df->...f", x, w)
 
 
+def project_f32(qa: QArith, x, w):
+    """``x`` (..., d_in) @ ``w`` (d_in, d_out) with the f32 result left
+    unrounded: on the kernel route one launch of the f32-result entry
+    :func:`~repro_torch.kernels.qmatmul.qmatmul_f32` (the K chain of
+    :func:`project`'s, rows independent of the row count), otherwise
+    ``qa.matmul_f32out``."""
+    if _kernel_route(x, w):
+        xc, wc = qa.cast(x), qa.cast(w)
+        if xc.dtype == wc.dtype == torch.bfloat16:
+            y = qmatmul_f32(xc.reshape(-1, x.shape[-1]).contiguous(), wc.contiguous())
+            return y.reshape(*x.shape[:-1], w.shape[-1])
+    return qa.matmul_f32out(x, w)
+
+
+def project_row_parallel(qa: QArith, x, w):
+    """A row-parallel product (``wo``, ``w_down``): :func:`project` in one
+    process; under a model axis (:mod:`repro_torch.dist.axes`) ``x`` and
+    ``w`` hold this rank's slice of the contracted features, and the model
+    group's f32 partials are summed in rank order and rounded once, as the
+    reference's all-reduce of f32 partials is."""
+    if axes.current() is None:
+        return project(qa, x, w)
+    return axes.row_parallel_sum(project_f32(qa, x, w), qa)
+
+
 ROW_BLOCK = 8     # rows of one f32 product call on the kernel route
 
 
@@ -125,10 +151,14 @@ def f32_rows_product(a, b):
     return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
-def dense(qa: QArith, p, x):
-    y = project(qa, x, p["kernel"])
+def dense(qa: QArith, p, x, *, row_parallel: bool = False):
+    """``x @ kernel + bias``. Under a model axis a column-parallel kernel
+    holds this rank's output columns and the replicated bias adds its
+    matching slice; a ``row_parallel`` kernel (``wo``) holds this rank's
+    input features (:func:`project_row_parallel`) and the whole bias adds."""
+    y = (project_row_parallel if row_parallel else project)(qa, x, p["kernel"])
     if "bias" in p:
-        y = qa.add(y, p["bias"])
+        y = qa.add(y, axes.local_slice(p["bias"], y.shape[-1]))
     return y
 
 
@@ -483,9 +513,12 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = dense(qa, p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-    k = dense(qa, p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-    v = dense(qa, p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+    # the heads of this rank's kernels: all of them in one process, a model
+    # axis's share under tensor parallelism (the decode kernels see G = Hq/Hkv)
+    Hq, Hkv = p["wq"]["kernel"].shape[-1] // hd, p["wk"]["kernel"].shape[-1] // hd
+    q = dense(qa, p["wq"], x).reshape(B, S, Hq, hd)
+    k = dense(qa, p["wk"], x).reshape(B, S, Hkv, hd)
+    v = dense(qa, p["wv"], x).reshape(B, S, Hkv, hd)
     if cfg.rope_type == "mrope" and mrope_positions is not None:
         q = mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
         k = mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
@@ -495,7 +528,7 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
     if cache is None:
         out = flash_attention(qa, q, k, v, causal=causal, window=window, chunk=chunk,
                               softcap=cfg.attn_logit_softcap)
-        return dense(qa, p["wo"], out.reshape(B, S, cfg.n_heads * hd)), None
+        return dense(qa, p["wo"], out.reshape(B, S, Hq * hd), row_parallel=True), None
 
     tpos = positions.reshape(B, S).to(torch.int32)
     live = tpos >= 0
@@ -511,8 +544,8 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
         write = live & (page < R - 1)
         page = torch.where(write, page, R - 1).reshape(-1).long()
         off = torch.where(live, tpos % P, 0).reshape(-1).long()
-        kp[page, off] = k.reshape(B * S, cfg.n_kv_heads, hd).to(kp.dtype)
-        vp[page, off] = v.reshape(B * S, cfg.n_kv_heads, hd).to(vp.dtype)
+        kp[page, off] = k.reshape(B * S, Hkv, hd).to(kp.dtype)
+        vp[page, off] = v.reshape(B * S, Hkv, hd).to(vp.dtype)
         pp[page, off] = torch.where(write, tpos, -1).reshape(-1)
         if dispatch.fused_decode_enabled() and (S == 1 or x.device.type == "cuda"):
             out = qa.cast(paged_attention_as_lanes(
@@ -522,8 +555,8 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
             table = block_table.long()
             view = (B, n_blocks * P)
             out = decode_attention(
-                qa, q, kp[table].reshape(*view, cfg.n_kv_heads, hd),
-                vp[table].reshape(*view, cfg.n_kv_heads, hd),
+                qa, q, kp[table].reshape(*view, Hkv, hd),
+                vp[table].reshape(*view, Hkv, hd),
                 pp[table].reshape(view), q_pos=q_pos, window=window,
                 softcap=cfg.attn_logit_softcap)
     else:
@@ -541,5 +574,5 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
         k_pos[lane, slot] = torch.where(live, tpos, k_pos[lane, slot])
         out = decode_attention(qa, q, k_cache, v_cache, k_pos, q_pos=q_pos,
                                window=window, softcap=cfg.attn_logit_softcap)
-    out = out.reshape(B, S, cfg.n_heads * hd)
-    return dense(qa, p["wo"], out), cache
+    out = out.reshape(B, S, Hq * hd)
+    return dense(qa, p["wo"], out, row_parallel=True), cache

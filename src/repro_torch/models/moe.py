@@ -33,7 +33,10 @@ import math
 import torch
 
 from repro_torch.core.qarith import QArith
-from repro_torch.models.layers import _kernel_route, _normal, f32_rows_product, project
+from repro_torch.dist import axes
+from repro_torch.dist.partition import SERVE_ITEM
+from repro_torch.models.layers import (_kernel_route, _normal, f32_rows_product, project,
+                                       project_row_parallel)
 
 __all__ = ["mlp_init", "mlp_apply", "moe_init", "moe_apply"]
 
@@ -52,7 +55,7 @@ def mlp_apply(qa: QArith, p, x, act: str = "silu"):
     u = project(qa, x, p["w_up"])
     a = qa.silu(g) if act == "silu" else qa.gelu(g)
     h = qa.mul(a, u)
-    return project(qa, h, p["w_down"])
+    return project_row_parallel(qa, h, p["w_down"])
 
 
 def moe_init(gen: torch.Generator, cfg, dtype=torch.float32):
@@ -198,6 +201,9 @@ def moe_apply(qa: QArith, p, x, cfg, *, strategy: str | None = None):
     routes all tokens with the no-drop capacity T·k; otherwise ``grouped``
     (B > 1), ``gather`` or the global one-hot with capacity
     ``capacity_factor·T·k/E``. The shared expert, if any, is added after."""
+    if axes.current() is not None:
+        raise ValueError(f"MoE blocks on a model axis (tensor parallelism inside the "
+                         f"experts) are {SERVE_ITEM}")
     B, S, _ = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import partition as PT
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 
@@ -87,15 +88,32 @@ def forward_logits(qa: QArith, params, cfg, batch: dict, *, remat: bool = True,
                      remat=remat, attn_chunk=attn_chunk)
 
 
+def _kv_heads(params, cfg) -> int | None:
+    """The kv heads of the first attention block's ``wk`` in ``params``:
+    this rank's share under tensor parallelism (None without attention)."""
+    for block in params.get("layers", {}).values():
+        mixer = block.get("mixer", {})
+        if "wk" in mixer:
+            return mixer["wk"]["kernel"].shape[-1] // cfg.head_dim
+    return None
+
+
 def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat16,
                page_size=None, n_rows=None, batch: dict | None = None,
-               qa: QArith | None = None):
+               qa: QArith | None = None, mesh=None):
     """Decode cache for ``batch_size`` lanes, on the parameters' device;
-    ``page_size``/``n_rows`` build the paged pool instead. The
+    ``page_size``/``n_rows`` build the paged pool instead. The attention
+    leaves hold the kv heads of ``params``' kernels, so a rank's shards
+    (tensor parallelism) get their share of the heads; ``mesh`` refuses
+    what the port does not serve on it (``partition.serve_refusal``).
+    The
     encoder-decoder encodes ``batch["src_embeds"]`` under ``qa`` into its
     cross K/V (it has no paged pool), its attention over the whole source
     in one flash chunk: the reference's chunk of 1024 does not divide
     whisper's 1500 frames, and the chunk only orders the sums."""
+    reason = PT.serve_refusal(cfg, mesh, paged=page_size is not None)
+    if reason is not None:
+        raise ValueError(reason)
     if cfg.encdec:
         if page_size is not None:
             raise ValueError("paged KV cache is not supported for enc-dec")
@@ -106,7 +124,8 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
         enc_out = ED.encode(qa, params, cfg, src, remat=False, attn_chunk=src.shape[1])
         return ED.init_decode_cache(cfg, params, qa, enc_out, batch_size, max_len, dtype)
     return T.init_cache(cfg, batch_size, max_len, dtype, page_size=page_size,
-                        n_rows=n_rows, device=params["embed"]["embedding"].device)
+                        n_rows=n_rows, device=params["embed"]["embedding"].device,
+                        kv_heads=_kv_heads(params, cfg))
 
 
 def decode(qa: QArith, params, cfg, token, cache, cache_pos, *, mrope_positions=None,

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as RG
@@ -177,7 +178,7 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
 
 
 def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_rows,
-                 device, lead=()):
+                 device, kv_heads, lead=()):
     """One block's decode cache, with ``lead`` dims (the group dim) first."""
     def zeros(*shape, dt=dtype):
         return torch.zeros((*lead, *shape), dtype=dt, device=device)
@@ -190,7 +191,7 @@ def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_r
                 "h": zeros(batch, w, dt=torch.float32)}
     window = cfg.local_attn_window if kind == "local_attn" else cfg.swa_window
     clen = min(max_len, window) if window else max_len
-    hd, Hkv = cfg.head_dim, cfg.n_kv_heads
+    hd, Hkv = cfg.head_dim, kv_heads
     if page_size is not None and clen == max_len:
         # full-context attention → the paged pool; ring layers stay
         # contiguous: their cache is already token-tight
@@ -203,21 +204,25 @@ def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_r
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               page_size=None, n_rows=None, device=None) -> PyTree:
+               page_size=None, n_rows=None, device=None, kv_heads=None) -> PyTree:
     """Decode cache (reference ``transformer.py:146-190``): per stacked
     block a leaf with the group dim first, per remainder block one without.
     ``page_size``/``n_rows`` switch full-context attention layers to the
     paged pool of ``n_rows`` pages (all layers share one block table);
-    ring-window and recurrent leaves keep the per-slot layout."""
+    ring-window and recurrent leaves keep the per-slot layout.
+    ``kv_heads`` (default ``cfg.n_kv_heads``) is the kv heads this rank's
+    attention kernels compute: a model axis's share under tensor
+    parallelism."""
     if (page_size is None) != (n_rows is None):
         raise ValueError("page_size and n_rows must be given together")
+    kv_heads = cfg.n_kv_heads if kv_heads is None else kv_heads
     kinds, n_groups, rem = _layer_plan(cfg)
     cache = {"layers": {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device, (n_groups,))
+                                              n_rows, device, kv_heads, (n_groups,))
                         for i, kind in enumerate(kinds)}}
     if rem:
         cache["rem"] = {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device)
+                                              n_rows, device, kv_heads)
                         for i, kind in enumerate(rem)}
     return cache
 
@@ -225,9 +230,12 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
 def _embed_tokens(qa: QArith, cfg, params, tokens):
     """Token ids (B,S) int32/int64 → their embedding rows; (B,S,D) float
     embeddings (the vlm frontend stub's patch and text embeddings) pass
-    through. Both are rounded to the compute grid."""
+    through. Both are rounded to the compute grid. Under a model axis the
+    embedding holds this rank's vocab rows (:func:`repro_torch.dist.axes.embed_lookup`)."""
     if tokens.dtype in (torch.int32, torch.int64):
-        x = params["embed"]["embedding"][tokens.long()]
+        table = params["embed"]["embedding"]
+        x = (table[tokens.long()] if axes.current() is None
+             else axes.embed_lookup(table, tokens))
     elif tokens.is_floating_point() and tokens.dim() == 3:
         x = tokens
     else:
@@ -240,10 +248,15 @@ def _embed_tokens(qa: QArith, cfg, params, tokens):
 
 
 def _logits(qa: QArith, cfg, params, x):
+    """f32 logits over the vocabulary. Under a model axis the tied
+    embedding or the untied ``lm_head`` holds this rank's vocab columns,
+    and the ranks' logits are gathered in rank order."""
     h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
     if cfg.tie_embeddings:
-        return qa.matmul_f32out(h, params["embed"]["embedding"].T)
-    return qa.matmul_f32out(h, params["lm_head"]["kernel"])
+        logits = qa.matmul_f32out(h, params["embed"]["embedding"].T)
+    else:
+        logits = qa.matmul_f32out(h, params["lm_head"]["kernel"])
+    return logits if axes.current() is None else axes.gather_logits(logits)
 
 
 def _unstack(stack: PyTree, n: int) -> list[PyTree]:

@@ -1,5 +1,5 @@
 """Slotted decode-cache pool and the per-slot and per-page primitives
-(port of ``repro.serve.cache``, no mesh).
+(port of ``repro.serve.cache``).
 
 The decode cache is built **once** for ``n_slots`` lanes and ``max_len``
 positions, and requests are mapped onto slots. Its tree is what
@@ -34,11 +34,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import partition as PT
 from repro_torch.models import registry as R
 from repro_torch.models.layers import copy_page_rows
 
 __all__ = ["CachePool", "ENCDEC_ROUTE", "PAGED_KEYS", "RECURRENT_KEYS", "cache_dtype", "copy_pages",
-           "keep_active", "reset_pages", "reset_slots"]
+           "keep_active", "local_slots", "reset_pages", "reset_slots"]
 
 PyTree = Any
 
@@ -155,25 +156,41 @@ def keep_active(active: Optional[torch.Tensor], new: PyTree, old: PyTree) -> PyT
     return old
 
 
+def local_slots(n_slots: int, mesh) -> tuple[int, int]:
+    """The slot range ``[lo, hi)`` whose state this rank holds: on a mesh
+    whose data axes divide the slots, its index's contiguous share (the
+    reference's slot spec, ``partition.cache_specs``); otherwise every slot
+    (they replicate, as the reference's do)."""
+    n = 1 if mesh is None else PT.dp_size(mesh)
+    if n == 1 or n_slots % n:
+        return 0, n_slots
+    per = n_slots // n
+    at = PT.rank_index(mesh)
+    return at * per, (at + 1) * per
+
+
 class CachePool:
     """One decode-cache allocation + host-side slot bookkeeping.
 
-    The device side (``self.cache``) is built by ``make_cache`` for
-    ``n_slots`` lanes on the parameters' device. The host side is a FIFO
-    free list: :meth:`acquire` hands out slot ids, :meth:`release` returns
-    them; the state reset happens in the serve step via
-    :func:`reset_slots`.
+    The device side (``self.cache``) is built by ``make_cache`` on the
+    parameters' device, for ``n_slots`` lanes — or, on a ``mesh``, for the
+    lanes of :func:`local_slots` (``self.slots``), with the kv heads of
+    this rank's attention kernels. The host side, the same on every rank,
+    is a FIFO free list over all ``n_slots``: :meth:`acquire` hands out
+    slot ids, :meth:`release` returns them; the state reset happens in the
+    serve step via :func:`reset_slots`.
     """
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
-                 n_slots: int, max_len: int):
+                 n_slots: int, max_len: int, mesh=None):
         if cfg.encdec:
             raise ValueError(f"CachePool is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
         self.n_slots = int(n_slots)
         self.max_len = int(max_len)
         self.dtype = cache_dtype(policy)
-        self.cache = R.make_cache(params, cfg, batch_size=self.n_slots,
-                                  max_len=self.max_len, dtype=self.dtype)
+        self.slots = local_slots(self.n_slots, mesh)
+        self.cache = R.make_cache(params, cfg, batch_size=self.slots[1] - self.slots[0],
+                                  max_len=self.max_len, dtype=self.dtype, mesh=mesh)
         self._free: deque[int] = deque(range(self.n_slots))
 
     @property

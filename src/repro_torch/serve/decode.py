@@ -17,6 +17,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.models import registry as R
 from repro_torch.serve.cache import ENCDEC_ROUTE, cache_dtype
 
@@ -25,7 +26,7 @@ __all__ = ["generate"]
 
 def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
              max_new_tokens: int = 32, temperature: float = 0.0, seed: int = 0,
-             cache_len: int | None = None, device=None) -> torch.Tensor:
+             cache_len: int | None = None, device=None, mesh=None) -> torch.Tensor:
     """prompts: (B, S_prompt) int → (B, S_prompt + max_new) int32.
 
     ``temperature == 0`` decodes greedily; ``temperature > 0`` draws each
@@ -35,6 +36,12 @@ def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
     ``"cpu"``), where ``params`` must live. ``cache_len`` overrides the
     KV-cache length (default exactly ``S_prompt + max_new_tokens``);
     longer caches are masked out and change nothing semantically.
+
+    ``mesh`` with a ``model`` axis above 1: ``params`` are this rank's
+    shards, the decode steps run under that axis (the arithmetic of
+    :func:`repro_torch.train.step.make_serve_step`'s) and the cache holds
+    this rank's kv heads; every rank decodes the whole batch and returns
+    the same tokens.
     """
     if cfg.encdec:
         raise ValueError(f"generate is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
@@ -52,7 +59,14 @@ def generate(params, cfg, policy: PrecisionPolicy, prompts, *,
     # same value dtype as the engine's CachePool — the parity contract
     # includes the KV storage rounding, not just the arithmetic
     cache = R.make_cache(params, cfg, batch_size=B, max_len=max_len,
-                         dtype=cache_dtype(policy))
+                         dtype=cache_dtype(policy), mesh=mesh)
+    with axes.model_axis(axes.for_mesh(mesh)):
+        return _decode(qa, params, cfg, prompts, cache, max_new_tokens, temperature, seed)
+
+
+def _decode(qa, params, cfg, prompts, cache, max_new_tokens, temperature, seed):
+    B, S0 = prompts.shape
+    dev = prompts.device
 
     def pos(t):
         return torch.full((B,), t, dtype=torch.int32, device=dev)

@@ -1,5 +1,5 @@
 """Continuous-batching decode engine over a slotted KV pool (port of
-``repro.serve.engine``, no mesh).
+``repro.serve.engine``).
 
 The engine owns ``n_slots`` decode lanes backed by one
 :class:`repro_torch.serve.cache.CachePool` allocation — or, with
@@ -58,10 +58,26 @@ for bit (``chip_smoke.py``, tests/test_torch_cuda.py). On the CPU the
 step is the reference's own arithmetic, whose matmul rows depend on the
 row count (C6), so there chunked prefill is held to the unchunked engine
 at the logit level (tests/test_torch_paged_engine.py).
+
+**On a mesh** (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh` of the
+processes; the reference's ``Engine(mesh=)``) every rank runs the same
+host scheduler — admission, planning, preemption, the prefix index — on
+the same requests, so every rank makes the same decisions. The device
+step computes this rank's slots (``pool.slots``: its share when the data
+axes divide ``n_slots``, else all of them) with this rank's shards of the
+weights and of the KV heads on a model axis; with the slots split over
+the data axes, one int32 all-gather of the step's tokens over the data
+ranks keeps the schedulers identical. A sampling lane is drawn by the
+ranks that compute it, from the whole-vocabulary logits and with the
+(seed, rid, position) key, so every rank that holds it draws the same
+token. Under a model group of more than one rank the step runs eagerly
+(its collectives are host operations on a gloo group, which a CUDA graph
+cannot capture) and ``graphs`` stays empty; the kernels still launch.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Any, Optional
 
@@ -70,7 +86,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import axes
+from repro_torch.dist import multihost as MH
+from repro_torch.dist import partition as PT
 from repro_torch.kernels import launch_counts
+from repro_torch.optim.grad_compress import gather_parts
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import ENCDEC_ROUTE, CachePool
 from repro_torch.serve.paged import PagedCachePool
@@ -260,6 +280,13 @@ class Engine:
     it is sound — paged pool + attention-only full-context stack (the same
     gate as chunked prefill). Pass ``False`` to disable, ``True`` to
     require (raises when the config is ineligible).
+
+    ``mesh`` (see the module's note) serves on the processes' ``(data,
+    model)`` mesh: ``params`` are this rank's shards
+    (``partition.param_specs``; ``convert.from_jax_params(specs=, mesh=)``
+    or ``dist.fsdp.shard_state``). A model axis above 1 takes the dense
+    decoder-only families (``partition.serve_refusal``), a paged pool no
+    data axis above 1.
     """
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
@@ -267,9 +294,12 @@ class Engine:
                  eos_id: Optional[int] = None, fused_decode: bool = False,
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None, prefill_chunk: int = 1,
-                 prefix_cache: Optional[bool] = None, device=None):
+                 prefix_cache: Optional[bool] = None, device=None, mesh=None):
         if cfg.encdec:
             raise ValueError(f"Engine is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
+        refusal = PT.serve_refusal(cfg, mesh, paged=paged)
+        if refusal is not None:
+            raise ValueError(refusal)
         if prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         reason = _not_full_context_attention(cfg, max_len)
@@ -300,21 +330,30 @@ class Engine:
         if paged:
             self.pool: Any = PagedCachePool(
                 params, cfg, policy, n_slots=n_slots, max_len=max_len,
-                page_size=page_size, n_pages=n_pages)
+                page_size=page_size, n_pages=n_pages, mesh=mesh)
         else:
             self.pool = CachePool(params, cfg, policy, n_slots=n_slots,
-                                  max_len=max_len)
+                                  max_len=max_len, mesh=mesh)
+        self.mesh = mesh
+        # the model axis's collectives (None in one process or at model 1)
+        self.axis = axes.for_mesh(mesh)
+        # the data ranks whose slots this step's tokens gather from (None
+        # when this rank computes every slot)
+        lo, hi = self.pool.slots
+        self._data_group = mesh.dp_group() if hi - lo < n_slots else None
+        self.token_gather = axes.AxisStats()
         # one step function per (token width, with_logits): the greedy
         # variants of widths 1 and C now, a logits variant at the first
         # step that samples at its width; on CUDA each is captured as a
         # graph at its first step
         self._fused_decode = fused_decode
         self._fns = {(w, False): make_serve_step(cfg, policy, fused_decode=fused_decode,
-                                                 paged=self.paged, chunk=w)
+                                                 paged=self.paged, chunk=w, mesh=mesh)
                      for w in {1, self.prefill_chunk}}
         self._staging: dict[tuple, _Staging] = {}
         self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, tuple]] = {}
-        self._use_graphs = self.device.type == "cuda"
+        # a model group's collectives run on the host: no graph captures them
+        self._use_graphs = self.device.type == "cuda" and self.axis is None
         self.graphs: dict[tuple, GraphStats] = {}
         # static width of the per-step copy-on-write list (the reference's
         # _max_copies): each scheduled lane's write range spans at most
@@ -335,7 +374,7 @@ class Engine:
         if fn is None:
             fn = self._fns[key] = make_serve_step(
                 self.cfg, self.policy, fused_decode=self._fused_decode, paged=self.paged,
-                chunk=width, return_logits=with_logits)
+                chunk=width, return_logits=with_logits, mesh=self.mesh)
         return fn
 
     # -- request intake -----------------------------------------------------
@@ -541,7 +580,13 @@ class Engine:
             args["copy_dst"], args["copy_src"] = dst, src
         if width > 1:
             args["n_tok"] = feeds
-        sampled = self._serve((width, bool(draws)), args, draws).reshape(n)
+        lo, hi = self.pool.slots
+        if hi - lo < n:               # this rank's slots, its lanes' draws
+            specs = PT.serve_input_specs(n, self.mesh, chunk=width)
+            args = {k: (v[lo:hi] if k in specs and specs[k][0] is not None else v)
+                    for k, v in args.items()}
+            draws = [(i - lo, *rest) for i, *rest in draws if lo <= i < hi]
+        sampled = self._gather_tokens(self._serve((width, bool(draws)), args, draws)).reshape(n)
         # 5. account, publish prefixes, evict
         self.stats.steps += 1
         self.stats.slot_steps += n
@@ -625,6 +670,19 @@ class Engine:
         self.graphs[key] = GraphStats(kernels={
             k: after[k] - before[k] for k in after if after[k] != before[k]})
         return tokens
+
+    def _gather_tokens(self, tokens: np.ndarray) -> np.ndarray:
+        """Every slot's token: this rank's ``tokens`` gathered in rank order
+        over the data ranks when the slots are split over them."""
+        if self._data_group is None:
+            return tokens
+        t0 = time.perf_counter()
+        local = torch.from_numpy(np.ascontiguousarray(tokens).reshape(-1)).to(
+            MH.group_device(self._data_group))
+        parts = gather_parts(local, self._data_group, self.token_gather.wire)
+        self.token_gather.calls += 1
+        self.token_gather.seconds += time.perf_counter() - t0
+        return torch.cat(parts).cpu().numpy()
 
     def _read(self, out, draws: list) -> np.ndarray:
         """The step's tokens on the host: ``out`` is (tokens,) or (tokens,

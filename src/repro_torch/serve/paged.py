@@ -1,5 +1,5 @@
 """Paged KV-cache pool: token-granular memory for the serve engine
-(port of ``repro.serve.paged``, no mesh).
+(port of ``repro.serve.paged``).
 
 The contiguous :class:`repro_torch.serve.cache.CachePool` reserves a full
 ``max_len`` KV stripe per slot — memory scales with *reserved* tokens.
@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import partition as PT
 from repro_torch.models import registry as R
 from repro_torch.serve import cache as SC
 
@@ -89,7 +90,7 @@ class PagedCachePool:
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
                  n_slots: int, max_len: int, page_size: int = 16,
-                 n_pages: Optional[int] = None):
+                 n_pages: Optional[int] = None, mesh=None):
         if cfg.encdec:
             raise ValueError("PagedCachePool is decoder-only")
         if page_size < 1:
@@ -105,12 +106,19 @@ class PagedCachePool:
                 f"n_pages ({n_pages}) < blocks per max_len sequence "
                 f"({self.max_blocks}): one lane could never finish")
         self.n_pages = int(n_pages)
-        self.n_rows = self.n_pages + 1     # + the null row
+        # + the null row; on a mesh the row count is padded to a multiple of
+        # the data-parallel size, as the reference's (pad rows are never
+        # handed out). make_cache refuses a data axis above 1 (A12).
+        n_rows = self.n_pages + 1
+        if mesh is not None:
+            n_rows = -(-n_rows // PT.dp_size(mesh)) * PT.dp_size(mesh)
+        self.n_rows = n_rows
         self.null_page = self.n_rows - 1   # by convention: the last row
         self.dtype = SC.cache_dtype(policy)
+        self.slots = (0, self.n_slots)     # every lane: no data axis above 1
         self.cache = R.make_cache(params, cfg, batch_size=self.n_slots,
                                   max_len=self.max_len, dtype=self.dtype,
-                                  page_size=self.page_size, n_rows=self.n_rows)
+                                  page_size=self.page_size, n_rows=self.n_rows, mesh=mesh)
         self._free_slots: deque[int] = deque(range(self.n_slots))
         # allocatable pages are [0, n_pages); the null row is never handed out
         self._free_pages: deque[int] = deque(range(self.n_pages))

@@ -132,10 +132,16 @@ def draw(filtered: torch.Tensor, keys: Sequence[int]) -> torch.Tensor:
     argmax cannot land)."""
     if filtered.device.type != "cpu":
         return torch.argmax(filtered + gumbel(keys, filtered.shape[-1], filtered.device), -1)
+    # argmax over the finite entries only, the first column among ties as
+    # torch.argmax takes it; a row with none gives 0, as argmax of -inf does
     rows, cols = torch.nonzero(torch.isfinite(filtered), as_tuple=True)
-    noise = torch.zeros(filtered.shape, dtype=torch.float64)
-    noise[rows, cols] = _gumbel_of(_words_ref(keys, rows, cols))
-    return torch.argmax(filtered + noise, -1)
+    vals = filtered[rows, cols].to(torch.float64) + _gumbel_of(_words_ref(keys, rows, cols))
+    n = filtered.shape[0]
+    best = torch.full((n,), -torch.inf, dtype=torch.float64).scatter_reduce_(
+        0, rows, vals, "amax")
+    hit = vals == best[rows]
+    return torch.zeros(n, dtype=torch.int64).scatter_reduce_(
+        0, rows[hit], cols[hit], "amin", include_self=False)
 
 
 def sample(logits: torch.Tensor, temperature: Sequence[float], top_k: Sequence[int],

@@ -46,7 +46,9 @@ leaf, so a checkpoint resumes under another mesh (FSDP ↔ data-parallel ↔
 one process); all processes barrier around
 restore, and the restore step, at startup and on a spike rollback, is
 process 0's LATEST after its commits, broadcast (only process 0 has
-queued commits that move LATEST). The SIGTERM flag is agreed every
+queued commits that move LATEST); at the end every process waits for
+process 0's last commit, so the final checkpoint is on disk when the loop
+returns on any rank. The SIGTERM flag is agreed every
 ``preempt_poll_every`` steps (any rank's signal stops them all at the
 same step). A gradient phase that exhausts its retries raises without
 the crash save, whose snapshot its peers would never join: the last
@@ -427,5 +429,9 @@ def run_training(state: TrainState, train_step: Callable, batches: Batches,
     _record(suspect)
     if mgr:
         mgr.drain()             # preemption and final saves committed before return
+        if multiproc:
+            # only process 0 commits: the others wait for its commits, so a
+            # checkpoint is on disk when run_training returns on any rank
+            MH.barrier("repro:loop:drained")
     return state, {"history": history, "stragglers": stragglers,
                    "preempted": stop["preempted"], "rollbacks": rollbacks}

@@ -28,6 +28,7 @@ import torch
 from repro_torch.core.formats import round_nearest
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.dist import fsdp as F
 from repro_torch.dist import partition as PT
 from repro_torch.dist import transport as T
@@ -295,7 +296,7 @@ def make_eval_step(cfg, policy: PrecisionPolicy, *, attn_chunk: int = 1024):
 
 def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                     paged: bool = False, chunk: int = 1,
-                    return_logits: bool = False):
+                    return_logits: bool = False, mesh=None):
     """Slot-indexed decode step:
     ``(params, cache, token, pos[, active, reset, ...]) → (next_token, cache)``.
 
@@ -344,15 +345,24 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     variant's op for op, so greedy lanes keep their bits next to sampling
     lanes, which :mod:`repro_torch.serve.sampling` re-decides from the
     logits.
+
+    ``mesh`` with a ``model`` axis above 1: ``params`` and ``cache`` are
+    this rank's shards (``partition.param_specs``/``cache_specs``) and the
+    step runs under that axis (:mod:`repro_torch.dist.axes`): the
+    vocab-parallel embedding, the local heads, the row-parallel ``wo`` and
+    ``w_down`` summed over the model group, the logits gathered, so every
+    rank of the group returns the same tokens (and logits). The slots are
+    whatever the caller hands it: the engine hands each rank its own.
     """
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     qa = QArith(policy)
+    axis = axes.for_mesh(mesh)
 
     def serve_step(params, cache, token, pos, active=None, reset=None, *,
                    mrope_positions=None, block_table=None, page_reset=None, n_tok=None,
                    copy_dst=None, copy_src=None):
-        with dispatch.fused_decode(fused_decode):
+        with dispatch.fused_decode(fused_decode), axes.model_axis(axis):
             wc = compute_params(params, policy)
             if reset is not None:
                 cache = SC.reset_slots(cache, reset)

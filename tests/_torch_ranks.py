@@ -1,0 +1,39 @@
+"""Launch N ranks of a test worker through ``repro_torch.launch.dist_launch``
+and, when they fail, report each rank's own log (the launcher's combined
+output interleaves the ranks and cuts the tails)."""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def rank_env(**extra) -> dict:
+    return dict(os.environ, OMP_NUM_THREADS="1",
+                PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                **extra)
+
+
+def log_tails(log_dir: Path, n: int, chars: int = 3000) -> str:
+    """The last ``chars`` characters of every rank's log."""
+    out = []
+    for r in range(n):
+        path = Path(log_dir) / f"rank{r}.log"
+        text = path.read_text(errors="replace") if path.exists() else "(no log)"
+        out.append(f"--- rank {r} ({path}) ---\n{text[-chars:]}")
+    return "\n".join(out)
+
+
+def run_ranks(worker: str, args: list[str], n: int, log_dir: Path, timeout: float,
+              env: dict | None = None) -> None:
+    """Run ``python worker *args`` on ``n`` ranks; raise AssertionError with
+    every rank's log tail unless all exit 0."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
+           str(timeout - 10), "--log-dir", str(log_dir), "--", sys.executable, worker, *args]
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                         env=env or rank_env(), cwd=ROOT)
+    assert run.returncode == 0, (f"dist_launch exited {run.returncode}\n{run.stderr[-1000:]}\n"
+                                 + log_tails(log_dir, n))

@@ -1,0 +1,171 @@
+"""Ranks of tests/test_torch_tp_serve.py: reduced qwen2.5-3b served on
+``(data, model)`` meshes of gloo ranks, from the reference's weights.
+
+    python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_worker.py pair OUT
+    python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py quad OUT
+
+``pair`` (2 ranks) serves on 1 x 2 (contiguous, paged, paged with chunk
+4, sampled lanes, and the teacher-forced schedule's logits), on 2 x 1 and
+in one process; ``quad`` (4 ranks) on 2 x 2. Each rank saves what it saw
+to ``OUT/rank<r>_<scenario>.pt``.
+"""
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import torch
+
+from repro.core import get_policy as j_get_policy
+from repro.models import registry as JR
+from repro_torch.convert import from_jax_params
+from repro_torch.core.policy import get_policy
+from repro_torch.dist import axes
+from repro_torch.dist import fsdp as F
+from repro_torch.dist import multihost as MH
+from repro_torch.dist import partition as PT
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import registry as R
+from repro_torch.serve.engine import Engine
+from repro_torch.train.step import make_serve_step
+
+ARCH = "qwen2.5-3b"
+POLICY = "bf16_standard"
+N_SLOTS, MAX_LEN = 8, 24
+# the requests of tests/test_serve.py's sharded engine test
+SIZES = (5, 7, 5, 7, 5, 7, 5, 7, 5, 7)
+GENS = (6, 8, 6, 8, 6, 8, 6, 8, 6, 8)
+# the teacher-forced schedule: every lane one random token a step
+SCHEDULE_STEPS = 12
+
+
+def requests(vocab: int) -> list:
+    rng = np.random.default_rng(2)
+    return [(rng.integers(0, vocab, size=s).astype(np.int32), g) for s, g in zip(SIZES, GENS)]
+
+
+def schedule(vocab: int) -> np.ndarray:
+    return np.random.default_rng(5).integers(0, vocab, (SCHEDULE_STEPS, N_SLOTS)).astype(np.int32)
+
+
+def reference_tree():
+    cfg = JR.get_config(ARCH).reduced()
+    params = JR.init(cfg, jax.random.PRNGKey(0), j_get_policy(POLICY).param_dtype)
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def shards(tree, cfg, mesh):
+    if mesh is None:
+        return from_jax_params(tree, device="cpu")
+    return from_jax_params(tree, device="cpu", specs=PT.param_specs(tree, cfg, mesh), mesh=mesh)
+
+
+def serve(tree, cfg, mesh, *, sampled=False, **kw) -> dict:
+    """Every request's tokens from an engine on ``mesh`` (None: one process)."""
+    eng = Engine(shards(tree, cfg, mesh), cfg, get_policy(POLICY), n_slots=N_SLOTS,
+                 max_len=MAX_LEN, device="cpu", mesh=mesh, **kw)
+    for i, (p, g) in enumerate(requests(cfg.vocab)):
+        knobs = dict(temperature=0.8, top_k=50, top_p=0.95, seed=3) if sampled and i % 2 else {}
+        eng.submit(p, g, **knobs)
+    done = eng.run()
+    assert len(done) == len(SIZES) and not eng.graphs
+    out = {c.rid: c.tokens for c in done}
+    if kw.get("paged"):
+        out["preemptions"] = eng.stats.preemptions
+    return out
+
+
+def schedule_logits(tree, cfg, mesh, policy=None) -> np.ndarray:
+    """The serve step's logits (steps, slots, vocab) on the teacher-forced
+    schedule, from an empty pool. ``tree`` None: the port's own f32
+    weights from seed 0 under ``policy`` (``fp32``)."""
+    if tree is None:
+        full = R.init(cfg, 0, torch.float32, device="cpu")
+        params = full if mesh is None else F.shard_state(
+            full, PT.param_specs(full, cfg, mesh), mesh)
+    else:
+        policy = get_policy(POLICY)
+        params = shards(tree, cfg, mesh)
+    step = make_serve_step(cfg, policy, return_logits=True, mesh=mesh)
+    cache = R.make_cache(params, cfg, batch_size=N_SLOTS, max_len=MAX_LEN,
+                         dtype=policy.compute_dtype, mesh=mesh)
+    toks = schedule(cfg.vocab)
+    out = []
+    with torch.no_grad():
+        for t, row in enumerate(toks):
+            _, logits, cache = step(params, cache, torch.from_numpy(row)[:, None],
+                                    torch.full((N_SLOTS,), t, dtype=torch.int32),
+                                    torch.ones(N_SLOTS, dtype=torch.bool),
+                                    torch.full((N_SLOTS,), t == 0))
+            out.append(logits.numpy())
+    return np.stack(out)
+
+
+def lockstep_logits(tree, cfg, mesh, seqs) -> list:
+    """Teacher-forced logits after every token of each sequence (one lane
+    each), under the mesh's model axis."""
+    policy = get_policy(POLICY)
+    params = shards(tree, cfg, mesh)
+    step = make_serve_step(cfg, policy, return_logits=True, mesh=mesh)
+    out = []
+    with torch.no_grad():
+        for seq in seqs:
+            cache = R.make_cache(params, cfg, batch_size=1, max_len=MAX_LEN,
+                                 dtype=policy.compute_dtype, mesh=mesh)
+            rows = []
+            for t, tok in enumerate(seq):
+                _, logits, cache = step(params, cache, torch.tensor([[int(tok)]], dtype=torch.int32),
+                                        torch.tensor([t], dtype=torch.int32))
+                rows.append(logits[0].numpy())
+            out.append(np.stack(rows))
+    return out
+
+
+def scenario_pair(out: Path, rank: int):
+    cfg = R.get_config(ARCH).reduced()
+    tree = reference_tree()
+    tp, dp = make_local_mesh(1, 2), make_local_mesh(2, 1)
+    res = {"coords": tp.coords(rank)}
+    res["tp"] = serve(tree, cfg, tp)
+    stats = axes.for_mesh(tp).stats
+    res["collectives"] = (stats.calls, stats.bytes)
+    res["tp_paged"] = serve(tree, cfg, tp, paged=True, page_size=4, n_pages=12)
+    res["tp_chunk"] = serve(tree, cfg, tp, paged=True, page_size=4, n_pages=12,
+                            prefill_chunk=4)
+    base = res["tp_paged"]
+    reqs = requests(cfg.vocab)
+    res["tp_lockstep"] = lockstep_logits(tree, cfg, tp, [np.concatenate([p, base[r]])
+                                                         for r, (p, _) in enumerate(reqs)])
+    res["tp_sampled"] = serve(tree, cfg, tp, sampled=True)
+    res["tp_schedule"] = schedule_logits(tree, cfg, tp)
+    res["dp"] = serve(tree, cfg, dp)
+    res["one"] = serve(tree, cfg, None)
+    res["one_schedule"] = schedule_logits(tree, cfg, None)
+    fp32 = get_policy("fp32")
+    res["fp32_schedule"] = (schedule_logits(None, cfg, tp, fp32),
+                            schedule_logits(None, cfg, None, fp32))
+    torch.save(res, out / f"rank{rank}_pair.pt")
+
+
+def scenario_quad(out: Path, rank: int):
+    cfg = R.get_config(ARCH).reduced()
+    mesh = make_local_mesh(2, 2)
+    eng_tokens = serve(reference_tree(), cfg, mesh)
+    torch.save({"coords": mesh.coords(rank), "tokens": eng_tokens}, out / f"rank{rank}_quad.pt")
+
+
+def main():
+    scenario, out = sys.argv[1], Path(sys.argv[2])
+    torch.set_num_threads(1)
+    MH.initialize(device="cpu", timeout_secs=float(os.environ.get("WORKER_TIMEOUT", 120)))
+    try:
+        globals()[f"scenario_{scenario}"](out, MH.process_index())
+    finally:
+        MH.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -944,6 +944,38 @@ def test_qmatmul_plan_is_the_librarys_path(cuda, mnk, offset, path):
     assert QM.plan(x, y, bits[2:].view(M, N)).path == "mma.sync"
 
 
+# (M, N, K): aligned, ragged (the mma.sync path), the row-parallel shapes
+# of qwen2.5-3b at model 2 (wo, w_down), one element
+@pytest.mark.parametrize("mnk", [(128, 128, 128), (129, 77, 200), (300, 264, 1000),
+                                 (8, 2048, 1024), (8, 2048, 5504), (1, 1, 1)])
+def test_qmatmul_f32_entry_rounds_to_the_bf16_entry(cuda, mnk):
+    """The f32-result entry's accumulators rounded to bf16 are the bf16
+    entry's output bit for bit, on both paths; they lie within the f32
+    accumulation bound K·2⁻²³·(|x|@|y|) of the plain version's f32 product."""
+    M, N, K = mnk
+    x, y, _ = _qm_inputs(cuda, M, N, K, M + N + K)
+    before = QM.F32_LAUNCHES
+    f32 = QM.qmatmul_f32(x, y)
+    torch.cuda.synchronize()
+    assert QM.F32_LAUNCHES == before + 1
+    assert f32.dtype == torch.float32 and f32.shape == (M, N)
+    _same(f32.to(torch.bfloat16), QM.qmatmul(x, y))
+    sync = QM._launch(x, y, None, entry="repro_qmatmul_f32_sync")
+    _same(sync.to(torch.bfloat16), QM._launch(x, y, None, entry="repro_qmatmul_sync"))
+    e = K * 2.0 ** -23 * (x.double().abs() @ y.double().abs())
+    want = QM.qmatmul_ref(x, y, out_dtype=torch.float32).double()
+    assert bool(((f32.double() - want).abs() <= e).all())
+
+
+@pytest.mark.parametrize("nk", [(2048, 1024), (2048, 5504), (11008, 2048)])
+def test_qmatmul_f32_rows_do_not_depend_on_the_row_count(cuda, nk):
+    N, K = nk
+    x, y, _ = _qm_inputs(cuda, 4096, N, K, 23)
+    full = QM.qmatmul_f32(x, y)
+    for M in (1, 8, 256):
+        assert torch.equal(QM.qmatmul_f32(x[:M], y), full[:M]), M
+
+
 def test_encdec_lock_step_on_the_card(cuda):
     """Reduced whisper decoded in lock-step through the fused serve step
     (self and cross attention on the decode kernel, the products on

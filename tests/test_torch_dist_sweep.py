@@ -7,7 +7,8 @@
 * The full section's rows and its two assertions, with the training
   replaced by fixed losses: the ``_hlo`` rows name ROADMAP A6, and a keep
   cell outside ``TOL`` of fp32 fails the section.
-* ``grad_wire`` (4 data × 2 model meshes) fails loudly naming A10.
+* ``grad_wire`` (4 data × 2 model meshes: training on the model axis)
+  fails loudly naming A11.
 """
 import os
 import subprocess
@@ -74,5 +75,5 @@ def test_full_rows_and_assertions(monkeypatch, capsys):
 
 
 def test_grad_wire_section_names_a10():
-    with pytest.raises(NotImplementedError, match=r"grad_wire is not ported yet \(ROADMAP A10\)"):
+    with pytest.raises(NotImplementedError, match=r"grad_wire is not ported yet \(ROADMAP A11\)"):
         runner.run_section("grad_wire", device="cpu")

@@ -16,9 +16,6 @@ formats, and the stateless transport's single writer (2 gloo ranks).
   checkpoints: every rank committed before (a fault of PR 22's loop, which
   gathered only the wire's residual rows collectively).
 """
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import jax
@@ -44,8 +41,8 @@ from repro_torch.train.loop import _restore
 from repro_torch.train.train_state import make_train_state
 
 from _torch_cpu import one_torch_thread  # noqa: F401
+from _torch_ranks import run_ranks
 
-ROOT = Path(__file__).resolve().parent.parent
 WORKER = str(Path(__file__).resolve().parent / "_torch_fsdp_worker.py")
 TIMEOUT = 240
 CFG = R.get_config("qwen2.5-3b").reduced()
@@ -70,13 +67,7 @@ def _ref_state(seed=7):
 def ckpt(tmp_path_factory):
     out = tmp_path_factory.mktemp("fsdp_ckpt")
     JC.save(out / "jref", 3, _ref_state())
-    env = dict(os.environ, OMP_NUM_THREADS="1",
-               PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    run = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", "2", "--timeout",
-         str(TIMEOUT - 10), "--", sys.executable, WORKER, "ckpt", str(out)],
-        capture_output=True, text=True, timeout=TIMEOUT, env=env, cwd=ROOT)
-    assert run.returncode == 0, run.stdout[-2000:] + run.stderr[-4000:]
+    run_ranks(WORKER, ["ckpt", str(out)], 2, out / "logs", TIMEOUT)
     return out, [torch.load(out / f"rank{r}_ckpt.pt") for r in range(2)]
 
 

@@ -108,8 +108,11 @@ def test_default_placement_and_refusals():
         assert PT.default_placement(tmesh, fsdp=True).fsdp_axis == axis == \
             JPT.default_placement(jmesh, fsdp=True).fsdp_axis
         assert PT.default_placement(tmesh).fsdp_axis is None
-    with pytest.raises(ValueError, match="A10"):
-        PT.Placement().tp_size(Mesh(("data", "model"), (1, 2)))
+    # the model axis counts in the specs (serving) and is refused in training (A11)
+    tp = Mesh(("data", "model"), (1, 2))
+    assert PT.Placement().tp_size(tp) == JPT.Placement().tp_size(tp) == 2
+    with pytest.raises(ValueError, match="A11"):
+        T.make_transport(mesh=tp)
 
 
 TRANSPORT_CASES = [

@@ -255,8 +255,10 @@ def test_make_transport_refusals_match_reference():
     got = T.make_transport(placement=pl, wire="bf16")
     assert (type(got).__name__, type(got.inner).__name__) == \
         (type(want).__name__, type(want.inner).__name__) == ("CompressedWire", "Fp32Psum")
-    with pytest.raises(ValueError, match="A10"):
-        PT.Placement().tp_size(Mesh(("data", "model"), (1, 2)))
+    tp = Mesh(("data", "model"), (1, 2))
+    assert PT.Placement().tp_size(tp) == 2
+    with pytest.raises(ValueError, match="A11"):
+        T.make_transport(mesh=tp, wire="bf16")
     # a compressed wire needs its residuals, in both packages
     with pytest.raises(ValueError, match="error-feedback residuals"):
         T.make_transport(wire="bf16").reduce({"w": torch.zeros(2)}, None, GC.WireKey(0, 0))

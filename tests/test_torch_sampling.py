@@ -134,6 +134,20 @@ def test_key_is_a_pure_function_of_seed_rid_position():
     assert len(set(draws)) == 1
 
 
+def test_cpu_draw_is_argmax_over_the_whole_noisy_row():
+    """The CPU draw, noise only on the finite logits, is argmax of the
+    filtered row plus the full stream's noise; a row with no finite logit
+    draws 0, as that argmax does."""
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(48, 300, generator=g)
+    filtered = sampling.filter_logits(logits, [0.8] * 48, [20] * 48, [0.9] * 48)
+    filtered[5] = -torch.inf
+    keys = [sampling.request_key(1, r, 7) for r in range(48)]
+    dense = torch.argmax(filtered + sampling.gumbel(keys, 300, "cpu"), -1)
+    got = sampling.draw(filtered, keys)
+    assert torch.equal(got, dense) and got[5] == 0
+
+
 @pytest.mark.parametrize("name", sorted(FILTERS))
 def test_support_matches_reference_filter(name, monkeypatch):
     kw = FILTERS[name]

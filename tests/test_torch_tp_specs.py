@@ -1,0 +1,200 @@
+"""The model axis's partition rules against the reference's, in process.
+
+``param_specs`` (tensor parallelism alone and with FSDP over ``data``),
+``cache_specs`` (contiguous and paged pools) and ``serve_input_specs`` on
+(1, 2), (2, 2) and (4, 2) ``(data, model)`` meshes equal the reference's
+for every config of the registry, reduced. The reference's functions read
+only ``mesh.axis_names`` and ``mesh.shape``, so a stand-in mesh serves.
+Then the refusals of what the model axis does not serve (ROADMAP A12) or
+train (A11), the f32 plain version of ``qmatmul`` and the vocab-parallel
+collectives' local arithmetic.
+"""
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.qarith import QArith as JQArith
+from repro.core import get_policy as j_get_policy
+from repro.dist import partition as JPT
+from repro.models import registry as JR
+from repro_torch.core.policy import get_policy
+from repro_torch.dist import axes
+from repro_torch.dist import partition as PT
+from repro_torch.dist import transport as T
+from repro_torch.kernels.qmatmul import plan, qmatmul, qmatmul_f32, qmatmul_ref
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import registry as R
+from repro_torch.serve.engine import Engine
+
+from _torch_cpu import one_torch_thread  # noqa: F401
+
+MESHES = [(1, 2), (2, 2), (4, 2)]
+DECODERS = [a for a in R.ARCH_IDS if a != "whisper-base"]
+
+
+def _meshes(sizes):
+    axes_ = ("data", "model")
+    return SimpleNamespace(axis_names=axes_, shape=dict(zip(axes_, sizes))), Mesh(axes_, sizes)
+
+
+def _flat(tree):
+    """Spec leaves in the reference's leaf order (dicts by sorted key,
+    tuples in order, a spec a leaf)."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _flat(tree[k])]
+    if isinstance(tree, tuple) and not isinstance(tree, PT.P):
+        return [s for t in tree for s in _flat(t)]
+    return [tree]
+
+
+def _jflat(tree):
+    return jax.tree_util.tree_leaves(tree, is_leaf=lambda x: isinstance(
+        x, jax.sharding.PartitionSpec))
+
+
+def _norm(spec) -> tuple:
+    """A spec's entries with a one-axis tuple as that axis: jax 0.9 writes
+    ``("data",)`` as ``'data'`` (ROADMAP C3)."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e for e in spec)
+
+
+def _same(got, want):
+    got, want = _flat(got), _jflat(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _norm(g) == _norm(w), (g, w)
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("sizes", MESHES)
+@pytest.mark.parametrize("arch", R.ARCH_IDS)
+def test_param_specs_match_reference(arch, sizes, fsdp):
+    jmesh, tmesh = _meshes(sizes)
+    jcfg = JR.get_config(arch).reduced()
+    jparams = jax.eval_shape(lambda: JR.init(jcfg, jax.random.PRNGKey(0), jnp.bfloat16))
+    tcfg = R.get_config(arch).reduced()
+    tparams = R.init(tcfg, 0, torch.bfloat16, device="cpu")
+    want = JPT.param_specs(jparams, jcfg, jmesh, JPT.default_placement(jmesh, fsdp=fsdp))
+    got = PT.param_specs(tparams, tcfg, tmesh, PT.default_placement(tmesh, fsdp=fsdp))
+    _same(got, want)
+    # the rules read shapes, so the reference's own tree gives the same specs
+    _same(PT.param_specs(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.int8), jparams),
+                         tcfg, tmesh, PT.default_placement(tmesh, fsdp=fsdp)), want)
+    assert any("model" in s.axes for s in _flat(got))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("sizes", MESHES)
+@pytest.mark.parametrize("arch", DECODERS)
+def test_cache_specs_match_reference(arch, sizes, paged):
+    jmesh, tmesh = _meshes(sizes)
+    jcfg = JR.get_config(arch).reduced()
+    tcfg = R.get_config(arch).reduced()
+    kw = dict(page_size=4, n_rows=8) if paged else {}
+    jparams = jax.eval_shape(lambda: JR.init(jcfg, jax.random.PRNGKey(0), jnp.bfloat16))
+    jcache = jax.eval_shape(lambda: JR.make_cache(JQArith(j_get_policy("bf16_standard")),
+                                                  jparams, jcfg, {}, batch_size=4,
+                                                  max_len=16, dtype=jnp.bfloat16, **kw))
+    tparams = R.init(tcfg, 0, torch.bfloat16, device="cpu")
+    tcache = R.make_cache(tparams, tcfg, batch_size=4, max_len=16, dtype=torch.bfloat16, **kw)
+    _same(PT.cache_specs(tcache, tcfg, tmesh), JPT.cache_specs(jcache, jcfg, jmesh))
+
+
+@pytest.mark.parametrize("sizes", MESHES + [(3, 2)])
+def test_serve_input_specs_match_reference(sizes):
+    jmesh, tmesh = _meshes(sizes)
+    for n_slots in (4, 6, 8):
+        for paged, n_rows, chunk in ((False, None, 1), (True, 24, 1), (True, 25, 4),
+                                     (False, None, 8)):
+            want = JPT.serve_input_specs(n_slots, jmesh, paged=paged, n_rows=n_rows,
+                                         chunk=chunk)
+            got = PT.serve_input_specs(n_slots, tmesh, paged=paged, n_rows=n_rows, chunk=chunk)
+            assert got.keys() == want.keys()
+            assert all(_norm(got[k]) == _norm(want[k]) for k in got), (n_slots, paged, chunk)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
+                                  "recurrentgemma-2b", "whisper-base"])
+def test_other_families_refuse_the_model_axis(arch):
+    """MoE, Mamba, RG-LRU and the encoder-decoder on a model axis: A12."""
+    cfg = R.get_config(arch).reduced()
+    mesh = Mesh(("data", "model"), (1, 2))
+    assert "A12" in PT.serve_refusal(cfg, mesh)
+    assert PT.serve_refusal(cfg, Mesh(("data", "model"), (2, 1))) is None
+    if not cfg.encdec:
+        params = R.init(cfg, 0, torch.bfloat16, device="cpu")
+        with pytest.raises(ValueError, match="A12"):
+            R.make_cache(params, cfg, batch_size=2, max_len=8, mesh=mesh)
+        with pytest.raises(ValueError, match="A12"):
+            Engine(params, cfg, get_policy("bf16_standard"), n_slots=2, max_len=8,
+                   device="cpu", mesh=mesh)
+
+
+def test_uneven_heads_and_paged_data_axes_refuse():
+    cfg = R.get_config("qwen2.5-3b").reduced()
+    # a model axis that divides the query heads but not the kv heads:
+    # padded shards are A12
+    assert cfg.n_heads % 4 == 0 and cfg.n_kv_heads % 4
+    odd = Mesh(("data", "model"), (1, 4))
+    assert "A12" in PT.serve_refusal(cfg, odd) and "n_kv_heads" in PT.serve_refusal(cfg, odd)
+    # a paged pool under a data axis above 1
+    params = R.init(cfg, 0, torch.bfloat16, device="cpu")
+    for sizes in ((2, 1), (2, 2)):
+        with pytest.raises(ValueError, match="A12"):
+            Engine(params, cfg, get_policy("bf16_standard"), n_slots=4, max_len=8,
+                   device="cpu", paged=True, page_size=4, mesh=Mesh(("data", "model"), sizes))
+    assert PT.serve_refusal(cfg, Mesh(("data", "model"), (1, 2)), paged=True) is None
+
+
+def test_training_on_the_model_axis_refuses():
+    """A11: the gradient transport and the train launcher's flag."""
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(ValueError, match="A11"):
+        T.make_transport(mesh=Mesh(("data", "model"), (2, 2)))
+    with pytest.raises(ValueError, match="A11"):
+        launch_train.parse_args(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+
+
+def test_serve_launcher_model_flags_need_processes():
+    """``--data-parallel --model-parallel`` build a mesh of processes: one
+    process cannot hold a 1 x 2 mesh."""
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        launch_serve.main(["--reduced", "--device", "cpu", "--data-parallel", "1",
+                           "--model-parallel", "2", "--requests", "1"])
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 48), (8, 96, 40), (33, 128, 24), (5, 7, 9)])
+def test_qmatmul_f32_plain_version_rounds_to_qmatmul(shape):
+    """The f32 entry's plain version, rounded to bf16, is ``qmatmul_ref``
+    (and ``qmatmul``'s CPU path) bit for bit; the path plan is the
+    nearest entry's."""
+    M, K, N = shape
+    rng = np.random.default_rng(M * K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K), np.float32)).to(torch.bfloat16)
+    y = torch.from_numpy(rng.standard_normal((K, N), np.float32)).to(torch.bfloat16)
+    f32 = qmatmul_f32(x, y)
+    assert f32.dtype == torch.float32 and f32.shape == (M, N)
+    assert torch.equal(f32, qmatmul_ref(x, y, out_dtype=torch.float32))
+    assert torch.equal(f32.to(torch.bfloat16), qmatmul_ref(x, y))
+    assert torch.equal(f32.to(torch.bfloat16), qmatmul(x, y))
+    assert plan(x, y).path == ("wgmma" if K % 8 == 0 and N % 8 == 0 else "mma.sync")
+    with pytest.raises(ValueError, match="no rounding bits"):
+        qmatmul_ref(x, y, bits=torch.zeros((M, N), dtype=torch.int32),
+                    out_dtype=torch.float32)
+
+
+def test_local_bias_slice_and_no_axis_outside_the_context():
+    b = torch.arange(8.0)
+    assert axes.current() is None and axes.local_slice(b, 8) is b
+    with pytest.raises(ValueError, match="does not split"):
+        axes.local_slice(b, 4)
+    with axes.model_axis(axes.ModelAxis(2, 1, None)):
+        assert torch.equal(axes.local_slice(b, 4), b[4:])
+    assert axes.current() is None
+    with axes.model_axis(axes.ModelAxis(1, 0, None)):
+        assert axes.current() is None          # one rank: one process's arithmetic

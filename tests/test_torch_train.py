@@ -317,7 +317,7 @@ def test_launcher_needs_a_card_or_the_cpu_flag():
 
 
 # the flags of the dist slice's later items, and the item each names
-LATER_ITEMS = {"--model-parallel": "A10"}
+LATER_ITEMS = {"--model-parallel": "A11"}
 
 
 @pytest.mark.parametrize("flags,slice_", [
@@ -349,13 +349,13 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
             launch_train.build(args)
 
 
-@pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "A10"),
+@pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "A11"),
                                         (["--fsdp-parallel", "2"], "A9")])
 def test_launcher_refuses_the_later_dist_items(flags, item):
-    """The model axis (A10) is refused; FSDP's ``--fsdp-parallel`` (ported
+    """Training on the model axis (A11) is refused; FSDP's ``--fsdp-parallel`` (ported
     with A9) parses, and a single process cannot build its 2-process mesh."""
     argv = ["--reduced", "--device", "cpu", *flags]
-    if item == "A10":
+    if item == "A11":
         with pytest.raises(ValueError, match=item):
             launch_train.parse_args(argv)
         return
