@@ -229,7 +229,8 @@ Phases, each printing its lines (a failed check exits non-zero):
     finite, fig11's DLRM AUC within 0.01 of table4's fp32; a second
     ``bf16_sr`` DLRM run bitwise equal to table4's (losses and AUC); beside
     them the runner's ``grad_wire_sweep`` and ``fsdp_memory`` (4 ranks, 2
-    data x 2 fsdp: DP / FSDP state bytes per rank >= 1.9); µs per step of
+    data x 2 fsdp: DP / FSDP state bytes per rank >= 1.9; its ``grad_wire``,
+    8 ranks, runs in ``tools/port_tp_train.py``); µs per step of
     every run and the phase's wall time. The tp launches (phase 16), the
     ckpt phase and the resnet run beside the sections: all four are
     host-bound, and one after another they took ~380 s; their times are
@@ -282,19 +283,41 @@ Phases, each printing its lines (a failed check exits non-zero):
 16. tp (ROADMAP A10's serving part; launched beside the paper sections,
     checked before the dist phase): ranks sharing this card over gloo
     through ``repro_torch.launch.dist_launch`` (``chip_smoke.py
-    --tp-worker``): (a) 1 data x 2 model, full-width qwen2.5-3b (the serve
-    phase's 12 layers), the serve phase's 12 requests on 8 slots, eager steps (no
+    --tp-worker``): (a) 1 data x 2 model, full-width qwen2.5-3b (4 of its
+    layers), the serve phase's 12 requests on 8 slots, eager steps (no
     graphs under a model group): both ranks' tokens bitwise equal, engine
     == lock-step ``generate`` under the same mesh on the shortest request,
     the first prefill step's logits within 0.05 of the 1-rank step's
     largest |logit|, 24 ``qmatmul_f32`` and 12 decode launches per step;
-    prints the token agreement with the serve phase's 1-rank engine,
+    prints the token agreement with a 1-rank engine at the same depth,
     weight and KV bytes per rank against one rank's, ms per eager step and
     the model axis's collective and host-copy ms per step; (b) paged 1 x 2
     at 2 layers on the paged stream's first 10 requests (32 pages of 16,
     prefix cache): a preemption and a prefix hit, chunk 32 == chunk 1
     bitwise; (c) 2 data x 2 model on 4 ranks at 2 layers, beside (b):
-    tokens == the 1 x 2 run's bitwise.
+    tokens == the 1 x 2 run's bitwise;
+17. tp-train (ROADMAP A11, training on the model axis; launched on the tp
+    phase's thread after its serving launches, checked after them): ranks
+    sharing this card over gloo (``chip_smoke.py --tp-worker`` with a
+    ``train-*`` scenario), every run through the launcher's
+    ``parse_args``, ``build`` and ``train``: (a) 1 data x 2 model,
+    full-width qwen2.5-3b cut to 2 layers, batch 2 x 512, ``bf16_sr_kahan
+    --fused-update``, 3 steps: both ranks bitwise equal on every
+    replicated leaf and on the losses, each step's loss within 0.05 of a
+    1-process run of the same steps, one TP shard's ``fused_adamw`` ==
+    its plain version with the folded seed, weight and state bytes per
+    rank <= 0.53 of one process's, one ``fused_adamw`` launch per local
+    leaf per step; (b) non-fused ``bf16_sr``: one update of the shards
+    (the ``philox`` shard entry, then ``sr_cast``) == the 1-process
+    update's slice given the same gradients (w, m, v of every sharded
+    layer kernel);
+    (c) 2 data x 2 model on 4 ranks through the bf16 wire, 2 steps,
+    checkpointed (beside (a, b)): the model groups bitwise equal, the
+    wire's bytes by dtype as counted, and the checkpoint restored in one
+    process and under 1 x 2 equal to the 2 x 2 ranks' parts; prints ms per
+    step, the model axis's collectives, their ms and host-copy ms per
+    step, bytes and peak GiB per rank. ``tools/port_tp_train.py`` runs
+    this phase alone, then 1 x 2 at the whole 36 layers.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -3288,6 +3311,10 @@ def _paper_parity(card: str):
 # policy and one for its DLRM runs (``bench_accuracy.run_lm``,
 # ``run_dlrm``): the phase lasts as long as its longest process. Unit:
 # (part, function of the section's module, its keywords)
+# runner sections the paper phase leaves out: grad_wire's 8 ranks (its 2-pod
+# pair took 127 s of the window's host in PR 25's calls; tools/port_tp_train.py
+# runs the section alone, and phase 17 drives the same training path)
+PAPER_SKIP = ("grad_wire",)
 PAPER_SPLIT = {"table4_accuracy": [
     *((f"lm-{pol}", "run_lm", {"policies": [pol]})
       for pol in ("fp32", "bf16_standard", "bf16_sr", "bf16_kahan")),
@@ -3381,7 +3408,8 @@ def phase_paper(card: str, beside=None) -> dict:
 
     _paper_parity(card)
 
-    sections = [name for name, mod in BR.SECTIONS if not mod.startswith("ROADMAP")]
+    sections = [name for name, mod in BR.SECTIONS
+                if not mod.startswith("ROADMAP") and name not in PAPER_SKIP]
     units = [f"{name}:{part}" if name in PAPER_SPLIT else name for name in sections
              for part, _, _ in PAPER_SPLIT.get(name, [(None, None, None)])]
     print(card)
@@ -4349,6 +4377,7 @@ def _fsdp_checks(card: str, fres: dict, dp_fused: list, fkept: int, fat: int,
 
 
 # ROADMAP A10's serving part: tensor-parallel serving on (data, model) meshes
+TP_SERVE_LAYERS = 4       # (a)'s depth cut of full-width qwen2.5-3b (12 until PR 25)
 TP_LAYERS = 2             # (b)'s and (c)'s depth cut of full-width qwen2.5-3b
 TP_GENERATE = 1           # (a): requests (the shortest) lock-step generate re-derives
 # (b): the serve-paged stream's first 10 requests on a pool of 32 pages of
@@ -4357,7 +4386,7 @@ TP_PAGED_REQUESTS, TP_PAGED_MAX_LEN, TP_PAGED_PAGES = 10, 512, 32
 # (a): the 1 x 2 step's first-prefill logits against the 1-rank step's, at
 # most this share of the largest |logit| of the 1-rank step: the model axis
 # reassociates the row-parallel f32 sums (ROADMAP C18) and a bf16 rounding
-# that flips moves through 12 layers; the reference's own prefill ==
+# that flips moves through the layers; the reference's own prefill ==
 # decode bound, as the families' lock-step checks use
 TP_LOGIT_BAR = 0.05
 # (d): the f32 entry's shapes: the row-parallel products of qwen2.5-3b at
@@ -4422,6 +4451,13 @@ def tp_worker(spec_path: str) -> None:
     from repro_torch.tree import tree_leaves
 
     spec = json.loads(Path(spec_path).read_text())
+    if spec["scenario"].startswith("train-"):
+        try:
+            out = tp_train_worker(spec)
+        finally:
+            MH.shutdown()
+        Path(spec["out"], f"{spec['scenario']}.rank{out['rank']}.json").write_text(json.dumps(out))
+        return
     dev = spec["device"]
     MH.initialize(device=dev, backend="gloo", timeout_secs=300)
     rank = MH.process_index()
@@ -4479,9 +4515,8 @@ def tp_worker(spec_path: str) -> None:
             out["cut"] = dict(tokens=tokens_of(res), steps=res.calls, seconds=res.seconds)
         else:
             mesh = make_local_mesh(1, 2)
-            # (a) the serve phase's depth: the first prefill step, 1 rank
-            # against 1 x 2
-            params, cfg, policy = _tp_model(spec, SERVE_LAYERS)
+            # (a) the first prefill step, 1 rank against 1 x 2
+            params, cfg, policy = _tp_model(spec, TP_SERVE_LAYERS)
             stream = main_stream(cfg.vocab)
             first = torch.tensor([[int(p[0])] for _, p, _ in stream[:8]], dtype=torch.int32,
                                  device=dev)
@@ -4501,6 +4536,13 @@ def tp_worker(spec_path: str) -> None:
 
             one_logits, one_kv = first_step(params, None)
             one_weights = nbytes(params)
+            if rank == 0:
+                # the 1-rank engine's tokens at this depth (CUDA graphs), for
+                # the token agreement; rank 1 waits at the next collective
+                one = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
+                             fused_decode=True, device=dev)
+                out["one_tokens"] = tokens_of(serve_stream(one, stream))
+                del one
             params = shard(params, cfg, mesh)
             tp_logits, tp_kv = first_step(params, mesh)
             out["first_logits_diff"] = float((tp_logits - one_logits).abs().max())
@@ -4550,7 +4592,8 @@ def _tp_start(root: Path, scenario: str, n: int, device: str = "cuda",
               reduced: bool = False) -> tuple:
     """Start ``scenario`` on n ranks through the port's launcher;
     :func:`_tp_wait` ends it."""
-    spec = {"out": str(root), "scenario": scenario, "device": device, "reduced": reduced}
+    spec = {"out": str(root), "scenario": scenario, "device": device, "reduced": reduced,
+            "ck": str(root / "train-ck")}
     spec_path = root / f"tp-{scenario}.json"
     spec_path.write_text(json.dumps(spec))
     log_dir = root / f"tp-{scenario}-logs"
@@ -4579,6 +4622,14 @@ def _tp_wait(launch: tuple) -> tuple[list, float]:
     return [json.loads((root / f"{scenario}.rank{r}.json").read_text()) for r in range(n)], wall
 
 
+def tp_train_launches(run: dict, start) -> None:
+    """Phase 17's launches, into ``run``: (a), (b) and (c)'s restores on 2
+    ranks beside (c) on 4. ``start(scenario, n)`` starts one
+    (:func:`_tp_start`)."""
+    launches = [start("train-quad", 4), start("train-pair", 2)]
+    run["train-quad"], run["train-pair"] = [_tp_wait(x) for x in launches]
+
+
 def tp_start(*, rehearsal: bool = False) -> dict:
     """Start the tp phase's launches on a thread of this process: (a), then
     (b) and (c) side by side; :func:`phase_tp` joins it. A launch still
@@ -4601,6 +4652,7 @@ def tp_start(*, rehearsal: bool = False) -> dict:
             run["full"] = _tp_wait(start("full", 2))
             launches = [start(name, n) for name, n in (("cut", 2), ("quad", 4))]
             run["cut"], run["quad"] = [_tp_wait(x) for x in launches]
+            tp_train_launches(run, start)
         except BaseException as e:      # check() exits: re-raised by phase_tp
             run["error"] = e
 
@@ -4618,18 +4670,17 @@ def tp_start(*, rehearsal: bool = False) -> dict:
     return run
 
 
-def phase_tp(card: str, one_rank_tokens: dict, run: dict | None = None, *,
-             rehearsal: bool = False) -> dict:
+def phase_tp(card: str, run: dict | None = None, *, rehearsal: bool = False) -> dict:
     """ROADMAP A10's serving part on the card: ``Engine(mesh=)`` over ranks
     that share the card over gloo (``repro_torch.launch.dist_launch``).
 
-    (a) 1 x 2 (model 2), full-width qwen2.5-3b (``SERVE_LAYERS``, seed 0,
+    (a) 1 x 2 (model 2), full-width qwen2.5-3b (``TP_SERVE_LAYERS``, seed 0,
     ``bf16_standard``), the serve phase's traffic (8 slots, max_len 256, 12
     greedy requests, fused decode), eager steps: both ranks' tokens
     bitwise equal; engine == lock-step ``generate`` under the same mesh
     for ``TP_GENERATE`` requests; the first prefill step's logits within
     ``TP_LOGIT_BAR`` of the 1-rank step's largest |logit|; the token
-    agreement with the serve phase's 1-rank engine (``one_rank_tokens``),
+    agreement with a 1-rank engine at the same depth (rank 0, graphs),
     weight and KV bytes per rank against one rank's, ms per eager step,
     the model axis's collective and host-copy ms per step, and the
     kernels' launches per step (``qmatmul_f32`` twice per layer).
@@ -4669,10 +4720,11 @@ def phase_tp(card: str, one_rank_tokens: dict, run: dict | None = None, *,
     share = r0["first_logits_diff"] / r0["first_logits_scale"]
     check(share <= TP_LOGIT_BAR, f"[tp] first prefill logits differ by {share:.4f} of the "
           f"largest |logit| (bar {TP_LOGIT_BAR})")
-    same = sum(int(np.sum(np.asarray(r0["tokens"][str(rid)]) == np.asarray(t)))
+    one_rank_tokens = r0["one_tokens"]
+    same = sum(int(np.sum(np.asarray(r0["tokens"][rid]) == np.asarray(t)))
                for rid, t in one_rank_tokens.items())
     total = sum(len(t) for t in one_rank_tokens.values())
-    firsts = sum(r0["tokens"][str(rid)][0] == t[0] for rid, t in one_rank_tokens.items())
+    firsts = sum(r0["tokens"][rid][0] == t[0] for rid, t in one_rank_tokens.items())
     per = {k: n / r0["steps"] for k, n in r0["launches"].items() if n}
     n_layers = r0["n_layers"]
     check(rehearsal or (per.get("qmatmul_f32") == 2 * n_layers
@@ -4725,6 +4777,379 @@ def phase_tp(card: str, one_rank_tokens: dict, run: dict | None = None, *,
           f"wall {quad_wall:.1f}s")
     print(f"[tp] phase took {time.perf_counter() - run['t0']:.1f}s from its first launch")
     return r0["launches"]
+
+
+# ROADMAP A11: training on the model axis (phase 17), launched after the tp
+# serving launches on the same thread, checked after them
+TP_TRAIN_LAYERS = 2        # full-width qwen2.5-3b cut to this depth
+TP_TRAIN_STEPS = 3
+TP_TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
+                 "--batch", "2", "--seq", "512", "--steps", str(TP_TRAIN_STEPS), "--lr", "3e-3",
+                 "--seed", "0", "--device", "cuda"]
+TP_TRAIN_PAIR = ["--model-parallel", "2", "--dist-backend", "gloo"]
+# (b): the non-fused SR update (the philox shard entry, then sr_cast)
+TP_TRAIN_SR_ARGV = [a for a in TP_TRAIN_ARGV if a != "--fused-update"]
+TP_TRAIN_SR_ARGV[TP_TRAIN_SR_ARGV.index("--policy") + 1] = "bf16_sr"
+# (c): 2 data x 2 model on 4 ranks through the bf16 wire, checkpointed at the end
+TP_TRAIN_QUAD_STEPS = 2
+TP_TRAIN_QUAD_ARGV = TP_TRAIN_ARGV[:TP_TRAIN_ARGV.index("--steps")] + [
+    "--steps", str(TP_TRAIN_QUAD_STEPS)] + TP_TRAIN_ARGV[TP_TRAIN_ARGV.index("--steps") + 2:]
+TP_TRAIN_QUAD = ["--data-parallel", "2", "--model-parallel", "2", "--grad-wire", "bf16",
+                 "--dist-backend", "gloo"]
+TP_TRAIN_LOSS_BAR = 0.05   # (a): each step's loss against the 1-process run's
+TP_TRAIN_BYTES_BAR = 0.53  # (a): weight and state bytes per rank over one process's
+# tools/port_tp_train.py: the whole 36 layers on 1 x 2, the train cell's batch
+TP_WHOLE_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
+    "--steps", "3"] + TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 2:]
+
+
+def _tp_argv(base: list, spec: dict) -> list:
+    """``base`` on the card, or reduced on the CPU in a rehearsal."""
+    if spec["device"] == "cuda":
+        return list(base)
+    argv = list(base)
+    argv[argv.index("--device") + 1] = "cpu"
+    return argv + ["--reduced"]
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    """A run's log left out of the phase's output (the rank logs keep theirs)."""
+
+
+def _model_slice(t, spec, m: int):
+    """Model rank ``m``'s part of a full leaf under ``spec``."""
+    for dim, entry in enumerate(spec):
+        if entry == "model":
+            n = t.shape[dim] // 2
+            t = t.narrow(dim, m * n, n)
+    return t
+
+
+class _OneLeaf:
+    """The randomness of leaf ``i`` of a step key, as leaf 0 of a one-leaf
+    tree."""
+
+    def __init__(self, key, i: int):
+        self.key, self.i = key, i
+
+    def leaf(self, _j: int):
+        return self.key.leaf(self.i)
+
+
+def tp_train_worker(spec: dict) -> dict:
+    """One rank of phase 17 (``python3 chip_smoke.py --tp-worker SPEC`` with
+    a ``train-*`` scenario): ``pair`` (2 ranks: (a), then (b), then (c)'s
+    checkpoint in one process on rank 0 and under 1 x 2), ``quad`` (4
+    ranks, beside ``pair``: (c), checkpointed into ``spec["ck"]``) or
+    ``whole`` (2 ranks: 1 x 2 at the whole depth, ``tools/port_tp_train.py``).
+    Every run goes through the launcher's ``parse_args``, ``build`` and
+    ``train``; returns what the phase checks."""
+    import torch
+    from repro_torch.dist import axes
+    from repro_torch.dist import fsdp as F
+    from repro_torch.dist import partition as PT
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import registry as R
+    from repro_torch.core.policy import get_policy
+    from repro_torch.dist import transport as TR
+    from repro_torch.optim import StepKey, constant
+    from repro_torch.train import checkpoint as CK
+    from repro_torch.train.train_state import make_train_state
+    from repro_torch.train import loop as TL
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    scenario = spec["scenario"].removeprefix("train-")
+    card = spec["device"] == "cuda"
+    rank = int(os.environ.get("REPRO_PROCESS_ID", "0"))
+    layers = None if scenario == "whole" else TP_TRAIN_LAYERS
+    counts = {k: kernel_module(k) for k in ("fused_adamw", "sr_cast", "philox")}
+    out = {"rank": rank}
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    def zero():
+        for m in counts.values():
+            m.LAUNCHES = 0
+
+    def read():
+        return {k: m.LAUNCHES for k, m in counts.items()}
+
+    def build(base, extra):
+        args = LT.parse_args(_tp_argv(base, spec) + extra)
+        return args, LT.build(args, cfg=_dist_cfg(args, layers))
+
+    def train(args, run):
+        """The run's steps: losses, step walls (the last one up to the run's
+        end, its checkpoint included), the model axis's collectives, their
+        seconds and host copies per step from step 1 on (step 0 waits for
+        the other ranks), launches, peak GiB."""
+        axis = axes.for_mesh(run.mesh)
+        walls, marks = [], []
+
+        def mark():
+            st = axis.stats if axis is not None else None
+            return (st.calls, st.seconds, st.host_copy_s) if st is not None else (0, 0.0, 0.0)
+
+        def hook(step):
+            sync()
+            walls.append(time.perf_counter())
+            if step == 1:
+                marks.append(mark())
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        zero()
+        state, info = LT.train(args, run, log=_quiet, fault_hook=hook)
+        sync()
+        walls.append(time.perf_counter())
+        steps = len(info["history"]) - 1
+        per = [(b - a) / steps for a, b in zip(marks[0], mark())]
+        return state, {"losses": [h["loss"] for h in info["history"]], "launches": read(),
+                       "step_s": [b - a for a, b in zip(walls, walls[1:])],
+                       "collectives": per[0], "collective_s": per[1], "host_copy_s": per[2],
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if card else 0.0}
+
+    def digests(state):
+        leaves = CK.flatten(state)[1:]
+        n_res = len(CK.flatten(state.wire_residuals))
+        return [digest(t) for t in leaves[:len(leaves) - n_res]]
+
+    if scenario == "pair":
+        if rank == 0:
+            # (a)'s one-process run, before this rank joins the group
+            args1, run1 = build(TP_TRAIN_ARGV, ["--num-processes", "1"])
+            out["one_bytes"] = F.per_device_bytes((run1.state.params, run1.state.opt_state))
+            _, res1 = train(args1, run1)
+            out["one"] = res1
+            del run1, _
+            if card:
+                torch.cuda.empty_cache()
+        args, run = build(TP_TRAIN_ARGV, TP_TRAIN_PAIR)
+        out["bytes"] = F.per_device_bytes((run.state.params, run.state.opt_state))
+        state, out["a"] = train(args, run)
+        tr = run.transport
+        specs = F.flat_specs(F.train_state_specs(state, tr.pspecs, tr))[1:]
+        out["a"].update(digests=digests(state), specs=[list(s) for s in specs],
+                        coords=run.mesh.coords(rank),
+                        n_leaves=len(tree_leaves(state.params)),
+                        plain_check=fsdp_shard_check(run, state, args))
+        del run, state
+        if card:
+            torch.cuda.empty_cache()
+        # (b) one non-fused bf16_sr update of the shards (the main path),
+        # then leaf by leaf the one-process update of the whole leaf given
+        # the gathered gradient: every sharded layer kernel (the embedding's
+        # whole-leaf update would need ~8 GiB of f32 temporaries beside the
+        # window's other processes)
+        argsb, runb = build(TP_TRAIN_SR_ARGV, TP_TRAIN_PAIR)
+        step = make_train_step(runb.cfg, runb.policy, runb.optimizer, constant(argsb.lr),
+                               attn_chunk=min(1024, argsb.seq), transport=runb.transport,
+                               mesh=runb.mesh)
+        g = step.phases[0](runb.state, next(runb.batches(0)), argsb.seed)
+        zero()
+        new, _ = step.phases[1](runb.state, g, argsb.seed)
+        sync()
+        launched = read()
+        axis = axes.for_mesh(runb.mesh)
+        full = R.init(runb.cfg, argsb.seed, runb.policy.param_dtype,
+                      device=spec["device"])             # the draw build() sharded
+        opt, key = runb.optimizer, StepKey(argsb.seed, 0)
+        checked, bad = [], []
+        for i, (path, s, gi, w, m, v, w1) in enumerate(zip(
+                tree_paths(new.params), tree_leaves(runb.transport.pspecs),
+                tree_leaves(g.grads), tree_leaves(new.params), tree_leaves(new.opt_state.m),
+                tree_leaves(new.opt_state.v), tree_leaves(full))):
+            dims = F.sharded_dims(s)
+            if not dims or path.startswith("embed"):
+                continue
+            g1 = torch.cat(axes._gather(gi.contiguous(), axis), dim=dims[0][0])
+            one = {"x": w1}
+            w_new, st = opt.update({"x": g1}, opt.init(one), one, step=0,
+                                   key=_OneLeaf(key, i), lr=argsb.lr)
+            checked.append(path)
+            if not all(torch.equal(a, F.local_slice(b, s, runb.mesh)) for a, b in
+                       ((w, w_new["x"]), (m, st.m["x"]), (v, st.v["x"]))):
+                bad.append(path)
+            del g1, one, w_new, st
+        out["b"] = {"launches": launched, "checked": checked, "unequal": bad}
+        del runb, new, g, full, step
+        if card:
+            torch.cuda.empty_cache()
+        # (c)'s checkpoint, once the 2 x 2 launch beside this one has
+        # written it and ended: in one process (rank 0; rank 1 waits at the
+        # next collective), each model rank's slice of every stored leaf
+        # (params and optimizer state) digested, then restored under 1 x 2
+        quad = [Path(spec["out"], f"train-quad.rank{r}.json") for r in range(4)]
+        t0 = time.perf_counter()
+        while not all(q.exists() for q in quad):
+            check(time.perf_counter() - t0 < 600, "[tp-train] (c)'s 2 x 2 launch did not end")
+            time.sleep(1.0)
+        if rank == 0:
+            args1 = LT.parse_args(_tp_argv(TP_TRAIN_QUAD_ARGV, spec))
+            cfg1 = _dist_cfg(args1, layers) or R.get_config(args1.arch).reduced()
+            policy1 = get_policy(args1.policy)
+            tr1 = TR.make_transport(wire="bf16")
+            one = make_train_state(R.init(cfg1, args1.seed, policy1.param_dtype,
+                                          device=spec["device"]),
+                                   LT.make_optimizer(args1, policy1), transport=tr1)
+            one, at = TL._restore(CK.CheckpointManager(spec["ck"]), one, _quiet,
+                                  wire_format=tr1.wire_format, transport=tr1)
+            stand_in = Mesh(("data", "model"), (1, 2))
+            specs = F.flat_specs(F.train_state_specs(
+                one, PT.param_specs(one.params, cfg1, stand_in)))[1:]
+            leaves = CK.flatten(one)[1:]
+            digests_of = leaves[:len(leaves) - len(CK.flatten(one.wire_residuals))]
+            out["one_restore"] = {"step": at, "slices": [
+                [digest(_model_slice(t, sp, m)) for t, sp in zip(digests_of, specs)]
+                for m in (0, 1)]}
+            del one, leaves, digests_of
+            if card:
+                torch.cuda.empty_cache()
+        args, run = build(TP_TRAIN_QUAD_ARGV, TP_TRAIN_PAIR + ["--grad-wire", "bf16"])
+        tr = run.transport
+        state, at = TL._restore(CK.CheckpointManager(spec["ck"], mesh=run.mesh), run.state,
+                                _quiet, wire_format=tr.wire_format, transport=tr,
+                                specs=F.train_state_specs(run.state, tr.pspecs, tr))
+        out["restore"] = {"step": at, "digests": digests(state),
+                          "residual_max": max(float(t.abs().max())
+                                              for t in CK.flatten(state.wire_residuals))}
+    elif scenario == "quad":
+        args, run = build(TP_TRAIN_QUAD_ARGV, TP_TRAIN_QUAD + [
+            "--ckpt-dir", spec["ck"], "--ckpt-every", str(TP_TRAIN_QUAD_STEPS), "--sync-ckpt"])
+        state, out["c"] = train(args, run)
+        params = tree_leaves(state.params)
+        out["c"].update(digests=digests(state), coords=run.mesh.coords(rank),
+                        wire_bytes=run.transport.stats.wire_bytes_by_dtype(),
+                        numel_local=sum(t.numel() for t in params),
+                        replicated=[not F.sharded_dims(s) for s in
+                                    F.flat_specs(F.train_state_specs(
+                                        state, run.transport.pspecs, run.transport))[1:]])
+    else:
+        args, run = build(TP_WHOLE_ARGV, TP_TRAIN_PAIR)
+        out["bytes"] = F.per_device_bytes((run.state.params, run.state.opt_state))
+        out["n_layers"] = run.cfg.n_layers
+        _, out["whole"] = train(args, run)
+    return out
+
+
+def phase_tp_train(card: str, run: dict, *, rehearsal: bool = False) -> dict:
+    """ROADMAP A11 on the card (phase 17): training on the model axis, ranks
+    sharing the card over gloo, each run through the launcher's
+    ``parse_args``, ``build`` and ``train`` (:func:`tp_train_worker`).
+
+    (a) 1 data x 2 model, full-width qwen2.5-3b cut to ``TP_TRAIN_LAYERS``,
+    batch 2 x 512, ``bf16_sr_kahan --fused-update``, ``TP_TRAIN_STEPS``
+    steps: both ranks bitwise equal on every replicated leaf (params and
+    optimizer state) and on every loss; each step's loss within
+    ``TP_TRAIN_LOSS_BAR`` of a 1-process run of the same steps; one TP
+    shard's ``fused_adamw`` == its plain version with the folded seed;
+    weight and state bytes per rank at most ``TP_TRAIN_BYTES_BAR`` of one
+    process's; one ``fused_adamw`` launch per local leaf per step.
+    (b) non-fused ``bf16_sr``: one update of the shards (the ``philox``
+    shard entry, then ``sr_cast``) == the 1-process update's slice given
+    the same gradients, w, m and v of every sharded layer kernel.
+    (c) 2 data x 2 model on 4 ranks through the bf16 wire,
+    ``TP_TRAIN_QUAD_STEPS`` steps, checkpointed: the two model groups
+    bitwise equal, the wire's bytes by dtype as counted (2 per local
+    element per step); the checkpoint restores in one process and under
+    1 x 2 to the 2 x 2 ranks' parts. Prints ms per step, the model axis's
+    collectives, their ms and host-copy ms per step, peak GiB per rank,
+    beside the card's name and power limit. Returns the path's launches of
+    ``fused_adamw``, ``sr_cast`` and ``philox``, summed over the ranks."""
+    pair, pair_wall = run["train-pair"]
+    quad, quad_wall = run["train-quad"]
+    a0, a1 = pair[0]["a"], pair[1]["a"]
+    # (a)
+    check(a0["losses"] == a1["losses"], f"[tp-train] (a) ranks' losses differ: "
+          f"{a0['losses']} {a1['losses']}")
+    n_rep = 0
+    for i, spec in enumerate(a0["specs"]):
+        if "model" not in spec:
+            n_rep += 1
+            check(a0["digests"][i] == a1["digests"][i],
+                  f"[tp-train] (a) replicated leaf {i} differs between the ranks")
+    one = pair[0]["one"]["losses"]
+    gap = max(abs(x - y) for x, y in zip(a0["losses"], one))
+    check(len(one) == len(a0["losses"]) == TP_TRAIN_STEPS and gap <= TP_TRAIN_LOSS_BAR,
+          f"[tp-train] (a) losses {a0['losses']} against one process's {one} "
+          f"(bar {TP_TRAIN_LOSS_BAR})")
+    for res in pair:
+        check(res["a"]["plain_check"]["equal"],
+              f"[tp-train] (a) rank {res['rank']}: the shard's fused_adamw != its plain "
+              f"version with the folded seed")
+    ratio = max(res["bytes"] for res in pair) / pair[0]["one_bytes"]
+    check(ratio <= TP_TRAIN_BYTES_BAR, f"[tp-train] (a) bytes per rank {ratio:.4f} of one "
+          f"process's (bar {TP_TRAIN_BYTES_BAR})")
+    for res in pair:
+        n = res["a"]["n_leaves"] * TP_TRAIN_STEPS
+        check(rehearsal or res["a"]["launches"]["fused_adamw"] == n,
+              f"[tp-train] (a) rank {res['rank']}: {res['a']['launches']} for {n} leaf steps")
+    # (b)
+    for res in pair:
+        b = res["b"]
+        check(not b["unequal"] and len(b["checked"]) >= 7,
+              f"[tp-train] (b) rank {res['rank']}: {b['unequal']} of {b['checked']} != the "
+              f"1-process update's slice")
+        check(rehearsal or (b["launches"]["sr_cast"] > 0 and b["launches"]["philox"] > 0),
+              f"[tp-train] (b) rank {res['rank']}: launches {b['launches']}")
+    # (c)
+    by = {(q["c"]["coords"]["data"], q["c"]["coords"]["model"]): q["c"] for q in quad}
+    check(sorted(by) == [(0, 0), (0, 1), (1, 0), (1, 1)], "[tp-train] (c) mesh coordinates")
+    for m in (0, 1):
+        check(by[0, m]["digests"] == by[1, m]["digests"] and
+              by[0, m]["losses"] == by[1, m]["losses"],
+              f"[tp-train] (c) the data replicas of model rank {m} differ")
+        want = {"bfloat16": 2 * by[0, m]["numel_local"] * TP_TRAIN_QUAD_STEPS}
+        check(by[0, m]["wire_bytes"] == want and by[1, m]["wire_bytes"] == want,
+              f"[tp-train] (c) wire bytes {by[0, m]['wire_bytes']}, expected {want}")
+    check(all(d0 == d1 for d0, d1, rep in zip(by[0, 0]["digests"], by[0, 1]["digests"],
+                                             by[0, 0]["replicated"]) if rep),
+          "[tp-train] (c) the model groups' replicated leaves differ")
+    whole = pair[0]["one_restore"]
+    check(whole["step"] == TP_TRAIN_QUAD_STEPS, f"[tp-train] (c) restored step {whole['step']}")
+    for res in pair:
+        m, got = res["a"]["coords"]["model"], res["restore"]
+        check(got["step"] == TP_TRAIN_QUAD_STEPS and
+              got["digests"] == by[0, m]["digests"] == whole["slices"][m],
+              f"[tp-train] (c) model rank {m}: the 1 x 2 restore, the 1-process restore's "
+              f"slice and the 2 x 2 ranks' parts differ")
+        check(got["residual_max"] == 0.0,
+              "[tp-train] (c) the 1 x 2 restore kept the 2 replicas' residual rows")
+    launches = {k: sum(res["a"]["launches"][k] + res["b"]["launches"][k] for res in pair)
+                + sum(q["c"]["launches"][k] for q in quad)
+                for k in ("fused_adamw", "sr_cast", "philox")}
+    ms = [1e3 * sum(r["a"]["step_s"][1:]) / max(len(r["a"]["step_s"]) - 1, 1) for r in pair]
+    one_ms = 1e3 * sum(pair[0]["one"]["step_s"][1:]) / max(len(pair[0]["one"]["step_s"]) - 1, 1)
+    print(f"[tp-train] (a) on {card}: 1 x 2 over gloo, qwen2.5-3b {TP_TRAIN_LAYERS} layers, "
+          f"batch 2 x 512, bf16_sr_kahan fused: losses {[round(x, 4) for x in a0['losses']]} "
+          f"(1 process {[round(x, 4) for x in one]}, within {gap:.2e}, bar "
+          f"{TP_TRAIN_LOSS_BAR}); ranks bitwise on {n_rep} replicated leaves and the losses; "
+          f"the shard's fused_adamw == plain (folded seed); steps 1-{TP_TRAIN_STEPS - 1} "
+          f"{ms[0]:.2f} ms per step (rank 1 {ms[1]:.2f}; 1 process {one_ms:.2f}); model-axis "
+          f"collectives {a0['collectives']:.0f} per step taking {1e3 * a0['collective_s']:.2f} "
+          f"ms, of which host copies {1e3 * a0['host_copy_s']:.2f} ms (steps 1-"
+          f"{TP_TRAIN_STEPS - 1}); "
+          f"weights and state {pair[0]['bytes'] / 2**30:.3f} GiB per rank, {ratio:.4f} of one "
+          f"process's {pair[0]['one_bytes'] / 2**30:.3f}; peak {a0['peak_gib']:.2f} GiB per "
+          f"rank (1 process {pair[0]['one']['peak_gib']:.2f}); launches {a0['launches']}")
+    print(f"[tp-train] (b) on {card}: non-fused bf16_sr, one update of the shards == the "
+          f"1-process update's slice (w, m, v) on every sharded layer kernel "
+          f"({len(pair[0]['b']['checked'])} per rank); launches per rank "
+          f"{pair[0]['b']['launches']}")
+    c0 = by[0, 0]
+    print(f"[tp-train] (c) on {card}: 2 x 2 on 4 ranks, bf16 wire, {TP_TRAIN_QUAD_STEPS} "
+          f"steps: model groups bitwise, wire {c0['wire_bytes']} B per rank "
+          f"({c0['numel_local']} local elements); step walls "
+          f"{[round(x, 2) for x in c0['step_s']]} s (the last with its checkpoint; beside "
+          f"(a, b)); "
+          f"collectives {c0['collectives']:.0f} per step, {1e3 * c0['collective_s']:.2f} ms, "
+          f"host copies {1e3 * c0['host_copy_s']:.2f} ms; peak {c0['peak_gib']:.2f} GiB; the "
+          f"checkpoint restores in one process and under 1 x 2 to the 2 x 2 parts; launch "
+          f"walls {quad_wall:.1f}s, (a, b) and the restores {pair_wall:.1f}s")
+    return launches
 
 
 def phase_qmatmul_f32(card: str) -> dict:
@@ -4830,7 +5255,6 @@ def main():
     launches["paged_decode_attention"], engines["paged"], greedy["serve-paged"] = \
         phase_serve_paged(card, *model)
     sample_fills = phase_sample(card, *model, greedy)
-    one_rank_tokens = {str(r): t.tolist() for r, t in greedy["serve"]["tokens"].items()}
     del greedy
     for tag, eng in engines.items():     # last: the profiler may slow later launches
         phase_profile(eng, model[1], card, tag)
@@ -4878,9 +5302,11 @@ def main():
     launches["sr_cast"] = parity["sr_cast"] + paper["sr_cast"] + slice11["sr_cast"]
     launches["philox"] = parity["philox"] + sample_fills + paper["philox"] + slice11["philox"]
     stamp("tp checks")
-    tp = phase_tp(card, one_rank_tokens, tp_run)
+    tp = phase_tp(card, tp_run)
     launches["qmatmul_f32"] = tp.pop("qmatmul_f32")
     for k, n in tp.items():
+        launches[k] += n
+    for k, n in phase_tp_train(card, tp_run).items():
         launches[k] += n
     stamp("dist")
     for k, n in phase_dist(card, *train_ref).items():

@@ -7,7 +7,7 @@ data axis, so the bytes per rank shrink by about the axis size while the
 step computes the same update. The setup is the reference's — reduced
 qwen2.5-3b, ``bf16_sr_kahan``, AdamW with β₂ 0.997, batch 8 × 32 — on a
 mesh of 2 data × 2 fsdp. The reference's mesh adds 2 model (tensor
-parallelism; training on it is ROADMAP A11), which both of its placements shard alike, so
+parallelism; FSDP beside it is ROADMAP A13), which both of its placements shard alike, so
 its ratio compares the FSDP axis alone, as this one does: 4 ranks
 through :mod:`repro_torch.launch.dist_launch` (gloo; on a card the 4 ranks
 share it), each running the data-parallel placement then the FSDP one.

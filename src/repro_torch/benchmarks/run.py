@@ -37,7 +37,7 @@ SECTIONS = [
     ("roofline", "ROADMAP A6"),
     ("fsdp_memory", "bench_fsdp"),       # 2 data x 2 fsdp on 4 ranks
     ("serve_batching", "ROADMAP A8"),
-    ("grad_wire", "ROADMAP A11"),       # 4 data x 2 model meshes: training on the model axis
+    ("grad_wire", "bench_grad_wire"),   # 4 data x 2 model, 2 pod x 2 data x 2 model: 8 ranks
     ("grad_wire_sweep", "bench_grad_wire_sweep"),
     ("decode_attn", "ROADMAP A8"),
 ]

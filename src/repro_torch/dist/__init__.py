@@ -2,5 +2,4 @@
 the process lifecycle (``multihost``), mesh axes, placement and the rows
 of a rank (``partition``), fully-sharded data parallelism (``fsdp``), and
 the gradient transports (``transport``), and the model axis as the model
-code sees it (``axes``: tensor-parallel serving; training there is ROADMAP
-A11)."""
+code sees it (``axes``: tensor-parallel serving and training)."""

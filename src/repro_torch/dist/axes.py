@@ -3,24 +3,40 @@
 
 The reference's model code hints GSPMD where activations shard
 (``shard_batch``/``shard_heads`` under ``activation_sharding``) and XLA
-inserts the collectives. Here the engine installs a :class:`ModelAxis` —
-this rank's coordinate on the model axis and that axis's process group —
-with :func:`model_axis`, the model reads it with :func:`current`, and the
-collectives are explicit:
+inserts the collectives, forward and backward. Here the engine or the
+train step installs a :class:`ModelAxis` — this rank's coordinate on the
+model axis and that axis's process group — with :func:`model_axis`, the
+model reads it with :func:`current`, and the collectives are explicit
+``autograd.Function`` s, Megatron's pair among them:
 
-* :func:`row_parallel_sum` — a row-parallel product (``wo``, ``w_down``)
-  leaves each rank an f32 partial sum over its slice of the contracted
-  features. The reference's all-reduce sums the f32 partials and rounds
-  once; here every rank gathers the model group's partials
+* :func:`copy_to_model` (Megatron's *f*) — the identity on the input
+  every column-parallel product of a group shares (``wq/wk/wv``,
+  ``w_gate/w_up``, the logits); its backward sums the model group's f32
+  partial input-gradients in rank order and rounds the sum once;
+* :func:`row_parallel_sum` (*g*) — a row-parallel product (``wo``,
+  ``w_down``) leaves each rank an f32 partial sum over its slice of the
+  contracted features. The reference's all-reduce sums the f32 partials
+  and rounds once; here every rank gathers the model group's partials
   (:func:`repro_torch.optim.grad_compress.gather_parts`), sums them in rank
   order in f32 and rounds the sum once to the compute dtype, so every rank
-  gets the same bits;
+  gets the same bits. Its backward hands the replicated cotangent to this
+  rank's partial;
 * :func:`embed_lookup` — the vocab-parallel embedding: each rank gathers
   the rows its vocab slice holds (zero elsewhere); the rows are gathered
   and each token takes the part of the one rank that holds its id, which
-  is exact;
+  is exact. Its backward sends this rank's rows of the replicated
+  cotangent to its slice;
+* :func:`vocab_parallel_xent` — the training loss on this rank's vocab
+  columns of the logits: three (B, S) f32 gathers (max, sum of ``exp``,
+  the label's logit), the gradient ``softmax − onehot`` on the local
+  columns;
 * :func:`gather_logits` — each rank's logits over its vocab columns,
-  gathered and concatenated in rank order.
+  gathered and concatenated in rank order (serving).
+
+Each Function captures the :class:`ModelAxis` at forward time, and its
+backward never reads :func:`current`: the installed axis is thread-local,
+and on CUDA autograd runs the backward (a remat recompute included) on a
+thread of its own.
 
 Outside the context, or on a model axis of size 1, the model runs as it
 does in one process. The collectives run over whatever backend the group
@@ -40,7 +56,8 @@ import torch
 from repro_torch.optim.grad_compress import WireStats, gather_parts
 
 __all__ = ["AxisStats", "ModelAxis", "current", "model_axis", "for_mesh", "local_slice",
-           "row_parallel_sum", "embed_lookup", "gather_logits"]
+           "copy_to_model", "row_parallel_sum", "embed_lookup", "vocab_parallel_xent",
+           "gather_logits"]
 
 
 @dataclasses.dataclass
@@ -110,18 +127,20 @@ def for_mesh(mesh) -> Optional[ModelAxis]:
 
 def local_slice(t: torch.Tensor, width: int, dim: int = -1) -> torch.Tensor:
     """This rank's ``width`` entries of a replicated ``t`` along ``dim``
-    (a column-parallel product's bias); ``t`` itself when it is that wide."""
+    (a column-parallel product's bias); ``t`` itself when it is that wide.
+    The slice's gradient, zero off this rank's entries, is summed over the
+    model group (:func:`copy_to_model`), so every rank gets the whole
+    replicated leaf's."""
     axis = current()
     if t.shape[dim] == width:
         return t
     if axis is None or t.shape[dim] != width * axis.size:
         raise ValueError(f"a leaf of {t.shape[dim]} along dim {dim} does not split into "
                          f"{width}-wide shards over the model axis")
-    return t.narrow(dim, axis.rank * width, width)
+    return copy_to_model(t).narrow(dim, axis.rank * width, width)
 
 
-def _gather(t: torch.Tensor) -> list[torch.Tensor]:
-    axis = current()
+def _gather(t: torch.Tensor, axis: ModelAxis) -> list[torch.Tensor]:
     t0 = time.perf_counter()
     parts = gather_parts(t, axis.group, axis.stats.wire)
     axis.stats.calls += 1
@@ -129,22 +148,81 @@ def _gather(t: torch.Tensor) -> list[torch.Tensor]:
     return parts
 
 
+def _rank_order_sum(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """The model group's ``t`` summed in rank order in f32: the same bits
+    on every rank. The parts cross in ``t``'s dtype (a bf16 partial's
+    upcast is exact, so gathering it before the upcast halves the bytes)."""
+    parts = _gather(t, axis)
+    acc = parts[0].to(torch.float32, copy=True)
+    for p in parts[1:]:
+        acc += p.to(torch.float32)
+    return acc
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_order_sum(g, ctx.axis).to(g.dtype), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Megatron's *f*: ``x`` itself, the input the column-parallel
+    products of a group share; its gradient is the model group's f32
+    partial input-gradients summed in rank order and rounded once to
+    ``x``'s dtype. ``x`` itself outside a model axis."""
+    axis = current()
+    return x if axis is None else _CopyToModel.apply(x, axis)
+
+
+class _RowParallelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, partial, qa, axis):
+        return qa.cast(_rank_order_sum(partial, axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.float32), None, None
+
+
 def row_parallel_sum(partial: torch.Tensor, qa) -> torch.Tensor:
     """The model group's f32 partial sums added in rank order in f32 and
     rounded once by ``qa``: a row-parallel product's output, the same bits
-    on every rank."""
-    parts = _gather(partial.to(torch.float32))
-    acc = parts[0].clone()
-    for p in parts[1:]:
-        acc += p
-    return qa.cast(acc)
+    on every rank. Its gradient is the replicated cotangent, in f32, on
+    this rank's partial."""
+    return _RowParallelSum.apply(partial, qa, current())
+
+
+class _SelectOwner(torch.autograd.Function):
+    """Every rank's rows gathered and each token's taken from the rank
+    that owns its id; the backward keeps this rank's tokens of the
+    replicated cotangent."""
+
+    @staticmethod
+    def forward(ctx, local, owner, axis):
+        ctx.save_for_backward(owner)
+        ctx.rank = axis.rank
+        parts = torch.stack(_gather(local, axis))           # (size, *ids.shape, D)
+        return torch.gather(parts, 0, owner[None, ..., None].expand(1, *local.shape))[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        owner, = ctx.saved_tensors
+        return torch.where((owner == ctx.rank)[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                                          device=g.device)), \
+            None, None
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows ``ids`` of the vocab-parallel ``table`` (this rank's
     ``(V / size, D)`` slice): each rank looks up the ids of its slice, the
     parts are gathered and every token takes its row from the rank that
-    holds it. Exact: no arithmetic touches a row."""
+    holds it. Exact: no arithmetic touches a row. The gradient reaches
+    this rank's slice at the rows of its own tokens."""
     axis = current()
     rows = table.shape[0]
     ids = ids.long()
@@ -152,12 +230,55 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     local = table[torch.where(mine, ids - axis.rank * rows, 0)]
     local = torch.where(mine[..., None], local, torch.zeros((), dtype=local.dtype,
                                                             device=local.device))
-    parts = torch.stack(_gather(local))                    # (size, *ids.shape, D)
     owner = torch.clamp(ids // rows, 0, axis.size - 1)
-    return torch.gather(parts, 0, owner[None, ..., None].expand(1, *local.shape))[0]
+    return _SelectOwner.apply(local, owner, axis)
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, labels, ignore, axis):
+        V = local.shape[-1]
+        lo = axis.rank * V
+        mine = (labels >= lo) & (labels < lo + V)
+        at = torch.where(mine, labels - lo, 0).long()
+        top = local.amax(dim=-1)
+        # the global max: exact in any order
+        top = torch.stack(_gather(top.contiguous(), axis)).amax(dim=0)
+        sumexp = torch.exp(local - top[..., None]).sum(dim=-1)
+        gold = torch.where(mine, torch.gather(local, -1, at[..., None])[..., 0],
+                           torch.zeros((), dtype=local.dtype, device=local.device))
+        logz = top + torch.log(_rank_order_sum(sumexp, axis))
+        # one rank holds each label: the others add zeros
+        gold = _rank_order_sum(gold, axis)
+        mask = (labels != ignore).to(torch.float32)
+        count = torch.clamp(mask.sum(), min=1.0)
+        ctx.save_for_backward(local, logz, at, mine, mask, count)
+        return ((logz - gold) * mask).sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        local, logz, at, mine, mask, count = ctx.saved_tensors
+        grad = torch.exp(local - logz[..., None])
+        grad.scatter_add_(-1, at[..., None], -mine.to(grad.dtype)[..., None])
+        return grad * (mask * (g / count))[..., None], None, None, None
+
+
+def vocab_parallel_xent(local: torch.Tensor, labels: torch.Tensor, *,
+                        ignore: int = -1) -> torch.Tensor:
+    """Mean next-token cross entropy of the logits whose vocab columns
+    this rank holds (``local`` (B, S, V / size) f32, ranks in vocab order),
+    the reference's ``softmax_xent`` over the gathered logits: each rank's
+    f32 max, sum of ``exp`` and the label's logit over its columns,
+    combined over the group in rank order (three (B, S) f32 gathers);
+    positions labelled ``ignore`` do not count. The gradient ``softmax −
+    onehot`` stays on the local columns."""
+    axis = current()
+    if axis is None:
+        raise ValueError("vocab_parallel_xent needs an installed model axis")
+    return _VocabParallelXent.apply(local.to(torch.float32), labels, ignore, axis)
 
 
 def gather_logits(local: torch.Tensor) -> torch.Tensor:
     """Each rank's logits over its vocab columns, concatenated in rank
     order: the whole vocabulary on every rank."""
-    return torch.cat(_gather(local.contiguous()), dim=-1)
+    return torch.cat(_gather(local.contiguous(), current()), dim=-1)

@@ -29,7 +29,8 @@ over the process group of the placement's FSDP axis
 (a spec per leaf of a ``TrainState``); :func:`shard_state` keeps this
 rank's part of every leaf of a full state (the launcher, restore and
 ``convert.py`` use it) and :func:`gather_full` assembles a full leaf on
-process 0 (checkpoints).
+process 0 (checkpoints). These helpers read any axis a spec names: the
+tensor-parallel shards of the model axis go through them as FSDP's do.
 """
 from __future__ import annotations
 

@@ -15,10 +15,10 @@ size divides that the model axis did not claim (:func:`param_specs`), and
 :func:`state_shardings` co-shards every parameter-shaped optimizer buffer
 with its parameter.
 
-What the port runs on a model axis above 1 is serving the dense
-decoder-only families (:func:`serve_refusal`); training there is ROADMAP
-A11, the other families, padded head counts and paged pools under a data
-axis above 1 are A12.
+What the port runs on a model axis above 1 is serving and training the
+dense decoder-only families (:func:`serve_refusal`); the other families,
+padded head counts and paged pools under a data axis above 1 are ROADMAP
+A12, FSDP beside a model axis above 1 is A13.
 
 :func:`batch_specs`, :func:`cache_specs` and :func:`serve_input_specs`
 give the reference's specs; :func:`rank_rows` applies the batch's: a rank
@@ -36,7 +36,7 @@ from typing import Any, Optional
 import torch
 
 __all__ = ["MODEL_AXIS", "DATA_AXIS", "POD_AXIS", "FSDP_AXIS", "KNOWN_AXES",
-           "STACKED_CACHE_ROOTS", "TRAIN_ITEM", "SERVE_ITEM", "P", "Placement",
+           "STACKED_CACHE_ROOTS", "SERVE_ITEM", "FSDP_TP_ITEM", "P", "Placement",
            "default_placement", "dp_axes", "dp_size", "mp_size", "param_specs",
            "state_shardings", "batch_specs", "cache_specs", "serve_input_specs",
            "serve_refusal", "rank_index", "rank_rows"]
@@ -51,8 +51,8 @@ FSDP_AXIS = "fsdp"
 KNOWN_AXES = (POD_AXIS, DATA_AXIS, FSDP_AXIS, MODEL_AXIS)
 
 # where the model axis's refusals point
-TRAIN_ITEM = "training on the model axis is ROADMAP A11"
 SERVE_ITEM = "ROADMAP A12"
+FSDP_TP_ITEM = "ROADMAP A13"
 
 # Column-parallel: shard the output-feature (last) dim of the kernel.
 _COL_PARALLEL = frozenset({
@@ -142,13 +142,13 @@ def mp_size(mesh) -> int:
 
 
 def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
-    """Why the port cannot serve ``cfg`` on ``mesh`` (None when it can).
-    On a model axis above 1 it serves the families whose blocks are
-    attention and a dense MLP, with the axis dividing the head counts, the
-    MLP width and the vocabulary (the other families, padded head counts:
-    A12); a paged pool takes no data axis above 1 (a lane's block table may
-    name any page row, so its rows would need a cross-rank gather every
-    step: A12)."""
+    """Why the port cannot serve (or, with ``paged=False``, train) ``cfg``
+    on ``mesh`` (None when it can). On a model axis above 1 it serves and
+    trains the families whose blocks are attention and a dense MLP, with
+    the axis dividing the head counts, the MLP width and the vocabulary
+    (the other families, padded head counts: A12); a paged pool takes no
+    data axis above 1 (a lane's block table may name any page row, so its
+    rows would need a cross-rank gather every step: A12)."""
     if mesh is None:
         return None
     mp = mp_size(mesh)
@@ -159,7 +159,8 @@ def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
         return None
     if cfg.encdec or cfg.family == "ssm" or cfg.block_pattern or cfg.n_experts:
         return (f"{cfg.name}: only dense attention + MLP blocks serve on a model axis; "
-                f"MoE, Mamba, RG-LRU and encoder-decoder models there are {SERVE_ITEM}")
+                f"MoE, Mamba, RG-LRU and encoder-decoder models there (serving and "
+                f"training) are {SERVE_ITEM}")
     for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
         if n % mp:

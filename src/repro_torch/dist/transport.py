@@ -372,15 +372,21 @@ def make_transport(*, mesh=None, placement: Placement | None = None,
       ``e5m2``, ``e4m3``) — :class:`CompressedWire` at that format.
 
     ``wire_policy`` adds the per-leaf fp32 keep on a compressed wire and is
-    ignored for ``"fp32"``. A model axis above 1 raises: training there
-    is ROADMAP A11. An FSDP placement (with ``pspecs``) makes the
+    ignored for ``"fp32"``. An FSDP placement (with ``pspecs``) makes the
     inner a :class:`ReduceScatter` (standalone for ``fp32`` without a pod
     axis); otherwise the inner is the plain mean.
+
+    On a ``model`` axis above 1 the leaves are this rank's tensor-parallel
+    shards (``pspecs``): the wire and the mean ride the data and pod axes
+    only, each rank's residual rows take its shards' shapes, and a wire on
+    the model axis is refused. FSDP with a model axis above 1 is
+    ROADMAP A13.
     """
-    if PT.mp_size(mesh) > 1:
-        raise ValueError(f"a gradient transport on a {mesh.shape} mesh: {PT.TRAIN_ITEM}")
     fsdp_on = (placement is not None and placement.fsdp_axis is not None
                 and pspecs is not None)
+    if fsdp_on and PT.mp_size(mesh) > 1 and placement.fsdp_size(mesh) > 1:
+        raise ValueError(f"FSDP over {placement.fsdp_axis!r} with a model axis above 1 "
+                         f"(mesh {mesh.shape}) is {PT.FSDP_TP_ITEM}")
     inner = (ReduceScatter(pspecs, placement, mesh) if fsdp_on
              else Fp32Psum(mesh=mesh, pspecs=pspecs))
     if wire == "fp32":
@@ -410,10 +416,12 @@ def make_transport(*, mesh=None, placement: Placement | None = None,
 
 
 def _check_wire_axis_free(axis, mesh, placement: Placement | None) -> None:
-    """A wire axis must not double as a parameter-sharding axis."""
-    if _wire_size(mesh, axis) <= 1 or placement is None:
+    """A wire axis must not double as a parameter-sharding axis (the
+    model axis among them: its ranks hold different shards)."""
+    if _wire_size(mesh, axis) <= 1:
         return
-    if axis in (placement.fsdp_axis, placement.tp_axis):
+    if axis == PT.MODEL_AXIS or (placement is not None
+                                 and axis in (placement.fsdp_axis, placement.tp_axis)):
         raise ValueError(
             f"gradient wire axis {axis!r} is already claimed by the "
             f"placement ({placement}); give the wire its own data axis — "

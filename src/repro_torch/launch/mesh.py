@@ -6,8 +6,8 @@ in axis order, as ``jax.make_mesh`` lays devices out: ``(data, model)``,
 ``(data, fsdp, model)`` with an ``fsdp`` axis, and a leading ``pod``. Any
 data-parallel axes may exceed 1 together (``pods`` with ``data`` is the
 hierarchical pod-over-data composition). The ``model`` axis is innermost,
-so a model group is consecutive ranks; what runs on it is serving the
-dense families (``dist/partition.py::serve_refusal``).
+so a model group is consecutive ranks; the dense families serve and train
+on it (``dist/partition.py::serve_refusal``).
 
 :func:`make_local_mesh` creates the process group of every axis above 1 —
 the ranks that differ only along it: one model group per data coordinate,

@@ -59,7 +59,24 @@ single process a compressed wire runs its local arithmetic (one replica,
 no collective). The process group's backend follows the device (NCCL on
 CUDA, gloo on the CPU); ``--dist-backend gloo`` runs several ranks on one
 card, which NCCL refuses, with the collectives' payloads through host
-memory. ``--model-parallel`` raises: training on the model axis is ROADMAP A11.
+memory.
+
+Tensor parallelism: ``--model-parallel M`` adds the ``model`` axis
+(innermost: a model group is M consecutive ranks), and ``--pods ×
+--data-parallel × --model-parallel`` must equal the process count. Each
+rank holds its Megatron shards of the dense families' kernels (the
+reference's name rules, ``partition.param_specs``) and their optimizer
+state, runs its forward and backward with the model group's collectives
+(:mod:`repro_torch.dist.axes`), takes the loss on its vocab columns, and
+the gradient wire and mean ride the data and pod axes only; the fused
+update runs on each shard with its folded seed::
+
+    PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 4 -- \
+        python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
+        --device cpu --data-parallel 2 --model-parallel 2 --grad-wire bf16
+
+MoE, Mamba, RG-LRU and whisper on a model axis are ROADMAP A12, FSDP
+beside it A13; both raise.
 """
 from __future__ import annotations
 
@@ -122,7 +139,8 @@ def _parser() -> argparse.ArgumentParser:
                          "every this many steps")
     ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis: training there is ROADMAP A11")
+                    help="size of the model mesh axis (tensor parallelism of the dense "
+                         "families)")
     ap.add_argument("--fsdp-parallel", type=int, default=1,
                     help="size of a dedicated fsdp mesh axis (implies --fsdp)")
     ap.add_argument("--fsdp", action="store_true",
@@ -155,10 +173,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The launcher's flags; those of later ROADMAP items raise."""
+    """The launcher's flags; FSDP beside a model axis above 1 (ROADMAP
+    A13) raises."""
     args = _parser().parse_args(argv)
-    if args.model_parallel > 1:
-        raise ValueError(f"--model-parallel {args.model_parallel}: {PT.TRAIN_ITEM}")
+    if args.model_parallel > 1 and (args.fsdp or args.fsdp_parallel > 1):
+        raise ValueError(f"--model-parallel {args.model_parallel} with FSDP is "
+                         f"{PT.FSDP_TP_ITEM}")
     return args
 
 
@@ -183,17 +203,17 @@ class TrainRun:
     mesh: Mesh | None = None
 
 
-def _mesh(args) -> Mesh | None:
-    """The run's mesh by the reference's topology rule, or None for a
-    single process given none."""
-    dp, fs, pods = args.data_parallel, args.fsdp_parallel, args.pods
-    if MH.active() and dp * fs * pods == 1:
+def _topology(args) -> dict | None:
+    """The run's axis sizes by the reference's topology rule, or None for
+    a single process given none."""
+    dp, mp, fs, pods = args.data_parallel, args.model_parallel, args.fsdp_parallel, args.pods
+    if MH.active() and dp * mp * fs * pods == 1:
         # multi-process with no explicit topology: data-parallel over every
         # rank (a one-process mesh would leave the collectives unformed)
         dp = MH.process_count()
-    if dp * fs * pods == 1:
+    if dp * mp * fs * pods == 1:
         return None
-    return make_local_mesh(dp, args.model_parallel, fsdp=fs, pods=pods)
+    return dict(data=dp, model=mp, fsdp=fs, pods=pods)
 
 
 def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
@@ -213,8 +233,16 @@ def build(args, *, optimizer: Optimizer | None = None, cfg=None) -> TrainRun:
     if cfg.encdec:
         raise ValueError(f"{cfg.name}: the launcher trains on the token stream, and an "
                          "encoder-decoder takes an audio batch (src_embeds, tokens, labels)")
+    topo = _topology(args)
+    if topo is not None:
+        # what the model axis does not train (ROADMAP A12), before any process
+        # group is built
+        reason = PT.serve_refusal(cfg, Mesh((PT.DATA_AXIS, PT.MODEL_AXIS),
+                                            (topo["data"], topo["model"])))
+        if reason is not None:
+            raise ValueError(reason)
     params = R.init(cfg, args.seed, policy.param_dtype, device=device)
-    mesh = _mesh(args)
+    mesh = None if topo is None else make_local_mesh(**topo)
     wire_policy = (TR.WirePolicy.parse(args.wire_keep_fp32)
                    if args.wire_keep_fp32 is not None else None)
     placement = pspecs = None

@@ -126,7 +126,8 @@ def project_row_parallel(qa: QArith, x, w):
     process; under a model axis (:mod:`repro_torch.dist.axes`) ``x`` and
     ``w`` hold this rank's slice of the contracted features, and the model
     group's f32 partials are summed in rank order and rounded once, as the
-    reference's all-reduce of f32 partials is."""
+    reference's all-reduce of f32 partials is (its backward: the
+    replicated cotangent on this rank's partial)."""
     if axes.current() is None:
         return project(qa, x, w)
     return axes.row_parallel_sum(project_f32(qa, x, w), qa)
@@ -516,6 +517,7 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
     # the heads of this rank's kernels: all of them in one process, a model
     # axis's share under tensor parallelism (the decode kernels see G = Hq/Hkv)
     Hq, Hkv = p["wq"]["kernel"].shape[-1] // hd, p["wk"]["kernel"].shape[-1] // hd
+    x = axes.copy_to_model(x)       # the column-parallel group's shared input
     q = dense(qa, p["wq"], x).reshape(B, S, Hq, hd)
     k = dense(qa, p["wk"], x).reshape(B, S, Hkv, hd)
     v = dense(qa, p["wv"], x).reshape(B, S, Hkv, hd)

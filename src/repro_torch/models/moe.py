@@ -51,6 +51,10 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
 
 
 def mlp_apply(qa: QArith, p, x, act: str = "silu"):
+    """The dense MLP; under a model axis ``w_gate``/``w_up`` hold this
+    rank's columns (their shared input through ``axes.copy_to_model``) and
+    ``w_down`` its rows."""
+    x = axes.copy_to_model(x)
     g = project(qa, x, p["w_gate"])
     u = project(qa, x, p["w_up"])
     a = qa.silu(g) if act == "silu" else qa.gelu(g)

@@ -77,7 +77,9 @@ def init(cfg, seed: int, dtype=torch.float32, *, device=None):
 
 def forward_logits(qa: QArith, params, cfg, batch: dict, *, remat: bool = True,
                    attn_chunk: int = 1024):
-    """Teacher-forced logits (B,S,V) f32 of any family's batch."""
+    """Teacher-forced logits (B,S,V) f32 of any family's batch; under a
+    model axis this rank's vocab columns (B,S,V/size), which the loss
+    takes through :func:`repro_torch.dist.axes.vocab_parallel_xent`."""
     if cfg.encdec:
         enc_out = ED.encode(qa, params, cfg, batch["src_embeds"], remat=remat,
                             attn_chunk=attn_chunk)

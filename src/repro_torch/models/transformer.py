@@ -231,7 +231,8 @@ def _embed_tokens(qa: QArith, cfg, params, tokens):
     """Token ids (B,S) int32/int64 → their embedding rows; (B,S,D) float
     embeddings (the vlm frontend stub's patch and text embeddings) pass
     through. Both are rounded to the compute grid. Under a model axis the
-    embedding holds this rank's vocab rows (:func:`repro_torch.dist.axes.embed_lookup`)."""
+    embedding holds this rank's vocab rows (:func:`repro_torch.dist.axes.embed_lookup`,
+    whose gradient reaches this rank's rows)."""
     if tokens.dtype in (torch.int32, torch.int64):
         table = params["embed"]["embedding"]
         x = (table[tokens.long()] if axes.current() is None
@@ -247,16 +248,19 @@ def _embed_tokens(qa: QArith, cfg, params, tokens):
     return x
 
 
-def _logits(qa: QArith, cfg, params, x):
+def _logits(qa: QArith, cfg, params, x, *, gather: bool = True):
     """f32 logits over the vocabulary. Under a model axis the tied
-    embedding or the untied ``lm_head`` holds this rank's vocab columns,
-    and the ranks' logits are gathered in rank order."""
-    h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
+    embedding or the untied ``lm_head`` holds this rank's vocab columns
+    (the final norm's output, their shared input, through
+    ``axes.copy_to_model``): the ranks' logits gathered in rank order, or
+    with ``gather=False`` this rank's columns (training's loss,
+    ``axes.vocab_parallel_xent``)."""
+    h = axes.copy_to_model(L.norm_apply(qa, cfg.norm, params["final_norm"], x))
     if cfg.tie_embeddings:
         logits = qa.matmul_f32out(h, params["embed"]["embedding"].T)
     else:
         logits = qa.matmul_f32out(h, params["lm_head"]["kernel"])
-    return logits if axes.current() is None else axes.gather_logits(logits)
+    return logits if axes.current() is None or not gather else axes.gather_logits(logits)
 
 
 def _unstack(stack: PyTree, n: int) -> list[PyTree]:
@@ -269,17 +273,24 @@ def forward(qa: QArith, params, cfg, tokens, *, positions=None, mrope_positions=
             remat: bool = True, attn_chunk: int = 1024, logits: bool = True):
     """Full-sequence forward. tokens: (B,S) int or (B,S,D) embeddings;
     ``mrope_positions`` (3,B,S) for M-RoPE. Returns logits (B,S,V) f32,
-    or the final hidden state when ``logits=False``."""
+    or the final hidden state when ``logits=False``. Under a model axis
+    (training) the logits are this rank's vocab columns (B,S,V/size).
+
+    A remat group re-installs the model axis it was first run under: its
+    recompute runs inside the backward, which autograd runs on a thread of
+    its own on CUDA, where no axis is installed."""
     kinds, n_groups, rem = _layer_plan(cfg)
     B, Sq = tokens.shape[:2]
     if positions is None:
         positions = torch.arange(Sq, device=tokens.device)[None].expand(B, Sq)
     x = _embed_tokens(qa, cfg, params, tokens)
+    axis = axes.current()
 
     def body(x, p_group):
-        for i, kind in enumerate(kinds):
-            x, _ = block_apply(qa, cfg, kind, p_group[f"b{i}"], x, positions=positions,
-                               attn_chunk=attn_chunk, mrope_positions=mrope_positions)
+        with axes.model_axis(axis):
+            for i, kind in enumerate(kinds):
+                x, _ = block_apply(qa, cfg, kind, p_group[f"b{i}"], x, positions=positions,
+                                   attn_chunk=attn_chunk, mrope_positions=mrope_positions)
         return x
 
     for p in _unstack(params["layers"], n_groups):
@@ -287,7 +298,7 @@ def forward(qa: QArith, params, cfg, tokens, *, positions=None, mrope_positions=
     for i, kind in enumerate(rem):
         x, _ = block_apply(qa, cfg, kind, params["rem"][f"b{i}"], x, positions=positions,
                            attn_chunk=attn_chunk, mrope_positions=mrope_positions)
-    return _logits(qa, cfg, params, x) if logits else x
+    return _logits(qa, cfg, params, x, gather=False) if logits else x
 
 
 def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,

@@ -77,12 +77,16 @@ class WireKey(NamedTuple):
 class WireStats:
     """What the collectives moved, per rank: the gradient payloads (wire
     means and reduce-scatters) by carrier dtype, the reduce-scatters' share
-    of them, the FSDP gathers of the working copy by dtype, and the seconds
-    spent copying payloads between the card and the host (a gloo group
-    with CUDA tensors). A payload counts once, at the size this rank hands
-    the collective."""
+    of them, the share by dtype of the train step's f32 mean over the data
+    axes the wire does not reduce (``kind="mean"``: the mean the reference
+    leaves to GSPMD inside its backward, so its lowered module has no
+    collective for it), the FSDP gathers of the working copy by dtype, and
+    the seconds spent copying payloads between the card and the host (a
+    gloo group with CUDA tensors). A payload counts once, at the size this
+    rank hands the collective."""
     bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     scatter_bytes: int = 0
+    mean_bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     gather_bytes_by_dtype: dict = dataclasses.field(default_factory=dict)
     host_copy_s: float = 0.0
 
@@ -93,6 +97,14 @@ class WireStats:
         into[name] = into.get(name, 0) + nbytes
         if kind == "scatter":
             self.scatter_bytes += nbytes
+        elif kind == "mean":
+            self.mean_bytes_by_dtype[name] = self.mean_bytes_by_dtype.get(name, 0) + nbytes
+
+    def wire_bytes_by_dtype(self) -> dict:
+        """The gradient payloads less the step's mean over the data axes:
+        what the wire moved (the reference's explicit all-reduces)."""
+        out = {k: n - self.mean_bytes_by_dtype.get(k, 0) for k, n in self.bytes_by_dtype.items()}
+        return {k: n for k, n in out.items() if n}
 
 
 def init_residual(grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -174,11 +186,12 @@ def gather_parts(payload: torch.Tensor, group, stats: WireStats | None = None,
 
 
 
-def wire_mean(payload: torch.Tensor, group, stats: WireStats | None = None) -> torch.Tensor:
+def wire_mean(payload: torch.Tensor, group, stats: WireStats | None = None,
+              kind: str = "reduce") -> torch.Tensor:
     """The f32 mean of ``payload`` over ``group``: the rank-order f32 sum
     of the gathered payloads, rounded once to the payload's dtype, then
-    divided by n in f32 (see the module's note)."""
-    parts = gather_parts(payload, group, stats)
+    divided by n in f32 (see the module's note); counted as ``kind``."""
+    parts = gather_parts(payload, group, stats, kind)
     acc = parts[0].to(torch.float32, copy=True)
     for p in parts[1:]:
         acc += p.to(torch.float32)

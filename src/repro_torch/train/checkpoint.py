@@ -33,7 +33,8 @@ bf16 leaves are stored as their raw bits, ``uint16``, with the dtype tag
   :func:`snapshot` is *collective* when given the state's specs
   (``specs=``, one per leaf: :func:`repro_torch.dist.fsdp.train_state_specs`,
   and the ``mesh``): every process calls it at the same step, every leaf a
-  spec shards (FSDP shards, the gradient wire's residual rows) is gathered
+  spec shards (FSDP and tensor-parallel shards, the gradient wire's
+  residual rows) is gathered
   into the reference's full leaf on process 0
   (:func:`repro_torch.dist.fsdp.gather_full`; the residual rows into the
   reference's ``(n, *shape)`` stacks), and only process 0 copies the rest

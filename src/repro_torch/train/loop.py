@@ -39,11 +39,11 @@ the whole call is retried, as in the reference.
 
 **Multi-process** (``torch.distributed``, one process per rank, see
 :mod:`repro_torch.dist.multihost`): every process runs the loop in lock
-step. Checkpoint snapshots are collective (FSDP shards and the wire's
-residual rows are gathered into full leaves) and only process 0 writes,
-whatever the transport; a restore gives each rank its part of every full
-leaf, so a checkpoint resumes under another mesh (FSDP ↔ data-parallel ↔
-one process); all processes barrier around
+step. Checkpoint snapshots are collective (FSDP and tensor-parallel
+shards and the wire's residual rows are gathered into full leaves) and
+only process 0 writes, whatever the transport; a restore gives each rank
+its part of every full leaf, so a checkpoint resumes under another mesh
+(FSDP ↔ data-parallel ↔ data × model ↔ one process); all processes barrier around
 restore, and the restore step, at startup and on a spike rollback, is
 process 0's LATEST after its commits, broadcast (only process 0 has
 queued commits that move LATEST); at the end every process waits for

@@ -18,6 +18,13 @@ working copy (once per step, outside the microbatch loop), and
 f32 mean over the other data-parallel axes (the mean the reference leaves
 to GSPMD inside its backward) and the mean on the wire axis, in that
 order. Under FSDP the optimizer then updates this rank's shards.
+
+On a mesh with a ``model`` axis above 1 (tensor parallelism, Megatron's
+split of :mod:`repro_torch.dist.axes`) the gradient phase runs under that
+axis: each rank holds its shards of the column- and row-parallel kernels
+and the vocab-parallel embedding, its forward and backward run the model
+group's collectives, the loss is taken on its vocab columns, and the
+gradients land on its shards, which the data axes reduce as any leaf.
 """
 from __future__ import annotations
 
@@ -130,7 +137,10 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     shards, the optimizer updates them (a non-fused SR write rounds a shard
     with its leaf's Philox words at the shard's positions, so the result
     equals the data-parallel update's bit for bit), and ``grad_norm`` sums
-    the shards' squares over the FSDP group.
+    the shards' squares over the FSDP group. On a ``model`` axis above 1
+    ``state`` holds this rank's tensor-parallel shards (the transport's
+    ``pspecs``), the gradient phase runs under :func:`repro_torch.dist.axes.model_axis`,
+    and the SR writes and the norm treat the TP shards as FSDP's.
     ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; the transport's
     when not given) places this process: every rank is handed the same
     global batch and computes the rows of its replica, the loss is the mean
@@ -152,18 +162,20 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
     # size 1 that neither the wire nor the FSDP reduce-scatter reduces
     mean_groups = ([] if mesh is None else
                    [mesh.group(a) for a in transport.hint_axes(mesh)[0] if mesh.shape[a] > 1])
-    # under FSDP: the parameters' specs (the update's shards) and the group
-    # over which the gradient norm sums its shards
-    scatter_group = (mesh.group(transport.scatter_axis)
-                     if mesh is not None and transport.scatter_axis is not None else None)
-    shard_specs = transport.pspecs if scatter_group is not None else None
+    # the parameters' specs when they shard a leaf (FSDP, the model axis):
+    # the update's shards and the norm's
+    pspecs = getattr(transport, "pspecs", None) if mesh is not None else None
+    shard_specs = (pspecs if pspecs is not None
+                   and any(F.sharded_dims(s) for s in tree_leaves(pspecs)) else None)
+    axis = axes.for_mesh(mesh)
     qa = QArith(policy)
 
     def within(grads):
         for group in mean_groups:
             flat = tree_pop_leaves(grads)
             for i in range(len(flat)):
-                flat[i] = wire_mean(flat[i].to(torch.float32), group, transport.stats)
+                flat[i] = wire_mean(flat[i].to(torch.float32), group, transport.stats,
+                                    kind="mean")
             grads = tree_unflatten(grads, flat)
         return grads
 
@@ -174,7 +186,7 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         return softmax_xent(logits, batch["labels"])
 
     def _micro_grads(wc, leaves, paths, batch):
-        with torch.enable_grad():
+        with torch.enable_grad(), axes.model_axis(axis):
             loss = _loss(wc, batch)
             grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
         for i, (path, g) in enumerate(zip(paths, grads)):
@@ -220,17 +232,17 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         loss = loss.to(torch.float32)
         if split:
             loss = wire_mean(loss.reshape(1), mesh.dp_group())[0]
-        if scatter_group is None:
+        if shard_specs is None:
             grad_norm = _global_norm(grads)
         else:
-            grad_norm = _sharded_norm(grads, shard_specs, scatter_group)
+            grad_norm = _sharded_norm(grads, shard_specs, mesh)
         float(grad_norm)    # the sync: a device fault of this phase surfaces here
         return Gradients(grads, loss, grad_norm,
                          None if residuals is state.wire_residuals else residuals)
 
     def update(state: TrainState, g: Gradients, seed) -> tuple[TrainState, dict]:
         key, _ = keys(int(seed), int(state.step), transport.replica)
-        if scatter_group is not None:
+        if shard_specs is not None:
             # a shard's SR bits: its leaf's stream at the shard's positions
             key = ShardKey(key, F.shard_positions(state.params, shard_specs, mesh))
         lr = lr_schedule(state.step)
@@ -259,22 +271,25 @@ def _global_norm(tree) -> torch.Tensor:
                               for g in tree_leaves(tree)))
 
 
-def _sharded_norm(tree, pspecs, group) -> torch.Tensor:
-    """The global norm of gradients held as shards over ``group``: each
-    leaf's sum of squares, summed over the group's shards in rank order for
-    a sharded leaf and counted once for a replicated one, then over the
-    leaves in order; the same bits on every rank."""
+def _sharded_norm(tree, pspecs, mesh) -> torch.Tensor:
+    """The global norm of gradients held as shards (FSDP, the model axis):
+    each leaf's sum of squares, summed in rank order over the ranks that
+    hold its shards (those at coordinate 0 on every axis its spec does not
+    name) and counted once for a replicated leaf, then over the leaves in
+    order; the same bits on every rank."""
     with torch.no_grad():
         leaves = tree_leaves(tree)
         own = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in leaves])
-        parts = gather_parts(own, group)
-        sharded = [bool(F.sharded_dims(s)) for s in tree_leaves(pspecs)]
+        parts = gather_parts(own, None)           # every rank's, in rank order
+        coords = [mesh.coords(r) for r in range(len(parts))]
         total = None
-        for i, is_sharded in enumerate(sharded):
-            sq = parts[0][i].clone()
-            if is_sharded:
-                for p in parts[1:]:
-                    sq += p[i]
+        for i, spec in enumerate(tree_leaves(pspecs)):
+            named = set(spec.axes)
+            holders = [r for r, c in enumerate(coords)
+                       if all(n == 0 for a, n in c.items() if a not in named)]
+            sq = parts[holders[0]][i].clone()
+            for r in holders[1:]:
+                sq += parts[r][i]
             total = sq if total is None else total + sq
         return torch.sqrt(total)
 

@@ -5,6 +5,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.dist import axes
+
 __all__ = ["TrainState", "softmax_xent", "make_train_state"]
 
 PyTree = Any
@@ -35,7 +37,12 @@ def make_train_state(params: PyTree, optimizer, *, transport=None) -> TrainState
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, ignore: int = -1
                  ) -> torch.Tensor:
     """Mean next-token cross entropy. logits (B,S,V) f32, labels (B,S) int;
-    positions labelled ``ignore`` do not count."""
+    positions labelled ``ignore`` do not count. Under a model axis the
+    logits are this rank's vocab columns and the loss is
+    :func:`repro_torch.dist.axes.vocab_parallel_xent` (the same function
+    of the gathered logits)."""
+    if axes.current() is not None:
+        return axes.vocab_parallel_xent(logits, labels, ignore=ignore)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]

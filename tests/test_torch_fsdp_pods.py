@@ -1,6 +1,7 @@
 """The hierarchical pod-over-data composition on 4 gloo ranks, on the CPU:
 the reference's cases of ``tests/test_transport.py::test_two_pod_wires_match_single_device``
-with the model axis at 1 (training on it is ROADMAP A11).
+with the model axis at 1 (the model axis's pods cases:
+``tests/test_torch_dist_sweep.py``'s ``grad_wire`` run).
 
 * pods 2 × data 2 with the fp32 pod wire and with the bf16 compressed wire;
 * pods 2 × fsdp 2 with the bf16 wire over the FSDP inner (the

@@ -108,11 +108,14 @@ def test_default_placement_and_refusals():
         assert PT.default_placement(tmesh, fsdp=True).fsdp_axis == axis == \
             JPT.default_placement(jmesh, fsdp=True).fsdp_axis
         assert PT.default_placement(tmesh).fsdp_axis is None
-    # the model axis counts in the specs (serving) and is refused in training (A11)
+    # the model axis counts in the specs (serving and training, A11); FSDP
+    # beside it is refused (A13)
     tp = Mesh(("data", "model"), (1, 2))
     assert PT.Placement().tp_size(tp) == JPT.Placement().tp_size(tp) == 2
-    with pytest.raises(ValueError, match="A11"):
-        T.make_transport(mesh=tp)
+    assert type(T.make_transport(mesh=tp)).__name__ == "Fp32Psum"
+    with pytest.raises(ValueError, match="A13"):
+        T.make_transport(mesh=Mesh(("data", "model"), (2, 2)),
+                         placement=PT.default_placement(tp, fsdp=True), pspecs={})
 
 
 TRANSPORT_CASES = [

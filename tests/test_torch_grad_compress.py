@@ -243,8 +243,7 @@ def test_make_transport_refusals_match_reference():
         T.CompressedWire(fmt=TF.FP32)
     # FSDP (ported with A9): the placement sizes its axis as the reference's
     # does, ReduceScatter takes its specs, and an FSDP placement without
-    # specs leaves the plain inner under the wire in both packages; the
-    # model axis is a later item of the port
+    # specs leaves the plain inner under the wire in both packages
     smesh = SimpleNamespace(axis_names=("data", "fsdp", "model"),
                             shape={"data": 1, "fsdp": 2, "model": 1})
     assert PT.Placement(fsdp_axis="fsdp").fsdp_size(smesh) == \
@@ -255,10 +254,14 @@ def test_make_transport_refusals_match_reference():
     got = T.make_transport(placement=pl, wire="bf16")
     assert (type(got).__name__, type(got.inner).__name__) == \
         (type(want).__name__, type(want.inner).__name__) == ("CompressedWire", "Fp32Psum")
+    # on a model axis (A11) the wire rides the data axis, never the model's
     tp = Mesh(("data", "model"), (1, 2))
     assert PT.Placement().tp_size(tp) == 2
-    with pytest.raises(ValueError, match="A11"):
-        T.make_transport(mesh=tp, wire="bf16")
+    on_tp = T.make_transport(mesh=tp, wire="bf16")
+    assert (type(on_tp).__name__, on_tp.wire_axis, on_tp.wire_replicas) == \
+        ("CompressedWire", None, 1)
+    with pytest.raises(ValueError, match="already claimed"):
+        T.make_transport(mesh=tp, wire="bf16", wire_axis="model")
     # a compressed wire needs its residuals, in both packages
     with pytest.raises(ValueError, match="error-feedback residuals"):
         T.make_transport(wire="bf16").reduce({"w": torch.zeros(2)}, None, GC.WireKey(0, 0))

@@ -112,7 +112,8 @@ def test_runner_lists_the_reference_sections():
     ported = [name for name, mod in runner.SECTIONS if not mod.startswith("ROADMAP")]
     assert ported == ["fig2_theory", "table3_bottleneck", "table4_accuracy",
                       "fig5_tradeoff", "fig9_cancellation", "fig10_sub16",
-                      "fig11_combined", "fig12_fp16", "fsdp_memory", "grad_wire_sweep"]
+                      "fig11_combined", "fig12_fp16", "fsdp_memory", "grad_wire",
+                      "grad_wire_sweep"]
 
 
 def _run(*args):

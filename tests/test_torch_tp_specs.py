@@ -5,9 +5,10 @@
 (1, 2), (2, 2) and (4, 2) ``(data, model)`` meshes equal the reference's
 for every config of the registry, reduced. The reference's functions read
 only ``mesh.axis_names`` and ``mesh.shape``, so a stand-in mesh serves.
-Then the refusals of what the model axis does not serve (ROADMAP A12) or
-train (A11), the f32 plain version of ``qmatmul`` and the vocab-parallel
-collectives' local arithmetic.
+Then the refusals of what the model axis does not serve (ROADMAP A12),
+the training transport on it (A11; FSDP beside it is A13), the f32 plain
+version of ``qmatmul`` and the vocab-parallel collectives' local
+arithmetic.
 """
 from types import SimpleNamespace
 
@@ -151,13 +152,25 @@ def test_uneven_heads_and_paged_data_axes_refuse():
     assert PT.serve_refusal(cfg, Mesh(("data", "model"), (1, 2)), paged=True) is None
 
 
-def test_training_on_the_model_axis_refuses():
-    """A11: the gradient transport and the train launcher's flag."""
+def test_training_transport_on_the_model_axis():
+    """A11: on a 2 x 2 mesh the gradient transport reduces over the data
+    axis only (the step's mean; the bf16 wire on ``data``), a wire on the
+    model axis is refused, FSDP beside the model axis is A13, and the
+    train launcher takes ``--model-parallel``."""
     from repro_torch.launch import train as launch_train
-    with pytest.raises(ValueError, match="A11"):
-        T.make_transport(mesh=Mesh(("data", "model"), (2, 2)))
-    with pytest.raises(ValueError, match="A11"):
-        launch_train.parse_args(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    mesh = Mesh(("data", "model"), (2, 2))
+    tr = T.make_transport(mesh=mesh)
+    assert type(tr).__name__ == "Fp32Psum" and tr.wire_axis is None
+    assert tr.hint_axes(mesh) == (("data",), 2)
+    wire = T.make_transport(mesh=mesh, placement=PT.Placement(), wire="bf16")
+    assert (wire.wire_axis, wire.wire_replicas, wire.hint_axes(mesh)) == ("data", 2, ((), 1))
+    with pytest.raises(ValueError, match="already claimed"):
+        T.make_transport(mesh=mesh, wire="bf16", wire_axis="model")
+    with pytest.raises(ValueError, match="A13"):
+        T.make_transport(mesh=Mesh(("data", "fsdp", "model"), (1, 2, 2)),
+                         placement=PT.Placement(fsdp_axis="fsdp"), pspecs={})
+    assert launch_train.parse_args(["--reduced", "--device", "cpu",
+                                    "--model-parallel", "2"]).model_parallel == 2
 
 
 def test_serve_launcher_model_flags_need_processes():

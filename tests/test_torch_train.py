@@ -316,10 +316,6 @@ def test_launcher_needs_a_card_or_the_cpu_flag():
         launch_train.build(args)
 
 
-# the flags of the dist slice's later items, and the item each names
-LATER_ITEMS = {"--model-parallel": "A11"}
-
-
 @pytest.mark.parametrize("flags,slice_", [
     # ported with checkpointed training (slice_ None) and with the dist slice
     (["--ckpt-dir", "/nonexistent"], None),
@@ -330,16 +326,11 @@ LATER_ITEMS = {"--model-parallel": "A11"}
 ])
 def test_launcher_refuses_flags_of_later_slices(flags, slice_):
     """The dist slice's flags parse (a mesh that needs more processes than
-    the run has raises when the run is built), FSDP's (A9) among them; the
-    model axis's flag raises naming its ROADMAP item."""
+    the run has raises when the run is built), FSDP's (A9) among them."""
     argv = ["--reduced", "--device", "cpu", *flags]
     if slice_ is None:
         cfg = launch_train.loop_config(launch_train.parse_args(argv))
         assert (cfg.ckpt_dir, cfg.spike_factor) in (("/nonexistent", None), (None, 3.0))
-        return
-    if flags[0] in LATER_ITEMS:
-        with pytest.raises(ValueError, match=LATER_ITEMS[flags[0]]):
-            launch_train.parse_args(argv)
         return
     args = launch_train.parse_args(argv)
     value = getattr(args, flags[0][2:].replace("-", "_"))
@@ -350,16 +341,27 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
 
 
 @pytest.mark.parametrize("flags,item", [(["--model-parallel", "2"], "A11"),
-                                        (["--fsdp-parallel", "2"], "A9")])
+                                        (["--fsdp-parallel", "2"], "A9"),
+                                        (["--model-parallel", "2", "--fsdp"], "A13"),
+                                        (["--model-parallel", "2", "--fsdp-parallel", "2"],
+                                         "A13"),
+                                        (["--model-parallel", "2", "--arch", "mixtral-8x22b"],
+                                         "A12")])
 def test_launcher_refuses_the_later_dist_items(flags, item):
-    """Training on the model axis (A11) is refused; FSDP's ``--fsdp-parallel`` (ported
-    with A9) parses, and a single process cannot build its 2-process mesh."""
+    """The model axis's ``--model-parallel`` (ported with A11) and FSDP's
+    ``--fsdp-parallel`` (A9) parse, and a single process cannot build their
+    2-process mesh; FSDP beside a model axis (A13) and the families the
+    model axis does not train (A12) are refused, before any mesh."""
     argv = ["--reduced", "--device", "cpu", *flags]
-    if item == "A11":
+    if item == "A13":
         with pytest.raises(ValueError, match=item):
             launch_train.parse_args(argv)
         return
     args = launch_train.parse_args(argv)
-    assert args.fsdp_parallel == 2
+    if item == "A12":
+        with pytest.raises(ValueError, match=item):
+            launch_train.build(args)
+        return
+    assert (args.model_parallel if item == "A11" else args.fsdp_parallel) == 2
     with pytest.raises(ValueError, match="needs 2 processes"):
         launch_train.build(args)
