@@ -164,7 +164,9 @@ Phases, each printing its lines (a failed check exits non-zero):
    ``torch.matmul``'s (nearest: no single call rounds by SR; the port
    never calls it); then the f32-result entry (``qmatmul_f32``, the
    row-parallel partials of the tp phase) at the row-parallel shapes of
-   qwen2.5-3b at model 2 for 8 lanes and one training shape: rounded to
+   qwen2.5-3b at model 2 for 8 lanes, one training shape, and those of the
+   tp-families phase (mixtral's per-expert down product at 16 rows, K =
+   8192; falcon-mamba's ``x_proj``, N = 288, and ``out_proj``): rounded to
    bf16 ``torch.equal`` to the bf16 entry on both paths, rows bitwise at
    1, 8, 256 and 4096 rows, within the f32 accumulation bound of its plain
    version; device time beside its bound, the bf16 entry's, the plain
@@ -175,7 +177,7 @@ Phases, each printing its lines (a failed check exits non-zero):
    re-seeded generator;
 10. train (main path of training): full-width qwen2.5-3b trained through
    the launcher's own functions, ``--policy bf16_sr_kahan --fused-update
-   --batch 2 --seq 2048``, 8 steps at lr 3e-3: every loss finite, the
+   --batch 2 --seq 2048``, 8 steps at lr 1e-4: every loss finite, the
    last below step 0's, ``fused_adamw`` launched once per parameter leaf
    per step; ms per step, tokens per second, the optimizer's ms per step
    (CUDA events) beside its bound, peak device memory; then one more step
@@ -283,12 +285,13 @@ Phases, each printing its lines (a failed check exits non-zero):
 16. tp (ROADMAP A10's serving part; launched beside the paper sections,
     checked before the dist phase): ranks sharing this card over gloo
     through ``repro_torch.launch.dist_launch`` (``chip_smoke.py
-    --tp-worker``): (a) 1 data x 2 model, full-width qwen2.5-3b (4 of its
+    --tp-worker``): (a) 1 data x 2 model, full-width qwen2.5-3b (2 of its
     layers), the serve phase's 12 requests on 8 slots, eager steps (no
     graphs under a model group): both ranks' tokens bitwise equal, engine
     == lock-step ``generate`` under the same mesh on the shortest request,
     the first prefill step's logits within 0.05 of the 1-rank step's
-    largest |logit|, 24 ``qmatmul_f32`` and 12 decode launches per step;
+    largest |logit|, 2 ``qmatmul_f32`` and 1 decode launch per layer and
+    step;
     prints the token agreement with a 1-rank engine at the same depth,
     weight and KV bytes per rank against one rank's, ms per eager step and
     the model axis's collective and host-copy ms per step; (b) paged 1 x 2
@@ -317,7 +320,28 @@ Phases, each printing its lines (a failed check exits non-zero):
     process and under 1 x 2 equal to the 2 x 2 ranks' parts; prints ms per
     step, the model axis's collectives, their ms and host-copy ms per
     step, bytes and peak GiB per rank. ``tools/port_tp_train.py`` runs
-    this phase alone, then 1 x 2 at the whole 36 layers.
+    this phase alone, then 1 x 2 at the whole 36 layers;
+18. tp-families (ROADMAP A12 item 1, the MoE and Mamba families on the
+    model axis; launched on the tp phase's thread, its training beside
+    phase 16's (a) and its serving beside (b) and (c), checked after phase
+    17): 1 data x 2 model ranks sharing this card over
+    gloo, at published widths, depth cut. Serving on the families' stream
+    (12 requests of 24 tokens, 8 slots, eager steps): mixtral-8x22b at 2
+    layers (and paged), llama4-scout-17b-a16e at 1 (its shared expert),
+    falcon-mamba-7b at 8 (the sharded Mamba cache): both ranks' tokens
+    bitwise equal, paged == contiguous, the counted collectives per step
+    (MoE 2 per layer, 3 with the shared expert; Mamba 3: the ``in_proj``
+    exchange, ``x_proj``, ``out_proj``; + the embedding and the logits),
+    ``qmatmul_f32`` once per expert and ``wo`` (MoE) or twice (Mamba) per
+    layer and step; prints the token agreement with a 1-rank engine at the
+    same depth (C18). Training beside it (``bf16_sr_kahan --fused-update``,
+    batch 1 x 512, 3 steps): mixtral at 1 layer, falcon-mamba at 2, each
+    beside a 1-process run: ranks bitwise equal on every replicated leaf
+    and the losses, each loss within 0.05 of one process's, one shard's
+    ``fused_adamw`` == its plain version with the folded seed, bytes per
+    rank <= 0.53 of one process's. Prints ms per step, collectives, their
+    ms and host-copy ms, peak GiB per rank. ``tools/port_tp_families.py``
+    runs this phase alone.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -395,8 +419,14 @@ ADAMW_PROBE_BYTES = {"loads": 5 * 2, "loads+stores": 5 * 2 + 4 * 2}
 HP_ADAMW = dict(lr=1e-3, b1=0.8984375, b2=0.99609375, eps=1e-8, wd=0.01,
                 c1=0.8984375, c2=0.99609375)
 HP_SGD = dict(lr=0.1, momentum=0.9, wd=1e-4)
+# the train cell. lr 1e-4: the launcher warms up over one step at 8 steps,
+# and Adam's first full step moves every weight by ~lr along its gradient's
+# sign, a layer's output by ~lr * d_model; at 3e-3 the loss spiked ~2x at
+# step 2 or 3 on both token streams the port has drawn (25.37 on numpy's
+# uniforms, 20.73 on the reference's), and on the reference's it ended
+# above its start
 TRAIN_ARGV = ["--arch", "qwen2.5-3b", "--policy", "bf16_sr_kahan", "--fused-update",
-              "--batch", "2", "--seq", "2048", "--steps", "8", "--lr", "3e-3",
+              "--batch", "2", "--seq", "2048", "--steps", "8", "--lr", "1e-4",
               "--seed", "0", "--device", "cuda"]
 # the ckpt phase: the train cell at full width, depth cut to CKPT_LAYERS
 CKPT_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
@@ -3248,6 +3278,7 @@ def _paper_parity(card: str):
     gradient."""
     import torch
     from repro_torch.benchmarks.common import dlrm_loss
+    from repro_torch.core import jrandom
     from repro_torch.core.policy import get_policy
     from repro_torch.core.qarith import QArith
     from repro_torch.data.synthetic import dlrm_batches, lm_batches
@@ -3260,8 +3291,8 @@ def _paper_parity(card: str):
     from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
     policy = get_policy("bf16_sr")
-    params = init_params_for_policy(tree_map(lambda w: w.cuda(), dlrm_init(
-        torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL)), policy)
+    params = init_params_for_policy(dlrm_init(jrandom.PRNGKey(0), DLRM_KAGGLE_SMALL,
+                                              device="cuda"), policy)
     leaves = [w.detach().requires_grad_(True) for w in tree_leaves(params)]
     batch = next(dlrm_batches(DLRM_KAGGLE_SMALL, 128, seed=1, device="cuda"))
     grads = tree_unflatten(params, list(torch.autograd.grad(
@@ -3832,16 +3863,16 @@ def _fsdp_drift(run, state, kept) -> list | None:
     return drift if MH.is_primary() else None
 
 
-def fsdp_shard_check(run, state, args) -> dict:
+def fsdp_shard_check(run, state, args, leaf: str = DIST_CHECK_LEAF) -> dict:
     """One shard's shard-local fused AdamW on the card against its plain
-    version with the same folded seed: the check leaf's shard of this rank
-    (w, m, v, c as the run left them; a seeded gradient), its seed
-    ``_mix(leaf seed, shard index)`` as ``optim/fused.py`` folds it."""
+    version with the same folded seed: ``leaf``'s shard of this rank (w, m,
+    v, c as the run left them; a seeded gradient), its seed ``_mix(leaf
+    seed, shard index)`` as ``optim/fused.py`` folds it."""
     import torch
     from repro_torch.kernels.fused_adamw import fused_adamw, fused_adamw_ref
     from repro_torch.optim.base import StepKey, _mix
     from repro_torch.tree import tree_leaves, tree_paths
-    i = tree_paths(state.params).index(DIST_CHECK_LEAF)
+    i = tree_paths(state.params).index(leaf)
     spec = tree_leaves(run.transport.pspecs)[i]
     idx = 0
     for ax in spec.axes:
@@ -3858,7 +3889,7 @@ def fsdp_shard_check(run, state, args) -> dict:
     plain = fused_adamw_ref(*(t.cpu() for t in (w, m, v, g)), c=c.cpu(), seed=seed,
                             stochastic=True, **HP_ADAMW)
     equal = all(torch.equal(a.cpu(), b) for a, b in zip(card, plain))
-    return {"leaf": DIST_CHECK_LEAF, "shape": list(w.shape), "spec": list(spec),
+    return {"leaf": leaf, "shape": list(w.shape), "spec": list(spec),
             "index": idx, "equal": equal}
 
 
@@ -4377,7 +4408,7 @@ def _fsdp_checks(card: str, fres: dict, dp_fused: list, fkept: int, fat: int,
 
 
 # ROADMAP A10's serving part: tensor-parallel serving on (data, model) meshes
-TP_SERVE_LAYERS = 4       # (a)'s depth cut of full-width qwen2.5-3b (12 until PR 25)
+TP_SERVE_LAYERS = 2       # (a)'s depth cut of full-width qwen2.5-3b, for the script's time
 TP_LAYERS = 2             # (b)'s and (c)'s depth cut of full-width qwen2.5-3b
 TP_GENERATE = 1           # (a): requests (the shortest) lock-step generate re-derives
 # (b): the serve-paged stream's first 10 requests on a pool of 32 pages of
@@ -4396,14 +4427,37 @@ QMATMUL_F32_SHAPES = {"tp wo, 8 lanes": (8, 2048, 1024),
                       "tp w_down, 8 lanes": (8, 2048, 5504),
                       "mlp down, 4096 rows": (4096, 2048, 11008)}
 QMATMUL_F32_ROW = "tp w_down, 8 lanes"     # the kernels line's shape
+# ... and the MoE and Mamba families' row-parallel partials at model 2 for
+# one serve step's 8 lanes (ROADMAP A12): mixtral's per-expert down product
+# (decode routes with capacity T*k = 16 rows per expert; K = d_ff / 2),
+# falcon-mamba's x_proj (N = dt_rank + 2 * ssm_state = 288) and out_proj
+QMATMUL_F32_SHAPES.update({"mixtral we_down, 16 rows": (16, 6144, 8192),
+                           "mamba x_proj, 8 lanes": (8, 288, 4096),
+                           "mamba out_proj, 8 lanes": (8, 4096, 4096)})
+
+# the tp-families phase (ROADMAP A12, item 1): the MoE and Mamba families on
+# 1 data x 2 model ranks sharing the card over gloo, at published widths,
+# depth cut. Serving: (arch, layers, paged rerun) on the families' stream
+TP_FAM_SERVE = (("falcon-mamba-7b", 8, False), ("llama4-scout-17b-a16e", 1, False),
+                ("mixtral-8x22b", 2, True))
+# training: (arch, layers, the leaf whose shard's fused_adamw is held to its
+# plain version), each beside a 1-process run of the same steps
+TP_FAM_TRAIN = (("mixtral-8x22b", 1, "layers.b0.mixer.wk.kernel"),
+                ("falcon-mamba-7b", 2, "layers.b0.mixer.x_proj.kernel"))
+# (lr 1e-4: at 3e-3 both one-layer models' losses rise ~3x by step 2, in one
+# process as on 1 x 2)
+TP_FAM_TRAIN_ARGV = ["--policy", "bf16_sr_kahan", "--fused-update", "--batch", "1",
+                     "--seq", "512", "--steps", "3", "--lr", "1e-4", "--seed", "0",
+                     "--device", "cuda"]
+TP_FAM_TRAIN_STEPS = 3
 
 
-def _tp_model(spec: dict, layers: int | None):
-    """The tp runs' model: full-width qwen2.5-3b (``layers`` cut), or the
+def _tp_model(spec: dict, layers: int | None, arch: str = "qwen2.5-3b"):
+    """The tp runs' model: full-width ``arch`` (``layers`` cut), or the
     reduced config in a CPU rehearsal."""
     from repro_torch.core.policy import get_policy
     from repro_torch.models import registry as R
-    cfg = R.get_config("qwen2.5-3b")
+    cfg = R.get_config(arch)
     if spec.get("reduced"):
         cfg = cfg.reduced()
     elif layers is not None:
@@ -4481,7 +4535,59 @@ def tp_worker(spec_path: str) -> None:
         return local
 
     try:
-        if spec["scenario"] == "quad":
+        if spec["scenario"] == "fam-serve":
+            import torch.distributed as tdist
+            mesh = make_local_mesh(1, 2)
+            axis = axes.for_mesh(mesh)
+            for arch, layers, paged in TP_FAM_SERVE:
+                # rank 1 draws the whole model once rank 0 has sharded its
+                # own: both at once would hold two whole models on the card
+                if rank == 1:
+                    tdist.barrier()
+                params, cfg, policy = _tp_model(spec, layers, arch)
+                stream = family_stream(cfg.vocab)
+                res = {"n_layers": cfg.n_layers, "weights": [nbytes(params)]}
+                if rank == 0:
+                    # the 1-rank engine's tokens at this depth (CUDA graphs);
+                    # rank 1 waits at the next collective
+                    one = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
+                                 fused_decode=True, device=dev)
+                    res["one_tokens"] = tokens_of(serve_stream(one, stream))
+                    del one
+                params = shard(params, cfg, mesh)
+                if rank == 0:
+                    tdist.barrier()
+                res["weights"].append(nbytes(params))
+                eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
+                             fused_decode=True, device=dev, mesh=mesh)
+                sync()
+                calls0, s0, h0 = axis.stats.calls, axis.stats.seconds, axis.stats.host_copy_s
+                mods = _tp_counts()
+                r = serve_stream(eng, stream)
+                res.update(launches=_tp_read(mods), tokens=tokens_of(r), steps=r.calls,
+                           seconds=r.seconds, finished=eng.stats.finished,
+                           graphs=len(eng.graphs), collectives=axis.stats.calls - calls0,
+                           collective_s=axis.stats.seconds - s0,
+                           host_copy_s=axis.stats.host_copy_s - h0)
+                del eng
+                if paged:
+                    eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
+                                 fused_decode=True, device=dev, mesh=mesh, paged=True,
+                                 page_size=PAGE)
+                    mods = _tp_counts()
+                    r = serve_stream(eng, stream)
+                    res["paged"] = dict(tokens=tokens_of(r), steps=r.calls,
+                                        seconds=r.seconds, launches=_tp_read(mods))
+                    del eng
+                sync()
+                res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
+                                   if dev == "cuda" else 0.0)
+                out[arch] = res
+                del params
+                if dev == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+        elif spec["scenario"] == "quad":
             mesh = make_local_mesh(2, 2)
             params, cfg, policy = _tp_model(spec, TP_LAYERS)
             params = shard(params, cfg, mesh)
@@ -4630,9 +4736,21 @@ def tp_train_launches(run: dict, start) -> None:
     run["train-quad"], run["train-pair"] = [_tp_wait(x) for x in launches]
 
 
+def tp_families_launches(run: dict, start) -> None:
+    """The tp-families phase's launches alone, into ``run``: training and
+    serving on 2 ranks each, side by side (mixtral's one-process training
+    state peaks at 38.55 GiB, the serving ranks at ~21 GiB: serving draws
+    mixtral last, one rank at a time). ``start(scenario, n)`` starts one
+    (:func:`_tp_start`); ``chip_smoke.py`` itself runs them beside the tp
+    serving launches (:func:`tp_start`)."""
+    launches = [start("train-fam", 2), start("fam-serve", 2)]
+    run["train-fam"], run["fam-serve"] = [_tp_wait(x) for x in launches]
+
+
 def tp_start(*, rehearsal: bool = False) -> dict:
-    """Start the tp phase's launches on a thread of this process: (a), then
-    (b) and (c) side by side; :func:`phase_tp` joins it. A launch still
+    """Start the tp phase's launches on a thread of this process: (a)
+    beside phase 18's training, then (b) and (c) beside its serving, then
+    phase 17's; :func:`phase_tp` joins it. A launch still
     running when this process exits is ended (its launcher forwards the
     SIGTERM to its ranks)."""
     import atexit
@@ -4649,9 +4767,16 @@ def tp_start(*, rehearsal: bool = False) -> dict:
 
     def go():
         try:
+            # phase 18's launches ride beside phase 16's: its training (one
+            # process of 1-layer mixtral peaks at 38.55 GiB) beside (a), its
+            # serving (~21 GiB) beside (b) and (c)
+            fam = start("train-fam", 2)
             run["full"] = _tp_wait(start("full", 2))
+            run["train-fam"] = _tp_wait(fam)
+            fam = start("fam-serve", 2)
             launches = [start(name, n) for name, n in (("cut", 2), ("quad", 4))]
             run["cut"], run["quad"] = [_tp_wait(x) for x in launches]
+            run["fam-serve"] = _tp_wait(fam)
             tp_train_launches(run, start)
         except BaseException as e:      # check() exits: re-raised by phase_tp
             run["error"] = e
@@ -4804,11 +4929,14 @@ TP_WHOLE_ARGV = TRAIN_ARGV[:TRAIN_ARGV.index("--steps")] + [
 
 
 def _tp_argv(base: list, spec: dict) -> list:
-    """``base`` on the card, or reduced on the CPU in a rehearsal."""
+    """``base`` on the card, or reduced on the CPU in a rehearsal (at most
+    64 tokens per row)."""
     if spec["device"] == "cuda":
         return list(base)
     argv = list(base)
     argv[argv.index("--device") + 1] = "cpu"
+    at = argv.index("--seq") + 1
+    argv[at] = str(min(int(argv[at]), 64))
     return argv + ["--reduced"]
 
 
@@ -4878,9 +5006,9 @@ def tp_train_worker(spec: dict) -> dict:
     def read():
         return {k: m.LAUNCHES for k, m in counts.items()}
 
-    def build(base, extra):
+    def build(base, extra, cut=layers):
         args = LT.parse_args(_tp_argv(base, spec) + extra)
-        return args, LT.build(args, cfg=_dist_cfg(args, layers))
+        return args, LT.build(args, cfg=_dist_cfg(args, cut))
 
     def train(args, run):
         """The run's steps: losses, step walls (the last one up to the run's
@@ -4917,7 +5045,34 @@ def tp_train_worker(spec: dict) -> dict:
         n_res = len(CK.flatten(state.wire_residuals))
         return [digest(t) for t in leaves[:len(leaves) - n_res]]
 
-    if scenario == "pair":
+    if scenario == "fam":
+        # the tp-families phase's training: on rank 0 a 1-process run per
+        # arch before this rank joins the group (rank 1 waits), then 1 x 2
+        for arch, cut, _ in TP_FAM_TRAIN:
+            out[arch] = res = {}
+            if rank == 0:
+                args1, run1 = build(TP_FAM_TRAIN_ARGV + ["--arch", arch],
+                                    ["--num-processes", "1"], cut)
+                res["one_bytes"] = F.per_device_bytes((run1.state.params, run1.state.opt_state))
+                _, res["one"] = train(args1, run1)
+                del run1, _
+                if card:
+                    torch.cuda.empty_cache()
+        for arch, cut, leaf in TP_FAM_TRAIN:
+            res = out[arch]
+            args, run = build(TP_FAM_TRAIN_ARGV + ["--arch", arch], TP_TRAIN_PAIR, cut)
+            res["bytes"] = F.per_device_bytes((run.state.params, run.state.opt_state))
+            res["n_layers"] = run.cfg.n_layers
+            state, res["a"] = train(args, run)
+            tr = run.transport
+            specs = F.flat_specs(F.train_state_specs(state, tr.pspecs, tr))[1:]
+            res["a"].update(digests=digests(state), specs=[list(s) for s in specs],
+                            n_leaves=len(tree_leaves(state.params)),
+                            plain_check=fsdp_shard_check(run, state, args, leaf=leaf))
+            del run, state
+            if card:
+                torch.cuda.empty_cache()
+    elif scenario == "pair":
         if rank == 0:
             # (a)'s one-process run, before this rank joins the group
             args1, run1 = build(TP_TRAIN_ARGV, ["--num-processes", "1"])
@@ -5152,6 +5307,145 @@ def phase_tp_train(card: str, run: dict, *, rehearsal: bool = False) -> dict:
     return launches
 
 
+def _fam_per_step(cfg) -> tuple[int, dict]:
+    """One tp serve step's model-axis collectives and kernel launches of
+    the MoE and Mamba families at model 2: per MoE layer the row-parallel
+    sums of ``wo`` and the experts' down products (and the shared expert's
+    ``w_down``), each expert's down product and ``wo`` on ``qmatmul_f32``,
+    one decode launch; per Mamba layer the ``in_proj`` exchange and the
+    ``x_proj`` and ``out_proj`` sums, both on ``qmatmul_f32``; then the
+    embedding and the logits gathers."""
+    if cfg.family == "ssm":
+        return 3 * cfg.n_layers + 2, {"qmatmul_f32": 2 * cfg.n_layers}
+    shared = 1 if cfg.shared_expert else 0
+    return ((2 + shared) * cfg.n_layers + 2,
+            {"qmatmul_f32": (1 + cfg.n_experts + shared) * cfg.n_layers,
+             "decode_attention": cfg.n_layers})
+
+
+def phase_tp_families(card: str, run: dict, *, rehearsal: bool = False) -> dict:
+    """ROADMAP A12, item 1 on the card: the MoE and Mamba families on 1
+    data x 2 model ranks sharing the card over gloo (``--tp-worker``
+    scenarios ``train-fam`` and ``fam-serve``), at published
+    widths, depth cut (``TP_FAM_SERVE``, ``TP_FAM_TRAIN``).
+
+    Serving (the families' stream: 8 slots, max_len 256, 12 greedy
+    requests of 24 tokens, fused decode, eager steps): both ranks' tokens
+    bitwise equal; the share of tokens equal to a 1-rank engine's at the
+    same depth (CUDA graphs; printed, ROADMAP C18); mixtral paged ≡
+    contiguous; per step the counted collectives and ``qmatmul_f32`` and
+    decode launches (:func:`_fam_per_step`); weights per rank against one
+    rank's. Training (``bf16_sr_kahan --fused-update``, batch 1 x 512, 3
+    steps, beside a 1-process run of the same steps): both ranks bitwise
+    equal on every replicated leaf (the router, conv, ``A_log``,
+    ``D_skip``, the norms) and on the losses; each loss within
+    ``TP_TRAIN_LOSS_BAR`` of one process's; one shard's ``fused_adamw`` ==
+    its plain version with the folded seed; weights and state per rank at
+    most ``TP_TRAIN_BYTES_BAR`` of one process's; one ``fused_adamw``
+    launch per local leaf per step. Prints ms per step, collectives, their
+    ms and host-copy ms, peak GiB per rank. Returns the runs' launches
+    (serving: rank 0's; ``fused_adamw``: both ranks')."""
+    import numpy as np
+    from repro_torch.models import registry as R
+    serve, serve_wall = run["fam-serve"]
+    train, train_wall = run["train-fam"]
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for arch, _, paged in TP_FAM_SERVE:
+        r0, r1 = serve[0][arch], serve[1][arch]
+        check(r0["tokens"] == r1["tokens"] and r0["launches"] == r1["launches"],
+              f"[tp-families] {arch}: the ranks' tokens or launches differ")
+        check(r0["finished"] == 12 and r0["graphs"] == 0,
+              f"[tp-families] {arch}: finished {r0['finished']}/12, graphs {r0['graphs']}")
+        cfg = R.get_config(arch)
+        cfg = cfg.reduced() if rehearsal else dataclasses.replace(cfg, n_layers=r0["n_layers"])
+        coll, per_kernel = _fam_per_step(cfg)
+        check(r0["collectives"] == coll * r0["steps"],
+              f"[tp-families] {arch}: {r0['collectives']} collectives in {r0['steps']} steps, "
+              f"expected {coll} per step")
+        per = {k: n / r0["steps"] for k, n in r0["launches"].items() if n}
+        check(rehearsal or all(per.get(k) == n for k, n in per_kernel.items()),
+              f"[tp-families] {arch}: launches per step {per}, expected {per_kernel}")
+        add(r0["launches"])
+        one = r0["one_tokens"]
+        same = sum(int(np.sum(np.asarray(r0["tokens"][rid]) == np.asarray(t)))
+                   for rid, t in one.items())
+        total = sum(len(t) for t in one.values())
+        firsts = sum(r0["tokens"][rid][0] == t[0] for rid, t in one.items())
+        if paged:
+            check(r0["paged"]["tokens"] == r0["tokens"] == r1["paged"]["tokens"],
+                  f"[tp-families] {arch}: paged 1 x 2 != contiguous 1 x 2")
+            add(r0["paged"]["launches"])
+        w1, w2 = r0["weights"]
+        ms = 1e3 * r0["seconds"] / r0["steps"]
+        print(f"[tp-families] serve {arch} on {card}: {r0['n_layers']} layers, 1 x 2 over "
+              f"gloo, {r0['steps']} eager steps in {r0['seconds']:.2f}s -> {ms:.2f} ms per "
+              f"step; collectives {coll} per step taking "
+              f"{1e3 * r0['collective_s'] / r0['steps']:.2f} ms, of which host copies "
+              f"{1e3 * r0['host_copy_s'] / r0['steps']:.2f} ms; launches per step {per}; "
+              f"weights {w2 / 2**30:.3f} GiB per rank ({w2 / w1:.4f} of one rank's "
+              f"{w1 / 2**30:.3f}); peak {r0['peak_gib']:.2f} GiB per rank; ranks bitwise; "
+              f"tokens equal to the 1-rank engine's (graphs): {same}/{total}, first tokens "
+              f"{firsts}/{len(one)} (C18)"
+              + (f"; paged ({r0['paged']['steps']} steps, "
+                 f"{1e3 * r0['paged']['seconds'] / r0['paged']['steps']:.2f} ms per step) == "
+                 f"contiguous" if paged else ""))
+    for arch, _, leaf in TP_FAM_TRAIN:
+        t0, t1 = train[0][arch], train[1][arch]
+        a0, a1 = t0["a"], t1["a"]
+        check(a0["losses"] == a1["losses"], f"[tp-families] train {arch}: the ranks' "
+              f"losses differ: {a0['losses']} {a1['losses']}")
+        n_rep = 0
+        for i, spec in enumerate(a0["specs"]):
+            if "model" not in spec:
+                n_rep += 1
+                check(a0["digests"][i] == a1["digests"][i],
+                      f"[tp-families] train {arch}: replicated leaf {i} differs between "
+                      f"the ranks")
+        one = t0["one"]["losses"]
+        gap = max(abs(x - y) for x, y in zip(a0["losses"], one))
+        check(len(one) == len(a0["losses"]) == TP_FAM_TRAIN_STEPS
+              and gap <= TP_TRAIN_LOSS_BAR,
+              f"[tp-families] train {arch}: losses {a0['losses']} against one process's "
+              f"{one} (bar {TP_TRAIN_LOSS_BAR})")
+        for res in (t0, t1):
+            check(res["a"]["plain_check"]["equal"],
+                  f"[tp-families] train {arch}: the {leaf} shard's fused_adamw != its plain "
+                  f"version with the folded seed")
+            n = res["a"]["n_leaves"] * TP_FAM_TRAIN_STEPS
+            check(rehearsal or res["a"]["launches"]["fused_adamw"] == n,
+                  f"[tp-families] train {arch}: launches {res['a']['launches']} for {n} "
+                  f"leaf steps")
+            add({"fused_adamw": res["a"]["launches"]["fused_adamw"]})
+        ratio = max(t0["bytes"], t1["bytes"]) / t0["one_bytes"]
+        check(ratio <= TP_TRAIN_BYTES_BAR, f"[tp-families] train {arch}: bytes per rank "
+              f"{ratio:.4f} of one process's (bar {TP_TRAIN_BYTES_BAR})")
+        ms = [1e3 * sum(r["a"]["step_s"][1:]) / max(len(r["a"]["step_s"]) - 1, 1)
+              for r in (t0, t1)]
+        one_ms = 1e3 * sum(t0["one"]["step_s"][1:]) / max(len(t0["one"]["step_s"]) - 1, 1)
+        print(f"[tp-families] train {arch} on {card}: {t0['n_layers']} layers, 1 x 2 over "
+              f"gloo, batch 1 x 512, bf16_sr_kahan fused: losses "
+              f"{[round(x, 4) for x in a0['losses']]} (1 process "
+              f"{[round(x, 4) for x in one]}, within {gap:.2e}, bar {TP_TRAIN_LOSS_BAR}); "
+              f"ranks bitwise on {n_rep} replicated leaves and the losses; the {leaf} "
+              f"shard's fused_adamw == plain (folded seed); steps 1-{TP_FAM_TRAIN_STEPS - 1} "
+              f"{ms[0]:.2f} ms per step (rank 1 {ms[1]:.2f}; 1 process {one_ms:.2f}); "
+              f"model-axis collectives {a0['collectives']:.0f} per step taking "
+              f"{1e3 * a0['collective_s']:.2f} ms, of which host copies "
+              f"{1e3 * a0['host_copy_s']:.2f} ms; weights and state "
+              f"{t0['bytes'] / 2**30:.3f} GiB per rank, {ratio:.4f} of one process's "
+              f"{t0['one_bytes'] / 2**30:.3f}; peak {a0['peak_gib']:.2f} GiB per rank (1 "
+              f"process {t0['one']['peak_gib']:.2f}); launches {a0['launches']}")
+    print(f"[tp-families] launch walls: training {train_wall:.1f}s, serving "
+          f"{serve_wall:.1f}s (in the smoke beside the tp phase's (a) and (b, c), and the "
+          f"paper window: contended)")
+    return launches
+
+
 def phase_qmatmul_f32(card: str) -> dict:
     """(d) The f32-result entry of ``qmatmul``: rounded to bf16 it is the
     bf16 entry bit for bit on both paths, its rows do not depend on the
@@ -5307,6 +5601,9 @@ def main():
     for k, n in tp.items():
         launches[k] += n
     for k, n in phase_tp_train(card, tp_run).items():
+        launches[k] += n
+    stamp("tp-families checks")
+    for k, n in phase_tp_families(card, tp_run).items():
         launches[k] += n
     stamp("dist")
     for k, n in phase_dist(card, *train_ref).items():

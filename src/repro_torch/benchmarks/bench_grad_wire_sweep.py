@@ -33,6 +33,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.benchmarks.common import _sync, dlrm_loss, row
 from repro_torch.core.formats import wire_carrier_dtype
+from repro_torch.core import jrandom
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qarith import QArith
 from repro_torch.data.synthetic import dlrm_batches, lm_batches
@@ -110,8 +111,7 @@ def _train_dlrm(tr, steps: int, dev, seed: int = 0) -> tuple[float, float]:
     policy = get_policy("bf16_sr")
     qa = QArith(policy)
     params = init_params_for_policy(
-        tree_map(lambda w: w.to(dev),
-                 dlrm_init(torch.Generator().manual_seed(seed), DLRM_KAGGLE_SMALL)), policy)
+        dlrm_init(jrandom.PRNGKey(seed), DLRM_KAGGLE_SMALL, device=dev), policy)
     opt = sgd(policy, momentum=0.0)
     opt_state = opt.init(params)
     residuals = tr.init_residuals(params)
@@ -147,7 +147,7 @@ def run(*, smoke: bool = False, device=None) -> dict:
         base_payload = fp32_loss = None
         # params for the payload's accounting only (each cell draws its own)
         probe = (_lm_params(0, "cpu")[1] if model == "lm"
-                 else dlrm_init(torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL))
+                 else dlrm_init(jrandom.PRNGKey(0), DLRM_KAGGLE_SMALL, device="cpu"))
         for label, wire, pol in cells:
             tr = _make_transport(wire, pol)
             payload, carrier = _payload(tr, probe)

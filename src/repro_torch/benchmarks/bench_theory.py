@@ -5,26 +5,36 @@ Loss floors: 16-bit nearest rounding on *weight updates* saturates orders
 of magnitude above exact SGD; nearest rounding on *forward/backward only*
 stays close to exact. derived = final MSE.
 
-The data and the 6000 samples' indices are drawn on the CPU, so every
-device trains on the same numbers, and the samples are gathered onto the
-device before the loop, which makes no host round trip.
+The data and the 6000 samples' indices are the reference's draws
+(``make_dataset(PRNGKey(0))``, sample i ``randint(fold_in(PRNGKey(1), i))``,
+in numpy through :mod:`repro_torch.core.jrandom`), so every device trains
+on the reference's numbers, and the samples are gathered onto the device
+before the loop, which makes no host round trip.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.benchmarks.common import row, time_fn
+from repro_torch.core import jrandom
 from repro_torch.core.formats import BF16, round_nearest
 from repro_torch.models.lstsq import lstsq_grad_quantized, make_dataset
 
 
 def _run(mode: str, steps: int = 6000, lr: float = 0.01, device=None) -> float:
     dev = resolve_device(device)
-    X, y, _ = (t.to(dev) for t in make_dataset(torch.Generator().manual_seed(0),
-                                               n=512, d=10))
-    idx = torch.randint(0, X.shape[0], (steps,), generator=torch.Generator().manual_seed(1))
-    return train(X, y, idx.to(dev), mode, lr)
+    X, y, _ = make_dataset(jrandom.PRNGKey(0), n=512, d=10, device=dev)
+    return train(X, y, sample_indices(steps, X.shape[0]).to(dev), mode, lr)
+
+
+def sample_indices(steps: int, n: int, seed: int = 1) -> torch.Tensor:
+    """The reference's sample of step i: ``randint(fold_in(PRNGKey(seed),
+    i), (), 0, n)`` (its Fig 2 takes seed 1)."""
+    key = jrandom.PRNGKey(seed)
+    return torch.from_numpy(np.array([jrandom.randint(jrandom.fold_in(key, i), (), 0, n)
+                                      for i in range(steps)], np.int64))
 
 
 def train(X: torch.Tensor, y: torch.Tensor, idx: torch.Tensor, mode: str,

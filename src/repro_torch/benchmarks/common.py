@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import jrandom
 from repro_torch.core.policy import get_policy
 from repro_torch.core.qarith import QArith
 from repro_torch.data.synthetic import dlrm_batches, lm_batches
@@ -119,10 +120,8 @@ def train_dlrm(policy_name: str, *, steps: int = 300, seed: int = 0,
     dev = resolve_device(device)
     policy = get_policy(policy_name)
     qa = QArith(policy)
-    if init_params is None:     # drawn on the CPU: the same weights on every device
-        init_params = tree_map(lambda w: w.to(dev),
-                               dlrm_init(torch.Generator().manual_seed(seed),
-                                         DLRM_KAGGLE_SMALL))
+    if init_params is None:     # the reference's weights, on every device
+        init_params = dlrm_init(jrandom.PRNGKey(seed), DLRM_KAGGLE_SMALL, device=dev)
     params = init_params_for_policy(init_params, policy)
     opt = sgd(policy, momentum=0.0)
     state = opt.init(params)

@@ -7,10 +7,10 @@ The stream is seeded, keyed by (seed, step) and *learnable*: an order-2
 hash grammar over a Zipf unigram prior, so cross-entropy has real
 headroom below the unigram entropy. The grammar and the prior are the
 reference's (the same numpy draws from ``seed``, the same int32 hash with
-wrap-around); the per-batch uniforms come from numpy's generator keyed by
-(seed, step) instead of ``jax.random``, so the tokens differ from the
-reference's. Fed the reference's uniforms, :meth:`TokenStream.from_uniform`
-gives its tokens exactly. The DLRM click stream and the image blobs are
+wrap-around), and so are the per-batch uniforms: ``jax.random``'s bits
+from the reference's key ``fold_in(PRNGKey(seed), step)``, drawn in numpy
+(:mod:`repro_torch.core.jrandom`), so the tokens are the reference's bit
+for bit. The DLRM click stream and the image blobs are
 drawn with numpy alone, as the reference draws them, so their batches are
 the reference's bit for bit.
 """
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import jrandom
 
 __all__ = ["TokenStream", "dlrm_batches", "image_batches", "lm_batches", "vlm_positions"]
 
@@ -61,11 +62,12 @@ class TokenStream:
                 toks.append(tok)
         return np.stack(toks, axis=1)
 
-    def batch(self, step_seed: tuple[int, int], batch: int, seq: int) -> np.ndarray:
-        """(B, S+1) int32 — callers split into tokens/labels."""
-        u = np.random.default_rng(step_seed).random((batch, seq + 1 + self.order),
-                                                    dtype=np.float32)
-        return self.from_uniform(u)
+    def batch(self, key, batch: int, seq: int) -> np.ndarray:
+        """(B, S+1) int32 — callers split into tokens/labels. ``key`` is a
+        :mod:`~repro_torch.core.jrandom` key; its first split key draws the
+        uniforms, as the reference's ``TokenStream.batch`` does."""
+        k1, _ = jrandom.split(key)
+        return self.from_uniform(jrandom.uniform(k1, (batch, seq + 1 + self.order)))
 
 
 def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
@@ -73,12 +75,14 @@ def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0,
     """Step-keyed LM stream on ``device`` (CUDA unless ``"cpu"``): batch i
     is a pure function of (seed, i), so ``start_step=k`` yields exactly the
     suffix of the ``start_step=0`` stream from batch k on — the resume
-    contract. Yields ``{"tokens", "labels"}`` int32 (B, S)."""
+    contract. Yields ``{"tokens", "labels"}`` int32 (B, S): the reference's
+    ``lm_batches`` bit for bit."""
     dev = resolve_device(device)
     stream = TokenStream(vocab, seed=seed)
+    key = jrandom.PRNGKey(seed)
     i = start_step
     while True:
-        toks = torch.from_numpy(stream.batch((seed, i), batch, seq)).to(dev)
+        toks = torch.from_numpy(stream.batch(jrandom.fold_in(key, i), batch, seq)).to(dev)
         yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
         i += 1
 

@@ -31,7 +31,13 @@ model reads it with :func:`current`, and the collectives are explicit
   the label's logit), the gradient ``softmax − onehot`` on the local
   columns;
 * :func:`gather_logits` — each rank's logits over its vocab columns,
-  gathered and concatenated in rank order (serving).
+  gathered and concatenated in rank order (serving);
+* :func:`own_halves` — the exchange of a column-parallel output whose
+  halves are two tensors (Mamba's ``in_proj``, ``(D, 2·Di)`` split
+  contiguously): the rank holding a half's columns sends each rank that
+  rank's channels of it (one all-to-all, no arithmetic), so every rank
+  gets both halves of its own channels; its backward is the inverse
+  exchange.
 
 Each Function captures the :class:`ModelAxis` at forward time, and its
 backward never reads :func:`current`: the installed axis is thread-local,
@@ -53,11 +59,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.optim.grad_compress import WireStats, gather_parts
+from repro_torch.optim.grad_compress import WireStats, exchange_parts, gather_parts
 
 __all__ = ["AxisStats", "ModelAxis", "current", "model_axis", "for_mesh", "local_slice",
            "copy_to_model", "row_parallel_sum", "embed_lookup", "vocab_parallel_xent",
-           "gather_logits"]
+           "gather_logits", "own_halves"]
 
 
 @dataclasses.dataclass
@@ -282,3 +288,48 @@ def gather_logits(local: torch.Tensor) -> torch.Tensor:
     """Each rank's logits over its vocab columns, concatenated in rank
     order: the whole vocabulary on every rank."""
     return torch.cat(_gather(local.contiguous(), current()), dim=-1)
+
+
+def _halves_route(size: int, rank: int) -> tuple[list[int], list[int]]:
+    """A two-half column-parallel output as 2·size chunks of equal width:
+    rank r's columns are chunks 2r and 2r + 1, and chunk g is half g //
+    size of rank g % size's channels. Returns where this rank's two chunks
+    go and where its two halves come from."""
+    return ([(2 * rank + j) % size for j in (0, 1)],
+            [(h * size + rank) // 2 for h in (0, 1)])
+
+
+def _exchange(pieces: torch.Tensor, to, frm, axis: ModelAxis) -> torch.Tensor:
+    t0 = time.perf_counter()
+    out = exchange_parts(pieces, to, frm, axis.group, axis.stats.wire)
+    axis.stats.calls += 1
+    axis.stats.seconds += time.perf_counter() - t0
+    return out
+
+
+class _OwnHalves(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, axis):
+        ctx.axis = axis
+        to, frm = _halves_route(axis.size, axis.rank)
+        pieces = torch.stack(local.chunk(2, dim=-1))            # (2, ..., w)
+        return torch.cat(list(_exchange(pieces, to, frm, axis)), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        to, frm = _halves_route(ctx.axis.size, ctx.axis.rank)
+        pieces = torch.stack(g.chunk(2, dim=-1))
+        return torch.cat(list(_exchange(pieces, frm, to, ctx.axis)), dim=-1), None
+
+
+def own_halves(local: torch.Tensor) -> torch.Tensor:
+    """This rank's channels of both halves of a column-parallel output
+    whose full width is two tensors ``[a | b]`` (Mamba's ``in_proj``:
+    ``x`` and ``z``): ``local`` holds this rank's contiguous share of the
+    ``2·W`` columns; the result is ``[a_own | b_own]``, each ``W / size``
+    wide, the same layout one process's ``chunk(2)`` splits. Exact (an
+    all-to-all of whole columns); the gradient returns each column's
+    cotangent to the rank whose product made it. ``local`` itself outside
+    a model axis."""
+    axis = current()
+    return local if axis is None else _OwnHalves.apply(local, axis)

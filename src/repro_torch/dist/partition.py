@@ -16,9 +16,10 @@ size divides that the model axis did not claim (:func:`param_specs`), and
 with its parameter.
 
 What the port runs on a model axis above 1 is serving and training the
-dense decoder-only families (:func:`serve_refusal`); the other families,
-padded head counts and paged pools under a data axis above 1 are ROADMAP
-A12, FSDP beside a model axis above 1 is A13.
+dense decoder-only families, the MoE families and Mamba
+(:func:`serve_refusal`); RG-LRU, the encoder-decoder, padded head counts
+and paged pools under a data axis above 1 are ROADMAP A12, FSDP beside a
+model axis above 1 is A13.
 
 :func:`batch_specs`, :func:`cache_specs` and :func:`serve_input_specs`
 give the reference's specs; :func:`rank_rows` applies the batch's: a rank
@@ -144,11 +145,13 @@ def mp_size(mesh) -> int:
 def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
     """Why the port cannot serve (or, with ``paged=False``, train) ``cfg``
     on ``mesh`` (None when it can). On a model axis above 1 it serves and
-    trains the families whose blocks are attention and a dense MLP, with
-    the axis dividing the head counts, the MLP width and the vocabulary
-    (the other families, padded head counts: A12); a paged pool takes no
-    data axis above 1 (a lane's block table may name any page row, so its
-    rows would need a cross-rank gather every step: A12)."""
+    trains the dense families, the MoE families (tensor parallelism inside
+    the experts) and Mamba, with the axis dividing the head counts, the
+    MLP or expert width, Mamba's ``d_inner`` and the vocabulary; RG-LRU
+    and the encoder-decoder there are A12's item 1b, padded shards its
+    item 2; a paged pool takes no data axis above 1 (a lane's block table
+    may name any page row, so its rows would need a cross-rank gather
+    every step: A12's item 3)."""
     if mesh is None:
         return None
     mp = mp_size(mesh)
@@ -157,15 +160,18 @@ def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
                 "(any lane's block table may name any page row)")
     if mp == 1:
         return None
-    if cfg.encdec or cfg.family == "ssm" or cfg.block_pattern or cfg.n_experts:
-        return (f"{cfg.name}: only dense attention + MLP blocks serve on a model axis; "
-                f"MoE, Mamba, RG-LRU and encoder-decoder models there (serving and "
-                f"training) are {SERVE_ITEM}")
-    for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)):
+    if cfg.encdec or cfg.block_pattern:
+        return (f"{cfg.name}: RG-LRU and encoder-decoder models on a model axis (serving "
+                f"and training) are {SERVE_ITEM} (item 1b)")
+    if cfg.family == "ssm":
+        dims = (("d_inner", cfg.d_inner), ("vocab", cfg.vocab))
+    else:
+        dims = (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                ("d_ff", cfg.d_ff), ("vocab", cfg.vocab))
+    for what, n in dims:
         if n % mp:
             return (f"{cfg.name}: model axis {mp} does not divide {what} {n}; padded "
-                    f"shards are {SERVE_ITEM}")
+                    f"shards are {SERVE_ITEM} (item 2)")
     return None
 
 

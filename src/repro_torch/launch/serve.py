@@ -41,8 +41,10 @@ weights are drawn whole from ``--seed`` and each rank keeps its shards
 (``partition.param_specs``), the slots split over the data ranks and the
 kv heads over the model ranks. A model axis above 1 serves the dense
 decoder-only families (qwen2.5, yi, mistral-nemo, command-r, qwen2-vl's
-text) and runs its step eagerly; ``--paged`` takes no data axis above 1
-(ROADMAP A12). Several ranks share one card with ``--dist-backend gloo``:
+text), the MoE families (mixtral, llama4-scout: each expert's FFN width
+split) and Mamba (falcon-mamba: ``d_inner`` split) and runs its step
+eagerly; RG-LRU, whisper and ``--paged`` with a data axis above 1 are
+ROADMAP A12. Several ranks share one card with ``--dist-backend gloo``:
 
     PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
         python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu \\

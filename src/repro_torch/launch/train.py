@@ -75,7 +75,8 @@ update runs on each shard with its folded seed::
         python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
         --device cpu --data-parallel 2 --model-parallel 2 --grad-wire bf16
 
-MoE, Mamba, RG-LRU and whisper on a model axis are ROADMAP A12, FSDP
+The dense, MoE (tensor parallelism inside the experts) and Mamba families
+train on a model axis; RG-LRU and whisper there are ROADMAP A12, FSDP
 beside it A13; both raise.
 """
 from __future__ import annotations

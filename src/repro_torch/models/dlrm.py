@@ -8,16 +8,21 @@ rows receive rare, tiny updates, so nearest rounding cancels most of them.
 
 The parameter tree is the reference's — ``bottom`` and ``top`` lists of
 ``{kernel, bias}``, ``tables`` one (T, V, E) leaf — so conversion and the
-per-leaf SR streams line up leaf for leaf.
+per-leaf SR streams line up leaf for leaf. The weights are the
+reference's own draws: ``jax.random``'s bits from the same key, in numpy
+(:mod:`repro_torch.core.jrandom`).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.core import jrandom
 from repro_torch.core.qarith import QArith
-from repro_torch.models.layers import dense, dense_init
+from repro_torch.models.layers import dense
 
 __all__ = ["dlrm_init", "dlrm_apply", "DLRM_KAGGLE_SMALL"]
 
@@ -28,10 +33,14 @@ DLRM_KAGGLE_SMALL = dict(
 )
 
 
-def _mlp_init(gen, d_in, sizes, dtype):
+def _mlp_init(key, d_in, sizes):
+    """The reference's ``_mlp_init`` in numpy f32: one split key per layer,
+    a ``normal`` kernel scaled by 1/√d_in, a zero bias."""
     layers = []
-    for d_out in sizes:
-        layers.append(dense_init(gen, d_in, d_out, bias=True, dtype=dtype))
+    for k, d_out in zip(jrandom.split(key, len(sizes)), sizes):
+        std = np.float32(1.0 / math.sqrt(d_in))
+        layers.append({"kernel": jrandom.normal(k, (d_in, d_out)) * std,
+                       "bias": np.zeros((d_out,), np.float32)})
         d_in = d_out
     return layers
 
@@ -44,20 +53,28 @@ def _mlp_apply(qa, layers, x, final_linear=True):
     return x
 
 
-def dlrm_init(gen: torch.Generator, cfg: dict, dtype=torch.float32):
-    """Parameters drawn from ``gen`` (a ``torch.Generator``, on its device):
-    the reference's shapes and scales, the port's own draws."""
+def dlrm_init(key, cfg: dict, dtype=torch.float32, device=None):
+    """The reference's ``dlrm_init(key, cfg)`` on ``device`` (CUDA unless
+    ``"cpu"``): ``key`` is a :func:`repro_torch.core.jrandom.PRNGKey`, split
+    as the reference splits it, so the weights are the reference's (its
+    ``normal``'s last ulps aside, ROADMAP C20)."""
+    dev = resolve_device(device)
+    kb, kt, ke = jrandom.split(key, 3)
     n_tab, V, E = cfg["n_sparse"], cfg["vocab_per_table"], cfg["emb_dim"]
-    bottom = _mlp_init(gen, cfg["n_dense"], cfg["bottom"], dtype)
-    emb = (torch.randn((n_tab, V, E), generator=gen, device=gen.device,
-                       dtype=torch.float32) / math.sqrt(E)).to(dtype)
+    emb = jrandom.normal(ke, (n_tab, V, E)) / np.float32(math.sqrt(E))
     n_feats = 1 + n_tab  # bottom output + each table
     n_inter = n_feats * (n_feats - 1) // 2
-    return {
-        "bottom": bottom,
+    tree = {
+        "bottom": _mlp_init(kb, cfg["n_dense"], cfg["bottom"]),
         "tables": emb,
-        "top": _mlp_init(gen, cfg["bottom"][-1] + n_inter, cfg["top"], dtype),
+        "top": _mlp_init(kt, cfg["bottom"][-1] + n_inter, cfg["top"]),
     }
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev).to(dtype)
+    return {"bottom": [{k: put(v) for k, v in p.items()} for p in tree["bottom"]],
+            "tables": put(tree["tables"]),
+            "top": [{k: put(v) for k, v in p.items()} for p in tree["top"]]}
 
 
 def dlrm_apply(qa: QArith, params, dense_x, sparse_ids):

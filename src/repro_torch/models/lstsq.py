@@ -7,22 +7,27 @@ each theorem places it (weight updates vs forward/backward activations).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.core import jrandom
 from repro_torch.core.formats import FloatFormat, round_nearest
 
 __all__ = ["make_dataset", "lstsq_grad_quantized"]
 
 
-def make_dataset(gen: torch.Generator, n: int = 1024, d: int = 10, noise: float = 0.5):
-    """(X, y, w*) on the generator's device. The draws come from ``gen``
-    (a ``torch.Generator``) in place of the reference's JAX key, so they
-    are the port's own: the same distributions, not the same numbers."""
-    dev = gen.device
-    X = torch.randn((n, d), generator=gen, device=dev, dtype=torch.float32)
-    w_star = torch.rand((d,), generator=gen, device=dev, dtype=torch.float32) * 100.0
-    y = X @ w_star + noise * torch.randn((n,), generator=gen, device=dev, dtype=torch.float32)
-    return X, y, w_star
+def make_dataset(key, n: int = 1024, d: int = 10, noise: float = 0.5, device=None):
+    """(X, y, w*) f32 on ``device`` (CUDA unless ``"cpu"``), the
+    reference's draws from ``key`` (a :func:`repro_torch.core.jrandom.PRNGKey`,
+    split in three as there): X and w* its bits, y = X·w* + noise·N(0, 1)
+    computed in numpy f32 (``normal``'s last ulps aside, ROADMAP C20)."""
+    kx, kw, kn = jrandom.split(key, 3)
+    X = jrandom.normal(kx, (n, d))
+    w_star = jrandom.uniform(kw, (d,), 0.0, 100.0)
+    y = (X @ w_star + np.float32(noise) * jrandom.normal(kn, (n,))).astype(np.float32)
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(a).to(dev) for a in (X, y, w_star))
 
 
 def lstsq_grad_quantized(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,

@@ -25,6 +25,17 @@ kernel route the expert products run as one ``qmatmul`` launch per expert
 and product (``layers.project``) and the router product in fixed row
 blocks (``layers.f32_rows_product``), so a row's bits do not depend on how
 many rows the step or an expert holds.
+
+Under a model axis (:mod:`repro_torch.dist.axes`) the experts run tensor
+parallel inside each expert, as the reference's name rules shard them:
+``we_gate``/``we_up`` hold this rank's F columns, ``we_down`` its F rows,
+and the router stays replicated, so routing runs alike on every rank.
+Each expert's down product leaves an f32 partial; the model group's
+partials of all E·C slots, (E·C, D) f32 per layer, are summed in rank
+order and rounded once before the combine (one process's rounding point
+of the expert outputs; after the combine it would be (T, D)). Only the
+expert branch's input passes ``copy_to_model``: the router's input
+gradient is already whole on every rank.
 """
 from __future__ import annotations
 
@@ -34,9 +45,8 @@ import torch
 
 from repro_torch.core.qarith import QArith
 from repro_torch.dist import axes
-from repro_torch.dist.partition import SERVE_ITEM
 from repro_torch.models.layers import (_kernel_route, _normal, f32_rows_product, project,
-                                       project_row_parallel)
+                                       project_f32, project_row_parallel)
 
 __all__ = ["mlp_init", "mlp_apply", "moe_init", "moe_apply"]
 
@@ -122,17 +132,24 @@ def _slot_table(gate_idx, slot, keep, n_tokens: int, E: int, C: int):
 
 def _experts_ffn(qa: QArith, p, xe, act: str):
     """(…,E,C,D) expert inputs → (…,E,C,D) outputs, 16-bit FMAC products.
-    On the kernel route one ``qmatmul`` launch per expert and product."""
-    if _kernel_route(xe):
+    On the kernel route one ``qmatmul`` launch per expert and product.
+    Under a model axis each expert's gate/up give this rank's F columns and
+    its down product an f32 partial (``qmatmul_f32`` on the kernel route);
+    the group's partials are summed in rank order and rounded once
+    (``axes.row_parallel_sum``)."""
+    tp = axes.current() is not None
+    if _kernel_route(xe) or tp:
         E = xe.shape[-3]
+        down = project_f32 if tp else project
 
         def one(e):
             x = xe[..., e, :, :]
             g = project(qa, x, p["we_gate"][e])
             u = project(qa, x, p["we_up"][e])
             a = qa.silu(g) if act == "silu" else qa.gelu(g)
-            return project(qa, qa.mul(a, u), p["we_down"][e])
-        return torch.stack([one(e) for e in range(E)], dim=-3)
+            return down(qa, qa.mul(a, u), p["we_down"][e])
+        ye = torch.stack([one(e) for e in range(E)], dim=-3)
+        return axes.row_parallel_sum(ye, qa) if tp else ye
     g = qa.einsum("...ecd,edf->...ecf", xe, p["we_gate"])
     u = qa.einsum("...ecd,edf->...ecf", xe, p["we_up"])
     a = qa.silu(g) if act == "silu" else qa.gelu(g)
@@ -149,7 +166,8 @@ def _dispatch_combine(qa: QArith, p, xt, cfg, capacity: int):
     E, C = cfg.n_experts, capacity
     gate_vals, gate_idx, slot, keep = _claims(xt, p["router"], cfg.top_k, C)
     flat, src, filled = _slot_table(gate_idx, slot, keep, T, E, C)
-    x = qa.cast(xt)
+    # the expert branch's input (the router read xt itself)
+    x = axes.copy_to_model(qa.cast(xt))
     xe = torch.where(filled[:, None], x[src], torch.zeros((), dtype=x.dtype, device=x.device))
     ye = _experts_ffn(qa, p, xe.reshape(E, C, D), cfg.act_fn).reshape(E * C, D)
     back = ye[torch.clamp(flat, max=E * C - 1)].to(torch.float32)     # (T,k,D)
@@ -193,7 +211,7 @@ def _moe_gather(qa: QArith, p, x, cfg, capacity: int):
     xt = x.reshape(T, D)
     gate_vals, gate_idx, slot, keep = _claims(xt, p["router"], cfg.top_k, C)
     flat, src, filled = _slot_table(gate_idx, slot, keep, T, E, C)
-    xe = xt[src] * filled[:, None].to(xt.dtype)
+    xe = axes.copy_to_model(xt)[src] * filled[:, None].to(xt.dtype)
     ye = _experts_ffn(qa, p, xe.reshape(E, C, D), cfg.act_fn).reshape(E * C, D)
     back = ye[torch.clamp(flat, max=E * C - 1)].to(torch.float32)
     w = (gate_vals * keep.to(torch.float32))[..., None]
@@ -204,10 +222,8 @@ def moe_apply(qa: QArith, p, x, cfg, *, strategy: str | None = None):
     """x: (B,S,D) → (B,S,D), the reference's strategy choice: S = 1 (decode)
     routes all tokens with the no-drop capacity T·k; otherwise ``grouped``
     (B > 1), ``gather`` or the global one-hot with capacity
-    ``capacity_factor·T·k/E``. The shared expert, if any, is added after."""
-    if axes.current() is not None:
-        raise ValueError(f"MoE blocks on a model axis (tensor parallelism inside the "
-                         f"experts) are {SERVE_ITEM}")
+    ``capacity_factor·T·k/E``. The shared expert, if any, is added after
+    (tensor parallel as the dense MLP under a model axis)."""
     B, S, _ = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k

@@ -100,13 +100,25 @@ def _kv_heads(params, cfg) -> int | None:
     return None
 
 
+def _d_inner(params, cfg) -> int | None:
+    """The Mamba channels of the first Mamba block's ``out_proj`` in
+    ``params``: this rank's share under tensor parallelism (None without
+    Mamba blocks)."""
+    for block in params.get("layers", {}).values():
+        mixer = block.get("mixer", {})
+        if "in_proj" in mixer and "out_proj" in mixer:
+            return mixer["out_proj"]["kernel"].shape[-2]
+    return None
+
+
 def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat16,
                page_size=None, n_rows=None, batch: dict | None = None,
                qa: QArith | None = None, mesh=None):
     """Decode cache for ``batch_size`` lanes, on the parameters' device;
     ``page_size``/``n_rows`` build the paged pool instead. The attention
     leaves hold the kv heads of ``params``' kernels, so a rank's shards
-    (tensor parallelism) get their share of the heads; ``mesh`` refuses
+    (tensor parallelism) get their share of the heads, and the Mamba
+    state its share of ``d_inner``; ``mesh`` refuses
     what the port does not serve on it (``partition.serve_refusal``).
     The
     encoder-decoder encodes ``batch["src_embeds"]`` under ``qa`` into its
@@ -127,7 +139,7 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
         return ED.init_decode_cache(cfg, params, qa, enc_out, batch_size, max_len, dtype)
     return T.init_cache(cfg, batch_size, max_len, dtype, page_size=page_size,
                         n_rows=n_rows, device=params["embed"]["embedding"].device,
-                        kv_heads=_kv_heads(params, cfg))
+                        kv_heads=_kv_heads(params, cfg), d_inner=_d_inner(params, cfg))
 
 
 def decode(qa: QArith, params, cfg, token, cache, cache_pos, *, mrope_positions=None,

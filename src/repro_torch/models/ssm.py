@@ -15,6 +15,18 @@ step's ``C·h`` contraction over the state axis is a pairwise tree of
 elementwise adds and its f32 ``dt_proj`` product runs in fixed row blocks
 (``layers.f32_rows_product``), so a row's bits do not depend on the
 number of rows.
+
+Under a model axis (:mod:`repro_torch.dist.axes`) the block runs on this
+rank's share of the ``d_inner`` channels, with the reference's name rules
+and its contiguous split of ``in_proj``: ``in_proj`` is column-parallel
+and :func:`~repro_torch.dist.axes.own_halves` exchanges its output so
+each rank holds ``x`` and ``z`` of its own channels; ``conv``, ``A_log``,
+``D_skip`` and ``dt_proj``'s bias take their local slice of the
+replicated leaf (their gradients summed over the group); ``x_proj`` is
+row-parallel (f32 partials, summed in rank order and rounded once) and its
+replicated output ``dbc`` passes ``copy_to_model``, since Δ, B and C feed
+channel-local work; ``dt_proj`` is column-parallel and ``out_proj``
+row-parallel. The scan and the decode state are channel-local.
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.models.layers import (_kernel_route, _normal, dense, dense_init,
                                       f32_rows_product)
 
@@ -114,7 +127,11 @@ def conv_init(gen: torch.Generator, width: int, channels: int, dtype=torch.float
 
 def causal_conv1d(qa: QArith, p, x, state=None):
     """Depthwise causal conv. x: (B,S,C); state: (B,W-1,C) history or None.
-    Returns (y, new_state), new_state the trailing W−1 inputs."""
+    Returns (y, new_state), new_state the trailing W−1 inputs. Under a
+    model axis ``x`` holds this rank's channels and the replicated weight
+    and bias add their local slice."""
+    C = x.shape[-1]
+    p = {"w": axes.local_slice(p["w"], C), "b": axes.local_slice(p["b"], C)}
     W = p["w"].shape[0]
     if state is None:
         state = x.new_zeros((x.shape[0], W - 1, x.shape[2]))
@@ -156,14 +173,17 @@ def _ssm_coeffs(qa: QArith, p, xs, cfg):
     """Δ, B, C of post-conv activations xs (B,S,Di): a_t (B,S,Di,N),
     b_t (B,S,Di,N) and C (B,S,N), f32."""
     N, R = cfg.ssm_state, cfg.dt_rank_eff
-    dbc = dense(qa, p["x_proj"], xs).to(torch.float32)
+    Di = xs.shape[-1]
+    dbc = dense(qa, p["x_proj"], xs, row_parallel=True).to(torch.float32)
+    # replicated Δ, B, C feeding this rank's channels: their cotangents sum
+    dbc = axes.copy_to_model(dbc)
     dt_r, Bc, Cc = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
     if _kernel_route(dt_r):
         dt_lin = f32_rows_product(dt_r, p["dt_proj"]["kernel"])
     else:
         dt_lin = torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"]["kernel"].to(torch.float32))
-    dt = softplus(dt_lin + p["dt_proj"]["bias"].to(torch.float32))
-    A = -torch.exp(p["A_log"])
+    dt = softplus(dt_lin + axes.local_slice(p["dt_proj"]["bias"], Di).to(torch.float32))
+    A = -torch.exp(axes.local_slice(p["A_log"], Di, dim=0))
     da = torch.exp(dt[..., None] * A)
     db = dt[..., None] * Bc[..., None, :] * xs.to(torch.float32)[..., None]
     return da, db, Cc
@@ -172,8 +192,7 @@ def _ssm_coeffs(qa: QArith, p, xs, cfg):
 def mamba_apply(qa: QArith, p, x, cfg, *, chunk: int = 256):
     """Full-sequence Mamba block. x: (B,S,D) → (B,S,D). C·h is contracted
     per chunk inside the recurrence loop."""
-    xz = dense(qa, p["in_proj"], x)
-    xs, z = xz.chunk(2, dim=-1)
+    xs, z = _in_proj(qa, p, x)
     xs, _ = causal_conv1d(qa, p["conv"], xs)
     xs = qa.silu(xs)
     da, db, Cc = _ssm_coeffs(qa, p, xs, cfg)
@@ -191,17 +210,30 @@ def mamba_apply(qa: QArith, p, x, cfg, *, chunk: int = 256):
     rec_dtype = qa.dtype if qa.policy.native else torch.float32
     y, _ = linear_recurrence(da.to(rec_dtype), db.to(rec_dtype), chunk=chunk,
                              project=project)
-    y = y + p["D_skip"].to(torch.float32) * xs.to(torch.float32)
+    y = y + _d_skip(p, xs) * xs.to(torch.float32)
     y = qa.cast(y * F.silu(z.to(torch.float32)))
-    return dense(qa, p["out_proj"], y)
+    return dense(qa, p["out_proj"], y, row_parallel=True)
+
+
+def _in_proj(qa: QArith, p, x):
+    """``x`` and ``z`` of this rank's channels: the column-parallel
+    ``in_proj`` (its input through ``copy_to_model``), exchanged so each
+    rank holds both halves of its own channels (one process: the product
+    split in two)."""
+    xz = axes.own_halves(dense(qa, p["in_proj"], axes.copy_to_model(x)))
+    return xz.chunk(2, dim=-1)
+
+
+def _d_skip(p, xs):
+    return axes.local_slice(p["D_skip"], xs.shape[-1]).to(torch.float32)
 
 
 def mamba_decode_step(qa: QArith, p, x, cfg, state):
     """One-token step. x: (B,1,D); state {"conv": (B,W-1,Di), "h": (B,Di,N)
-    f32}. Returns (y, new state) with new tensors: the caller selects them
-    into the cache per lane (``serve.cache.keep_active``)."""
-    xz = dense(qa, p["in_proj"], x)
-    xs, z = xz.chunk(2, dim=-1)
+    f32}, of this rank's channels under a model axis. Returns (y, new
+    state) with new tensors: the caller selects them into the cache per
+    lane (``serve.cache.keep_active``)."""
+    xs, z = _in_proj(qa, p, x)
     xs, conv_state = causal_conv1d(qa, p["conv"], xs, state["conv"])
     xs = qa.silu(xs)
     da, db, Cc = _ssm_coeffs(qa, p, xs, cfg)              # (B,1,Di,N)
@@ -210,6 +242,6 @@ def mamba_decode_step(qa: QArith, p, x, cfg, state):
         y = tree_sum(h * Cc[:, 0][:, None, :])
     else:
         y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])
-    y = y[:, None, :] + p["D_skip"].to(torch.float32) * xs.to(torch.float32)
+    y = y[:, None, :] + _d_skip(p, xs) * xs.to(torch.float32)
     y = qa.cast(y * F.silu(z.to(torch.float32)))
-    return dense(qa, p["out_proj"], y), {"conv": conv_state, "h": h}
+    return dense(qa, p["out_proj"], y, row_parallel=True), {"conv": conv_state, "h": h}

@@ -178,13 +178,13 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
 
 
 def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_rows,
-                 device, kv_heads, lead=()):
+                 device, kv_heads, d_inner, lead=()):
     """One block's decode cache, with ``lead`` dims (the group dim) first."""
     def zeros(*shape, dt=dtype):
         return torch.zeros((*lead, *shape), dtype=dt, device=device)
     if kind == "mamba":
-        return {"conv": zeros(batch, cfg.ssm_conv - 1, cfg.d_inner),
-                "h": zeros(batch, cfg.d_inner, cfg.ssm_state, dt=torch.float32)}
+        return {"conv": zeros(batch, cfg.ssm_conv - 1, d_inner),
+                "h": zeros(batch, d_inner, cfg.ssm_state, dt=torch.float32)}
     if kind == "rec":
         w = cfg.lru_width or cfg.d_model
         return {"conv": zeros(batch, cfg.ssm_conv - 1, w),
@@ -204,7 +204,8 @@ def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_r
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
-               page_size=None, n_rows=None, device=None, kv_heads=None) -> PyTree:
+               page_size=None, n_rows=None, device=None, kv_heads=None,
+               d_inner=None) -> PyTree:
     """Decode cache (reference ``transformer.py:146-190``): per stacked
     block a leaf with the group dim first, per remainder block one without.
     ``page_size``/``n_rows`` switch full-context attention layers to the
@@ -212,17 +213,20 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
     ring-window and recurrent leaves keep the per-slot layout.
     ``kv_heads`` (default ``cfg.n_kv_heads``) is the kv heads this rank's
     attention kernels compute: a model axis's share under tensor
-    parallelism."""
+    parallelism; ``d_inner`` (default ``cfg.d_inner``) likewise the Mamba
+    channels of this rank's blocks (the reference's ``cache_specs`` split
+    ``conv`` and ``h`` on that axis)."""
     if (page_size is None) != (n_rows is None):
         raise ValueError("page_size and n_rows must be given together")
     kv_heads = cfg.n_kv_heads if kv_heads is None else kv_heads
+    d_inner = cfg.d_inner if d_inner is None else d_inner
     kinds, n_groups, rem = _layer_plan(cfg)
     cache = {"layers": {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device, kv_heads, (n_groups,))
+                                              n_rows, device, kv_heads, d_inner, (n_groups,))
                         for i, kind in enumerate(kinds)}}
     if rem:
         cache["rem"] = {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device, kv_heads)
+                                              n_rows, device, kv_heads, d_inner)
                         for i, kind in enumerate(rem)}
     return cache
 

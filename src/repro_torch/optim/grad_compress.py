@@ -54,7 +54,8 @@ from repro_torch.kernels.sr_cast import sr_cast
 from repro_torch.optim.base import LeafNoise, _mix
 
 __all__ = ["WIRE_TAG", "WireKey", "WireStats", "init_residual", "compress_leaf",
-           "gather_parts", "wire_mean", "reduce_scatter_mean", "compressed_psum"]
+           "gather_parts", "exchange_parts", "wire_mean", "reduce_scatter_mean",
+           "compressed_psum"]
 
 # the reference folds 7 into a step's key for its wire (train/step.py)
 WIRE_TAG = 7
@@ -184,6 +185,33 @@ def gather_parts(payload: torch.Tensor, group, stats: WireStats | None = None,
         parts = _to_device(parts, payload.device, stats)
     return parts
 
+
+def exchange_parts(send: torch.Tensor, to: Sequence[int], frm: Sequence[int], group,
+                   stats: WireStats | None = None, kind: str = "reduce") -> torch.Tensor:
+    """An all-to-all of equal parts: part j of ``send`` (its dim 0) goes
+    to rank ``to[j]`` of ``group``, and part i of the result comes from
+    rank ``frm[i]`` (``all_to_all_single`` with uneven splits; each rank
+    hands every rank at most one part). Counted in ``stats`` as ``kind``."""
+    n = dist.get_world_size(group)
+    if sorted(set(to)) != sorted(to) or sorted(set(frm)) != sorted(frm):
+        raise ValueError(f"a rank takes at most one part: to {to}, from {frm}")
+    ins = sorted(range(len(to)), key=lambda j: to[j])
+    outs = sorted(range(len(frm)), key=lambda i: frm[i])
+    src = send[ins].contiguous()
+    via_host = _via_host(send, group)
+    if via_host:
+        src = _to_host(src, stats)
+    recv = torch.empty((len(frm), *send.shape[1:]), dtype=send.dtype, device=src.device,
+                       pin_memory=via_host)
+    dist.all_to_all_single(recv, src, output_split_sizes=[int(r in frm) for r in range(n)],
+                           input_split_sizes=[int(r in to) for r in range(n)], group=group)
+    if stats is not None:
+        stats.count(src, kind)
+    if via_host:
+        recv = _to_device([recv], send.device, stats)[0]
+    out = torch.empty_like(recv)
+    out[outs] = recv
+    return out
 
 
 def wire_mean(payload: torch.Tensor, group, stats: WireStats | None = None,

@@ -1,8 +1,10 @@
-"""Ranks of tests/test_torch_tp_train.py: reduced qwen2.5-3b trained on
+"""Ranks of tests/test_torch_tp_train.py and tests/test_torch_tp_families_train.py:
+reduced configs (qwen2.5-3b, or the archs a scenario is given) trained on
 ``(data, model)`` meshes of gloo ranks.
 
     python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_train_worker.py quad OUT
     python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_train_worker.py pair OUT
+    python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_train_worker.py family OUT A...
 
 ``quad`` (4 ranks, 2 data x 2 model): ``QUAD_STEPS`` steps of the bf16
 wire (fused AdamW on the shards, ``bf16_sr_kahan``), checkpointed at the
@@ -12,8 +14,10 @@ per policy of ``REF_POLICIES`` the 1 x 2 gradient phase and the
 one-process one from the reference's weights, the non-fused SR update of
 the shards against the one-process update, the backward from a thread
 with no axis installed, ``vocab_parallel_xent`` on random logits, and
-``quad``'s checkpoint restored under 1 x 2. Each rank saves what it saw to
-``OUT/rank<r>_<scenario>.pt``. Imports torch and the port only.
+``quad``'s checkpoint restored under 1 x 2. ``family`` (2 ranks, 1 x 2)
+runs the per-policy part for each arch A from ``OUT/ref_<A>.npz`` and
+``OUT/init_<A>_<policy>``. Each rank saves what it saw to
+``OUT/rank<r>_<scenario>[_<A>].pt``. Imports torch and the port only.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from repro_torch.train import checkpoint as C
 from repro_torch.train import loop as L
 from repro_torch.train.step import Gradients, _global_norm, compute_params, make_train_step
 from repro_torch.train.train_state import make_train_state, softmax_xent
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
 CFG = R.get_config("qwen2.5-3b").reduced()
 REF_POLICIES = ("fp32", "bf16_sr")
@@ -97,31 +101,32 @@ def _grads(params, qa, batch, axis, *, thread: bool):
     return box["g"]
 
 
-def scenario_pair(out: Path, rank: int):
-    ref = np.load(out / "ref.npz")
-    batch = {k: torch.from_numpy(ref[k].astype(np.int32)) for k in ("tokens", "labels")}
-    mesh = make_local_mesh(1, 2)
-    axis = axes.for_mesh(mesh)
-    res = {"coords": mesh.coords(rank)}
+def policy_runs(out: Path, cfg, batch, mesh, init: str) -> dict:
+    """Per policy of ``REF_POLICIES``, from the reference's initial state
+    ``OUT/<init>_<policy>``: the 1 x 2 gradient phase (this rank's and the
+    gathered gradients, loss, norm) and the one-process one, and under a
+    pure-bf16 SR policy the non-fused update of the shards and the
+    one-process update's slices given the same gradients."""
+    res = {}
     for name in REF_POLICIES:
         policy = get_policy(name)
         opt = adamw(policy, b2=0.997)
-        like = R.init(CFG, 0, policy.param_dtype, device="cpu")
-        one, _ = C.restore(out / f"init_{name}", make_train_state(like, opt))
-        step1 = make_train_step(CFG, policy, opt, constant(1e-3), attn_chunk=CHUNK)
+        like = R.init(cfg, 0, policy.param_dtype, device="cpu")
+        one, _ = C.restore(out / f"{init}_{name}", make_train_state(like, opt))
+        step1 = make_train_step(cfg, policy, opt, constant(1e-3), attn_chunk=CHUNK)
         g1 = step1.phases[0](one, batch, 0)
-        pspecs = PT.param_specs(like, CFG, mesh)
+        pspecs = PT.param_specs(like, cfg, mesh)
         tr = T.make_transport(mesh=mesh, placement=PT.Placement(), pspecs=pspecs)
         tp, specs = _tp_state(like, opt, mesh, tr)
-        tp, _ = C.restore(out / f"init_{name}", tp, specs=specs, mesh=mesh)
-        step2 = make_train_step(CFG, policy, opt, constant(1e-3), attn_chunk=CHUNK,
+        tp, _ = C.restore(out / f"{init}_{name}", tp, specs=specs, mesh=mesh)
+        step2 = make_train_step(cfg, policy, opt, constant(1e-3), attn_chunk=CHUNK,
                                 transport=tr, mesh=mesh)
         g2 = step2.phases[0](tp, batch, 0)
         pflat = tree_leaves(pspecs)
         full = [_full(g, s, mesh) for g, s in zip(tree_leaves(g2.grads), pflat)]
         res[name] = {"local": tree_leaves(g2.grads), "full": full, "loss": g2.loss,
                      "norm": g2.grad_norm, "one": tree_leaves(g1.grads), "one_loss": g1.loss,
-                     "one_norm": g1.grad_norm,
+                     "one_norm": g1.grad_norm, "paths": tree_paths(like),
                      "norm_of_full": _global_norm(full), "specs": [tuple(x) for x in pflat]}
         if policy.update_rounding == "stochastic" and not policy.master_weights:
             # the non-fused SR update of the shards against the one-process
@@ -136,6 +141,16 @@ def scenario_pair(out: Path, rank: int):
                 "moments": [F.local_slice(w, s, mesh) for w, s in
                             zip(tree_leaves(one_new.opt_state.m), pflat)],
                 "shard_moments": tree_leaves(tp_new.opt_state.m)}
+    return res
+
+
+def scenario_pair(out: Path, rank: int):
+    ref = np.load(out / "ref.npz")
+    batch = {k: torch.from_numpy(ref[k].astype(np.int32)) for k in ("tokens", "labels")}
+    mesh = make_local_mesh(1, 2)
+    axis = axes.for_mesh(mesh)
+    res = {"coords": mesh.coords(rank)}
+    res.update(policy_runs(out, CFG, batch, mesh, "init"))
     # the backward from a thread with no axis installed (the remat recompute
     # included) == the backward on this thread under the axis
     policy = get_policy("bf16_sr")
@@ -166,6 +181,19 @@ def scenario_pair(out: Path, rank: int):
     res["restored"] = {"step": at, "leaves": C.flatten(state)[1:],
                        "specs": [tuple(x) for x in specs[1:]]}
     torch.save(res, out / f"rank{rank}_pair.pt")
+
+
+def scenario_family(out: Path, rank: int, *archs: str):
+    """``policy_runs`` for each arch from ``OUT/ref_<arch>.npz`` and its
+    initial states ``OUT/init_<arch>_<policy>``."""
+    mesh = make_local_mesh(1, 2)
+    for arch in archs:
+        cfg = R.get_config(arch).reduced()
+        ref = np.load(out / f"ref_{arch}.npz")
+        batch = {k: torch.from_numpy(ref[k].astype(np.int32)) for k in ("tokens", "labels")}
+        res = {"coords": mesh.coords(rank)}
+        res.update(policy_runs(out, cfg, batch, mesh, f"init_{arch}"))
+        torch.save(res, out / f"rank{rank}_family_{arch}.pt")
 
 
 def scenario_quad(out: Path, rank: int):
@@ -199,7 +227,7 @@ def main():
     torch.set_num_threads(1)
     MH.initialize(device="cpu", timeout_secs=float(os.environ.get("WORKER_TIMEOUT", 120)))
     try:
-        globals()[f"scenario_{scenario}"](out, MH.process_index())
+        globals()[f"scenario_{scenario}"](out, MH.process_index(), *sys.argv[3:])
     finally:
         MH.shutdown()
 

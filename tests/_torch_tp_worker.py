@@ -1,13 +1,20 @@
-"""Ranks of tests/test_torch_tp_serve.py: reduced qwen2.5-3b served on
+"""Ranks of tests/test_torch_tp_serve.py and tests/test_torch_tp_families.py:
+a reduced config (``ARCH``, or the one a scenario is given) served on
 ``(data, model)`` meshes of gloo ranks, from the reference's weights.
 
     python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_worker.py pair OUT
     python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py quad OUT
+    python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_worker.py family OUT A...
+    python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py family_quad OUT A
 
-``pair`` (2 ranks) serves on 1 x 2 (contiguous, paged, paged with chunk
-4, sampled lanes, and the teacher-forced schedule's logits), on 2 x 1 and
-in one process; ``quad`` (4 ranks) on 2 x 2. Each rank saves what it saw
-to ``OUT/rank<r>_<scenario>.pt``.
+``pair`` (2 ranks) serves qwen2.5-3b on 1 x 2 (contiguous, paged, paged
+with chunk 4, sampled lanes, and the teacher-forced schedule's logits), on
+2 x 1 and in one process; ``quad`` (4 ranks) on 2 x 2. ``family`` serves
+each arch A (MoE, Mamba) on 1 x 2 (contiguous, paged, the schedule's
+logits under ``bf16_standard`` and ``fp32``) and in one process, and
+holds ``axes.own_halves`` against the unsplit product; ``family_quad``
+serves A on 2 x 2. Each rank saves what it saw to
+``OUT/rank<r>_<scenario>[_<arch>].pt``.
 """
 from __future__ import annotations
 
@@ -51,8 +58,8 @@ def schedule(vocab: int) -> np.ndarray:
     return np.random.default_rng(5).integers(0, vocab, (SCHEDULE_STEPS, N_SLOTS)).astype(np.int32)
 
 
-def reference_tree():
-    cfg = JR.get_config(ARCH).reduced()
+def reference_tree(arch: str = ARCH):
+    cfg = JR.get_config(arch).reduced()
     params = JR.init(cfg, jax.random.PRNGKey(0), j_get_policy(POLICY).param_dtype)
     return jax.tree_util.tree_map(np.asarray, params)
 
@@ -150,6 +157,57 @@ def scenario_pair(out: Path, rank: int):
     torch.save(res, out / f"rank{rank}_pair.pt")
 
 
+def own_halves_check(rank: int, mesh) -> dict:
+    """``axes.own_halves`` after a column-parallel product split
+    contiguously, forward and backward, against the unsplit product (f64:
+    exact comparisons)."""
+    axis = axes.for_mesh(mesh)
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 3, 8), generator=g, dtype=torch.float64)
+    w = torch.randn((8, 16), generator=g, dtype=torch.float64)
+    cot = torch.randn((2, 3, 16), generator=g, dtype=torch.float64)
+    width, own = 16 // axis.size, 8 // axis.size
+    w_local = w[:, rank * width:(rank + 1) * width].clone().requires_grad_(True)
+    with axes.model_axis(axis):
+        got = axes.own_halves(x @ w_local)
+    take = lambda t: torch.cat([h[..., rank * own:(rank + 1) * own]       # noqa: E731
+                                for h in t.chunk(2, dim=-1)], dim=-1)
+    (got * take(cot)).sum().backward()
+    return {"fwd": got.detach(), "want": take(x @ w), "grad": w_local.grad,
+            "want_grad": (x.reshape(-1, 8).T @ cot.reshape(-1, 16))[:, rank * width:
+                                                                     (rank + 1) * width]}
+
+
+def scenario_family(out: Path, rank: int, *archs: str):
+    tp = make_local_mesh(1, 2)
+    fp32 = get_policy("fp32")
+    for arch in archs:
+        cfg = R.get_config(arch).reduced()
+        tree = reference_tree(arch)
+        res = {"coords": tp.coords(rank)}
+        stats = axes.for_mesh(tp).stats
+        calls = stats.calls
+        res["tp"] = serve(tree, cfg, tp)
+        res["steps_calls"] = stats.calls - calls
+        res["tp_paged"] = serve(tree, cfg, tp, paged=True, page_size=4, n_pages=12)
+        res["one"] = serve(tree, cfg, None)
+        calls = stats.calls
+        res["tp_schedule"] = schedule_logits(tree, cfg, tp)
+        res["schedule_calls"] = stats.calls - calls
+        res["one_schedule"] = schedule_logits(tree, cfg, None)
+        res["fp32_schedule"] = (schedule_logits(None, cfg, tp, fp32),
+                                schedule_logits(None, cfg, None, fp32))
+        res["own_halves"] = own_halves_check(rank, tp)
+        torch.save(res, out / f"rank{rank}_family_{arch}.pt")
+
+
+def scenario_family_quad(out: Path, rank: int, arch: str):
+    cfg = R.get_config(arch).reduced()
+    mesh = make_local_mesh(2, 2)
+    torch.save({"coords": mesh.coords(rank), "tokens": serve(reference_tree(arch), cfg, mesh)},
+               out / f"rank{rank}_family_quad_{arch}.pt")
+
+
 def scenario_quad(out: Path, rank: int):
     cfg = R.get_config(ARCH).reduced()
     mesh = make_local_mesh(2, 2)
@@ -162,7 +220,7 @@ def main():
     torch.set_num_threads(1)
     MH.initialize(device="cpu", timeout_secs=float(os.environ.get("WORKER_TIMEOUT", 120)))
     try:
-        globals()[f"scenario_{scenario}"](out, MH.process_index())
+        globals()[f"scenario_{scenario}"](out, MH.process_index(), *sys.argv[3:])
     finally:
         MH.shutdown()
 

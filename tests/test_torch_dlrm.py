@@ -48,6 +48,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.core.qarith import QArith
 from repro_torch.data.synthetic import dlrm_batches
 from repro_torch.models import dlrm as TD
+from repro_torch.core import jrandom
 from repro_torch.models.dlrm import DLRM_KAGGLE_SMALL, dlrm_apply, dlrm_init
 from repro_torch.optim import GivenKey, sgd
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
@@ -109,7 +110,7 @@ def test_dlrm_batches_match_reference_bitwise(seed):
 
 
 def test_dlrm_init_shapes_and_tree():
-    p = dlrm_init(torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL, torch.bfloat16)
+    p = dlrm_init(jrandom.PRNGKey(0), DLRM_KAGGLE_SMALL, torch.bfloat16, device="cpu")
     ref = jax.eval_shape(lambda k: j_dlrm_init(k, J_CFG, jnp.bfloat16), jax.random.PRNGKey(0))
     assert tree_paths(p) == ["bottom.0.bias", "bottom.0.kernel", "bottom.1.bias",
                              "bottom.1.kernel", "bottom.2.bias", "bottom.2.kernel",

@@ -36,6 +36,7 @@ from repro_torch.dist import partition as PT
 from repro_torch.dist import transport as T
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import registry as R
+from repro_torch.core import jrandom
 from repro_torch.models.dlrm import DLRM_KAGGLE_SMALL, dlrm_init
 from repro_torch.optim import GivenKey
 from repro_torch.optim import grad_compress as GC
@@ -164,7 +165,7 @@ POLICY_SPECS = [None, "default", "none", "4096,embed,norm", "mixer,ffn"]
 def test_leaf_formats_match_reference(arch):
     if arch == "dlrm":
         jtree = jax.eval_shape(lambda: j_dlrm_init(jax.random.PRNGKey(0), J_DLRM_CFG))
-        ttree = dlrm_init(torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL)
+        ttree = dlrm_init(jrandom.PRNGKey(0), DLRM_KAGGLE_SMALL, device="cpu")
     else:
         jtree = _ref_shapes(JR.get_config(arch).reduced())
         ttree = R.init(R.get_config(arch).reduced(), 0, torch.float32, device="cpu")
@@ -186,7 +187,7 @@ def test_leaf_formats_match_reference(arch):
 def test_leaf_names_are_the_reference_keystr():
     jtree = jax.eval_shape(lambda: j_dlrm_init(jax.random.PRNGKey(0), J_DLRM_CFG))
     flat, _ = jax.tree_util.tree_flatten_with_path(jtree)
-    ttree = dlrm_init(torch.Generator().manual_seed(0), DLRM_KAGGLE_SMALL)
+    ttree = dlrm_init(jrandom.PRNGKey(0), DLRM_KAGGLE_SMALL, device="cpu")
     assert T.leaf_names(ttree) == [jax.tree_util.keystr(p) for p, _ in flat]
 
 

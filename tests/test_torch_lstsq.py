@@ -11,9 +11,9 @@
     is the reference's has a bitwise gradient, and where the dot's last
     ulp moves a across a rounding boundary (under 1% of samples), a lies
     one ulp of the format away.
-* ``make_dataset``: a ``torch.Generator`` makes it deterministic; the
-  draws are the port's own, with the reference's distributions: x ~
-  N(0, 1), w* ∈ [0, 100), residual noise of std 0.5.
+* ``make_dataset``: a key makes it deterministic; the draws are the
+  reference's (tests/test_torch_jrandom.py holds them to it), with its
+  distributions: x ~ N(0, 1), w* ∈ [0, 100), residual noise of std 0.5.
 """
 import jax
 import jax.numpy as jnp
@@ -26,6 +26,7 @@ from repro.core.formats import round_nearest as J_round_nearest
 from repro.models.lstsq import lstsq_grad_quantized as j_grad
 from repro.models.lstsq import make_dataset as j_make_dataset
 from repro_torch.core.formats import FORMATS, round_nearest, ulp
+from repro_torch.core import jrandom
 from repro_torch.models.lstsq import lstsq_grad_quantized, make_dataset
 from _torch_cpu import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -80,9 +81,9 @@ def test_grad_on_gaussian_inputs(fmt):
 
 
 def test_make_dataset_deterministic_with_the_reference_distributions():
-    X, y, w_star = make_dataset(torch.Generator().manual_seed(0), n=4096, d=10)
-    again = make_dataset(torch.Generator().manual_seed(0), n=4096, d=10)
-    other = make_dataset(torch.Generator().manual_seed(1), n=4096, d=10)
+    X, y, w_star = make_dataset(jrandom.PRNGKey(0), n=4096, d=10, device="cpu")
+    again = make_dataset(jrandom.PRNGKey(0), n=4096, d=10, device="cpu")
+    other = make_dataset(jrandom.PRNGKey(1), n=4096, d=10, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip((X, y, w_star), again))
     assert not torch.equal(X, other[0])
     jX, jy, jw = j_make_dataset(jax.random.PRNGKey(0), n=4096, d=10)

@@ -119,10 +119,9 @@ def test_serve_input_specs_match_reference(sizes):
             assert all(_norm(got[k]) == _norm(want[k]) for k in got), (n_slots, paged, chunk)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
-                                  "recurrentgemma-2b", "whisper-base"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base"])
 def test_other_families_refuse_the_model_axis(arch):
-    """MoE, Mamba, RG-LRU and the encoder-decoder on a model axis: A12."""
+    """RG-LRU and the encoder-decoder on a model axis: A12 (item 1b)."""
     cfg = R.get_config(arch).reduced()
     mesh = Mesh(("data", "model"), (1, 2))
     assert "A12" in PT.serve_refusal(cfg, mesh)

@@ -345,8 +345,8 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
                                         (["--model-parallel", "2", "--fsdp"], "A13"),
                                         (["--model-parallel", "2", "--fsdp-parallel", "2"],
                                          "A13"),
-                                        (["--model-parallel", "2", "--arch", "mixtral-8x22b"],
-                                         "A12")])
+                                        (["--model-parallel", "2", "--arch",
+                                          "recurrentgemma-2b"], "A12")])
 def test_launcher_refuses_the_later_dist_items(flags, item):
     """The model axis's ``--model-parallel`` (ported with A11) and FSDP's
     ``--fsdp-parallel`` (A9) parse, and a single process cannot build their
