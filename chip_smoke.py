@@ -341,7 +341,31 @@ Phases, each printing its lines (a failed check exits non-zero):
     ``fused_adamw`` == its plain version with the folded seed, bytes per
     rank <= 0.53 of one process's. Prints ms per step, collectives, their
     ms and host-copy ms, peak GiB per rank. ``tools/port_tp_families.py``
-    runs this phase alone.
+    runs this phase alone;
+19. tp-hybrid (ROADMAP A12 items 1b and 2, RG-LRU and whisper on the model
+    axis with head counts and a vocabulary it does not divide; after phase
+    18's checks, its five launches side by side (beside the paper window
+    and the tp thread they ran the card out of memory); the decode kernel at its per-rank shapes
+    and cache sizes in kernel-hybrid, after kernel-g10, and ``qmatmul_f32`` at its partials
+    beside the other f32 shapes): ranks sharing this card over gloo at
+    published widths. Serving: recurrentgemma-2b at 6 of 26 layers on
+    1 x 2 (its one kv head gathered, 5 query heads per rank) on the
+    families' stream, and at 3 on 1 x 4 (10 query heads padded to 12) on 4
+    requests of 8 tokens, each beside a 1-rank engine; whisper-base whole
+    on 1 x 2 (vocabulary 51865 whole on every rank) in lock-step, 8 lanes
+    x 24 tokens, its last logits within 0.05 of the largest |logit| of one
+    process teacher-forced on the same tokens. Ranks bitwise, the counted
+    collectives and launches per step, the token shares printed (C18).
+    Training beside them: recurrentgemma-2b at 3 layers through the
+    launcher (``bf16_sr_kahan --fused-update``, 1 x 512, lr 1e-4) and
+    whisper-base on the whisper phase's batch through
+    ``make_train_step(mesh=)``, 3 steps each beside one process: ranks
+    bitwise on every replicated or whole leaf and the losses, losses
+    within 0.05, a shard's ``fused_adamw`` == plain, bytes per rank <=
+    0.53 of one process's for the leaves the specs shard (whisper's whole
+    embedding counts in full). Prints ms per step, collectives, their ms
+    and host-copy ms, peak GiB per rank. ``tools/port_tp_hybrid.py`` runs
+    this phase alone.
 
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -4466,6 +4490,37 @@ def _tp_model(spec: dict, layers: int | None, arch: str = "qwen2.5-3b"):
     return R.init(cfg, 0, policy.param_dtype, device=spec["device"]), cfg, policy
 
 
+def _tp_sync(dev: str) -> None:
+    """Wait for the card (``dev`` "cuda"); nothing on the CPU."""
+    import torch
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_nbytes(tree) -> int:
+    """The bytes of a tree's tensors."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _tp_tokens(res) -> dict:
+    """A stream's completions as {request id: tokens}."""
+    return {str(c.rid): c.tokens.tolist() for c in res.completions}
+
+
+def _tp_shard(params, cfg, mesh, dev: str):
+    """This rank's shards of whole ``params`` on ``mesh``
+    (``partition.param_specs``), the card's cache emptied after."""
+    import torch
+    from repro_torch.dist import fsdp as F
+    from repro_torch.dist import partition as PT
+    local = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return local
+
+
 def _tp_counts() -> dict:
     """Zero every serve-step kernel count; returns the modules."""
     mods = {k: kernel_module(k) for k in ("decode_attention", "qmatmul", "row_mean_sq")}
@@ -4492,9 +4547,7 @@ def tp_worker(spec_path: str) -> None:
     import numpy as np
     import torch
     from repro_torch.dist import axes
-    from repro_torch.dist import fsdp as F
     from repro_torch.dist import multihost as MH
-    from repro_torch.dist import partition as PT
     from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.serve import serve_stream
@@ -4502,7 +4555,6 @@ def tp_worker(spec_path: str) -> None:
     from repro_torch.serve.decode import generate
     from repro_torch.serve.engine import Engine
     from repro_torch.train.step import make_serve_step
-    from repro_torch.tree import tree_leaves
 
     spec = json.loads(Path(spec_path).read_text())
     if spec["scenario"].startswith("train-"):
@@ -4517,25 +4569,10 @@ def tp_worker(spec_path: str) -> None:
     rank = MH.process_index()
     out = {"rank": rank}
 
-    def sync():
-        if dev == "cuda":
-            torch.cuda.synchronize()
-
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
-
-    def tokens_of(res):
-        return {str(c.rid): c.tokens.tolist() for c in res.completions}
-
-    def shard(params, cfg, mesh):
-        local = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
-        del params
-        if dev == "cuda":
-            torch.cuda.empty_cache()
-        return local
-
     try:
-        if spec["scenario"] == "fam-serve":
+        if spec["scenario"].startswith("hyb-"):
+            out.update(tp_hybrid_worker(spec))
+        elif spec["scenario"] == "fam-serve":
             import torch.distributed as tdist
             mesh = make_local_mesh(1, 2)
             axis = axes.for_mesh(mesh)
@@ -4546,25 +4583,25 @@ def tp_worker(spec_path: str) -> None:
                     tdist.barrier()
                 params, cfg, policy = _tp_model(spec, layers, arch)
                 stream = family_stream(cfg.vocab)
-                res = {"n_layers": cfg.n_layers, "weights": [nbytes(params)]}
+                res = {"n_layers": cfg.n_layers, "weights": [_tp_nbytes(params)]}
                 if rank == 0:
                     # the 1-rank engine's tokens at this depth (CUDA graphs);
                     # rank 1 waits at the next collective
                     one = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
                                  fused_decode=True, device=dev)
-                    res["one_tokens"] = tokens_of(serve_stream(one, stream))
+                    res["one_tokens"] = _tp_tokens(serve_stream(one, stream))
                     del one
-                params = shard(params, cfg, mesh)
+                params = _tp_shard(params, cfg, mesh, dev)
                 if rank == 0:
                     tdist.barrier()
-                res["weights"].append(nbytes(params))
+                res["weights"].append(_tp_nbytes(params))
                 eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
                              fused_decode=True, device=dev, mesh=mesh)
-                sync()
+                _tp_sync(dev)
                 calls0, s0, h0 = axis.stats.calls, axis.stats.seconds, axis.stats.host_copy_s
                 mods = _tp_counts()
                 r = serve_stream(eng, stream)
-                res.update(launches=_tp_read(mods), tokens=tokens_of(r), steps=r.calls,
+                res.update(launches=_tp_read(mods), tokens=_tp_tokens(r), steps=r.calls,
                            seconds=r.seconds, finished=eng.stats.finished,
                            graphs=len(eng.graphs), collectives=axis.stats.calls - calls0,
                            collective_s=axis.stats.seconds - s0,
@@ -4576,10 +4613,10 @@ def tp_worker(spec_path: str) -> None:
                                  page_size=PAGE)
                     mods = _tp_counts()
                     r = serve_stream(eng, stream)
-                    res["paged"] = dict(tokens=tokens_of(r), steps=r.calls,
+                    res["paged"] = dict(tokens=_tp_tokens(r), steps=r.calls,
                                         seconds=r.seconds, launches=_tp_read(mods))
                     del eng
-                sync()
+                _tp_sync(dev)
                 res["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
                                    if dev == "cuda" else 0.0)
                 out[arch] = res
@@ -4590,17 +4627,17 @@ def tp_worker(spec_path: str) -> None:
         elif spec["scenario"] == "quad":
             mesh = make_local_mesh(2, 2)
             params, cfg, policy = _tp_model(spec, TP_LAYERS)
-            params = shard(params, cfg, mesh)
+            params = _tp_shard(params, cfg, mesh, dev)
             eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
                          device=dev, mesh=mesh)
             res = serve_stream(eng, main_stream(cfg.vocab))
-            out.update(tokens=tokens_of(res), coords=mesh.coords(rank), slots=eng.pool.slots,
+            out.update(tokens=_tp_tokens(res), coords=mesh.coords(rank), slots=eng.pool.slots,
                        steps=res.calls, seconds=res.seconds,
                        token_gather_s=eng.token_gather.seconds)
         elif spec["scenario"] == "cut":
             mesh = make_local_mesh(1, 2)
             params, cfg, policy = _tp_model(spec, TP_LAYERS)
-            params = shard(params, cfg, mesh)
+            params = _tp_shard(params, cfg, mesh, dev)
             pstream = paged_stream(cfg.vocab)[:TP_PAGED_REQUESTS]
             out["paged"] = {"n_layers": cfg.n_layers}
             for chunk in (1, CHUNK):
@@ -4611,14 +4648,14 @@ def tp_worker(spec_path: str) -> None:
                 res = serve_stream(eng, pstream)
                 eng.pool.check_invariants()
                 out["paged"][str(chunk)] = dict(
-                    tokens=tokens_of(res), steps=res.calls, seconds=res.seconds,
+                    tokens=_tp_tokens(res), steps=res.calls, seconds=res.seconds,
                     preemptions=eng.stats.preemptions, prefix_hits=eng.stats.prefix_hits,
                     launches=_tp_read(mods), finished=eng.stats.finished)
                 del eng
             eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
                          device=dev, mesh=mesh)
             res = serve_stream(eng, main_stream(cfg.vocab))
-            out["cut"] = dict(tokens=tokens_of(res), steps=res.calls, seconds=res.seconds)
+            out["cut"] = dict(tokens=_tp_tokens(res), steps=res.calls, seconds=res.seconds)
         else:
             mesh = make_local_mesh(1, 2)
             # (a) the first prefill step, 1 rank against 1 x 2
@@ -4641,20 +4678,20 @@ def tp_worker(spec_path: str) -> None:
                 return logits.float().cpu(), kv
 
             one_logits, one_kv = first_step(params, None)
-            one_weights = nbytes(params)
+            one_weights = _tp_nbytes(params)
             if rank == 0:
                 # the 1-rank engine's tokens at this depth (CUDA graphs), for
                 # the token agreement; rank 1 waits at the next collective
                 one = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC,
                              fused_decode=True, device=dev)
-                out["one_tokens"] = tokens_of(serve_stream(one, stream))
+                out["one_tokens"] = _tp_tokens(serve_stream(one, stream))
                 del one
-            params = shard(params, cfg, mesh)
+            params = _tp_shard(params, cfg, mesh, dev)
             tp_logits, tp_kv = first_step(params, mesh)
             out["first_logits_diff"] = float((tp_logits - one_logits).abs().max())
             out["first_logits_scale"] = float(one_logits.abs().max())
             out["first_logits_equal"] = bool(torch.equal(tp_logits, one_logits))
-            out["weights"] = [one_weights, nbytes(params)]
+            out["weights"] = [one_weights, _tp_nbytes(params)]
             out["kv"] = [one_kv, tp_kv]
             # (a) the engine on the serve phase's traffic, eager steps
             axis = axes.for_mesh(mesh)
@@ -4665,12 +4702,12 @@ def tp_worker(spec_path: str) -> None:
             warm.submit(np.arange(4, dtype=np.int32), 2)
             warm.run()
             del warm
-            sync()
+            _tp_sync(dev)
             calls0, s0, h0 = axis.stats.calls, axis.stats.seconds, axis.stats.host_copy_s
             mods = _tp_counts()
             res = serve_stream(eng, stream)
             out["launches"] = _tp_read(mods)
-            out.update(tokens=tokens_of(res), steps=res.calls, n_layers=cfg.n_layers, seconds=res.seconds,
+            out.update(tokens=_tp_tokens(res), steps=res.calls, n_layers=cfg.n_layers, seconds=res.seconds,
                        graphs=len(eng.graphs), kv_pool=eng.pool.nbytes(),
                        collectives=axis.stats.calls - calls0,
                        collective_s=axis.stats.seconds - s0,
@@ -4687,7 +4724,7 @@ def tp_worker(spec_path: str) -> None:
                                    cache_len=MAIN_SC, device=dev, mesh=mesh)
                     gen[str(c.rid)] = ref[0, c.prompt.size:].tolist()
             out["generate"] = gen
-        sync()
+        _tp_sync(dev)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
         Path(spec["out"], f"{spec['scenario']}.rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -4968,8 +5005,9 @@ def tp_train_worker(spec: dict) -> dict:
     """One rank of phase 17 (``python3 chip_smoke.py --tp-worker SPEC`` with
     a ``train-*`` scenario): ``pair`` (2 ranks: (a), then (b), then (c)'s
     checkpoint in one process on rank 0 and under 1 x 2), ``quad`` (4
-    ranks, beside ``pair``: (c), checkpointed into ``spec["ck"]``) or
-    ``whole`` (2 ranks: 1 x 2 at the whole depth, ``tools/port_tp_train.py``).
+    ranks, beside ``pair``: (c), checkpointed into ``spec["ck"]``),
+    ``whole`` (2 ranks: 1 x 2 at the whole depth, ``tools/port_tp_train.py``),
+    ``fam`` (phase 18), ``hyb-rg`` or ``hyb-whisper`` (phase 19).
     Every run goes through the launcher's ``parse_args``, ``build`` and
     ``train``; returns what the phase checks."""
     import torch
@@ -5072,6 +5110,32 @@ def tp_train_worker(spec: dict) -> dict:
             del run, state
             if card:
                 torch.cuda.empty_cache()
+    elif scenario == "hyb-whisper":
+        # phase 19's whisper training, a launch of its own beside the others
+        from repro_torch.dist import multihost as MH
+        from repro_torch.launch.mesh import make_local_mesh
+        MH.initialize(device=spec["device"], backend="gloo", timeout_secs=300)
+        out["whisper-base"] = _whisper_train(spec, rank, make_local_mesh(1, 2))
+    elif scenario == "hyb-rg":
+        # phase 19's recurrentgemma training through the launcher, on rank 0
+        # first one process before this rank joins the group (rank 1 waits)
+        res = out["recurrentgemma-2b"] = {}
+        if rank == 0:
+            args1, run1 = build(TP_HYB_TRAIN_ARGV, ["--num-processes", "1"],
+                                TP_HYB_TRAIN_LAYERS)
+            nb = F.per_device_bytes((run1.state.params, run1.state.opt_state))
+            _, res["one"] = train(args1, run1)
+            res["one"]["bytes"] = nb
+            del run1, _
+            if card:
+                torch.cuda.empty_cache()
+        args, run = build(TP_HYB_TRAIN_ARGV, TP_TRAIN_PAIR, TP_HYB_TRAIN_LAYERS)
+        nb = F.per_device_bytes((run.state.params, run.state.opt_state))
+        res["n_layers"] = run.cfg.n_layers
+        state, res["a"] = train(args, run)
+        res["a"].update(bytes=nb, n_leaves=len(tree_leaves(state.params)),
+                        plain_check=fsdp_shard_check(run, state, args, leaf=TP_HYB_TRAIN_LEAF),
+                        **_state_digests(state, run.transport))
     elif scenario == "pair":
         if rank == 0:
             # (a)'s one-process run, before this rank joins the group
@@ -5446,6 +5510,629 @@ def phase_tp_families(card: str, run: dict, *, rehearsal: bool = False) -> dict:
     return launches
 
 
+# phase 19, tp-hybrid (ROADMAP A12 items 1b and 2): the RG-LRU hybrid and the
+# encoder-decoder on the model axis, with head counts and a vocabulary the
+# axis does not divide, ranks sharing the card over gloo. recurrentgemma-2b
+# (10 query heads, 1 kv head of 256, vocab 256000) served on 1 x 2 at 6 of
+# its 26 layers (two rec, rec, local_attn groups) on the families' stream,
+# and on 1 x 4 at 3 (the query heads padded to 12); whisper-base (8 heads of
+# 64, vocab 51865: the embedding and tied head whole) whole on 1 x 2
+TP_HYB_SERVE_LAYERS = 6
+TP_HYB_QUAD_LAYERS = 3
+TP_HYB_QUAD_REQUESTS, TP_HYB_QUAD_GEN = 4, 8
+TP_HYB_WHISPER_STEPS = 24          # 8 lanes x 24 tokens: 4 prompt, 20 greedy
+# training: recurrentgemma-2b at 3 layers through the launcher, whisper-base
+# 3 fused AdamW steps on the whisper phase's batch, each beside one process
+TP_HYB_TRAIN_LAYERS = 3
+TP_HYB_TRAIN_ARGV = ["--arch", "recurrentgemma-2b", "--policy", "bf16_sr_kahan",
+                     "--fused-update", "--batch", "1", "--seq", "512", "--steps", "3", "--lr",
+                     "1e-4", "--seed", "0", "--device", "cuda"]
+TP_HYB_TRAIN_STEPS = 3
+TP_HYB_TRAIN_LEAF = "layers.b0.mixer.w_r.kernel"       # RG-LRU's square gate, a shard
+TP_HYB_WHISPER_LEAF = "dec_layers.cross_attn.wq.kernel"
+# the decode kernel at this phase's per-rank shapes, at the cache sizes the
+# phase runs: recurrentgemma's local attention (window 2048) in the
+# engines' MAIN_SC-cell ring on 1 x 2 (5 query heads on its kv head) and on
+# 1 x 4 (3; the last rank's heads 10 and 11 zero padding), and over the
+# window's whole 2048-cell view; whisper-base's under 1 x 2 (4 heads of 64 on
+# 4 kv heads): self-attention over its TP_HYB_WHISPER_STEPS-cell lock-step
+# cache, cross-attention over the source frames' keys with the query after
+# them ("cross": the cells are whisper's max_source_len)
+HYB_KERNEL_CASES = {
+    f"G=5 D=256, {MAIN_SC} cells": dict(hq=5, hkv=1, d=256, cells=MAIN_SC, window=G10_SC),
+    f"G=3 D=256, {MAIN_SC} cells": dict(hq=3, hkv=1, d=256, cells=MAIN_SC, window=G10_SC,
+                                        pad=True),
+    f"G=5 D=256, {G10_SC} cells": dict(hq=5, hkv=1, d=256, cells=G10_SC, window=G10_SC),
+    f"G=3 D=256, {G10_SC} cells": dict(hq=3, hkv=1, d=256, cells=G10_SC, window=G10_SC,
+                                       pad=True),
+    f"G=1 D=64, 4 heads, {TP_HYB_WHISPER_STEPS} cells": dict(hq=4, hkv=4, d=64,
+                                                             cells=TP_HYB_WHISPER_STEPS),
+    "G=1 D=64, 4 heads, cross-attention": dict(hq=4, hkv=4, d=64, cells="cross"),
+}
+# ... and qmatmul_f32 at the phase's row-parallel partials, 8 lanes: RG-LRU's
+# out (K = 2560 / 2), recurrentgemma's w_down (7680 / 2), whisper's wo and
+# w_down (N = 512)
+QMATMUL_F32_SHAPES.update({"rglru out, 8 lanes": (8, 2560, 1280),
+                           "recurrentgemma w_down, 8 lanes": (8, 2560, 3840),
+                           "whisper wo, 8 lanes": (8, 512, 256),
+                           "whisper w_down, 8 lanes": (8, 512, 1024)})
+
+
+def _hyb_per_step(cfg, mp: int) -> tuple[int, dict]:
+    """One tp serve step's model-axis collectives and kernel launches of
+    recurrentgemma on ``mp`` ranks: per RG-LRU block the ``xs`` gather,
+    ``out`` and ``w_down`` (6 bf16 ``qmatmul``: in_x, in_gate, w_r, w_i,
+    the MLP's gate and up; 2 ``qmatmul_f32``); per local-attention block
+    the k/v gather, ``wo`` and ``w_down``, with query heads the axis does
+    not divide the q and output gathers too (5 bf16, 2 f32, one decode);
+    then the embedding and the logits; two ``row_mean_sq`` per layer and
+    the final norm's."""
+    from repro_torch.models.transformer import _layer_plan
+    kinds, n_groups, rem = _layer_plan(cfg)
+    kinds = kinds * n_groups + rem
+    n_rec = kinds.count("rec")
+    n_attn = len(kinds) - n_rec
+    padded = 2 if cfg.n_heads % mp else 0
+    return (3 * n_rec + (3 + padded) * n_attn + 2,
+            {"qmatmul": 6 * n_rec + 5 * n_attn, "qmatmul_f32": 2 * len(kinds),
+             "decode_attention": n_attn, "row_mean_sq": 2 * len(kinds) + 1})
+
+
+def _whisper_model(spec: dict):
+    """whisper-base (reduced in a CPU rehearsal), ``bf16_standard``, and
+    the whisper phase's source frames and prompt."""
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.models import registry as R
+    cfg = R.get_config("whisper-base")
+    if spec.get("reduced"):
+        cfg = cfg.reduced()
+    policy = get_policy("bf16_standard")
+    dev = spec["device"]
+    g = torch.Generator(device=dev).manual_seed(70)
+    src_len = cfg.max_source_len if not spec.get("reduced") else 16
+    src = torch.randn((B, src_len, cfg.d_model), generator=g, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (B, WHISPER_PROMPT), generator=g, device=dev,
+                           dtype=torch.int32)
+    return cfg, policy, src, prompt
+
+
+def _whisper_lockstep(params, cfg, policy, src, prompt, mesh, *, feed=None) -> dict:
+    """Lock-step decode of ``TP_HYB_WHISPER_STEPS`` tokens per lane through
+    ``make_serve_step(fused_decode=True)`` under ``mesh``: the prompt, then
+    greedy tokens (or ``feed``'s, teacher-forced). Returns the fed tokens,
+    the last step's logits, the encode and per-step seconds."""
+    import torch
+    from repro_torch.core.qarith import QArith
+    from repro_torch.models import registry as R
+    from repro_torch.train.step import make_serve_step
+    dev = src.device
+    n = TP_HYB_WHISPER_STEPS
+    step = make_serve_step(cfg, policy, fused_decode=True, return_logits=True, mesh=mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.no_grad():
+        sync()
+        t = time.perf_counter()
+        cache = R.make_cache(params, cfg, batch_size=B, max_len=n, qa=QArith(policy),
+                             batch={"src_embeds": src}, mesh=mesh)
+        sync()
+        enc_s = time.perf_counter() - t
+        fed, step_s = [prompt[:, :1]], []
+        for i in range(n):
+            t = time.perf_counter()
+            out, logits, cache = step(params, cache, fed[-1],
+                                      torch.full((B,), i, dtype=torch.int32, device=dev))
+            sync()
+            step_s.append(time.perf_counter() - t)
+            if i + 1 < n:
+                fed.append(feed[:, i + 1:i + 2] if feed is not None else
+                           prompt[:, i + 1:i + 2] if i + 1 < WHISPER_PROMPT else out)
+    return {"fed": torch.cat(fed, 1), "logits": logits.float(), "enc_s": enc_s,
+            "step_s": step_s}
+
+
+def tp_hybrid_worker(spec: dict) -> dict:
+    """One rank of phase 19's serving (``python3 chip_smoke.py --tp-worker
+    SPEC``): ``hyb-serve`` (2 ranks: recurrentgemma at
+    ``TP_HYB_SERVE_LAYERS`` on the families' stream beside rank 0's 1-rank
+    engine), ``hyb-quad`` (4 ranks: recurrentgemma at
+    ``TP_HYB_QUAD_LAYERS`` on 1 x 4, the padded query heads) or
+    ``hyb-whisper`` (2 ranks: whisper-base's lock-step decode beside rank
+    0's one process). Returns what the phase checks."""
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.dist import axes
+    from repro_torch.dist import multihost as MH
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.models import registry as R
+    from repro_torch.serve.engine import Engine
+    dev = spec["device"]
+    card = dev == "cuda"
+    rank = MH.process_index()
+    out = {"rank": rank}
+
+    def mark(axis):
+        st = axis.stats
+        return st.calls, st.seconds, st.host_copy_s
+
+    quad = spec["scenario"] == "hyb-quad"
+    mesh = make_local_mesh(1, 4 if quad else 2)
+    axis = axes.for_mesh(mesh)
+    layers = TP_HYB_QUAD_LAYERS if quad else TP_HYB_SERVE_LAYERS
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    if spec["scenario"] == "hyb-whisper":
+        # whisper-base whole: rank 0's one-process greedy run, then 1 x 2, then
+        # rank 0's one process teacher-forced on the 1 x 2 run's tokens
+        cfg, policy, src, prompt = _whisper_model(spec)
+        params = R.init(cfg, 0, policy.param_dtype, device=dev)
+        res = {"weights": [_tp_nbytes(params)]}
+        if rank == 0:
+            res["one"] = _whisper_lockstep(params, cfg, policy, src, prompt, None)
+        whole = params if rank == 0 else None
+        local = _tp_shard(params, cfg, mesh, dev)
+        del params
+        res["weights"].append(_tp_nbytes(local))
+        c0 = mark(axis)
+        mods = _tp_counts()
+        tp = _whisper_lockstep(local, cfg, policy, src, prompt, mesh)
+        c1 = mark(axis)
+        res.update(launches=_tp_read(mods), collectives=c1[0] - c0[0],
+                   collective_s=c1[1] - c0[1], host_copy_s=c1[2] - c0[2],
+                   fed=tp["fed"].tolist(), enc_s=tp["enc_s"], step_s=tp["step_s"])
+        if rank == 0:
+            forced = _whisper_lockstep(whole, cfg, policy, src, prompt, None, feed=tp["fed"])
+            err = float((tp["logits"] - forced["logits"]).abs().max())
+            res["logits_err"], res["logits_scale"] = err, float(forced["logits"].abs().max())
+            res["one_fed"] = res.pop("one")["fed"].tolist()
+        res["last_digest"] = digest(tp["logits"])
+        _tp_sync(dev)
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+        out["whisper-base"] = res
+        del local, whole
+        return out
+    # recurrentgemma: rank 1 (and on 1 x 4 ranks 1-3) draws the whole cut
+    # model once rank 0 has sharded its own
+    if rank:
+        tdist.barrier()
+    params, cfg, policy = _tp_model(spec, layers, "recurrentgemma-2b")
+    stream = family_stream(cfg.vocab)
+    if quad:
+        stream = [(0, p, TP_HYB_QUAD_GEN) for _, p, _ in stream[:TP_HYB_QUAD_REQUESTS]]
+    res = {"n_layers": cfg.n_layers, "weights": [_tp_nbytes(params)]}
+    if rank == 0:
+        one = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                     device=dev)
+        res["one_tokens"] = _tp_tokens(serve_stream(one, stream))
+        del one
+    params = _tp_shard(params, cfg, mesh, dev)
+    if rank == 0:
+        tdist.barrier()
+    res["weights"].append(_tp_nbytes(params))
+    eng = Engine(params, cfg, policy, n_slots=8, max_len=MAIN_SC, fused_decode=True,
+                 device=dev, mesh=mesh)
+    _tp_sync(dev)
+    c0 = mark(axis)
+    mods = _tp_counts()
+    r = serve_stream(eng, stream)
+    c1 = mark(axis)
+    res.update(launches=_tp_read(mods), tokens=_tp_tokens(r), steps=r.calls,
+               seconds=r.seconds, finished=eng.stats.finished, graphs=len(eng.graphs),
+               collectives=c1[0] - c0[0], collective_s=c1[1] - c0[1],
+               host_copy_s=c1[2] - c0[2], kv=eng.pool.nbytes())
+    del eng, params
+    _tp_sync(dev)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+    out["recurrentgemma-2b"] = res
+    return out
+
+
+def _state_digests(state, tr) -> dict:
+    """Every leaf of a train state (params, then optimizer state; the
+    wire's residuals left out) digested, whether its spec replicates it
+    over the model axis, and the bytes of the replicated ones."""
+    from repro_torch.dist import fsdp as F
+    from repro_torch.train import checkpoint as CK
+    leaves = CK.flatten(state)[1:]
+    leaves = leaves[:len(leaves) - len(CK.flatten(state.wire_residuals))]
+    specs = F.flat_specs(F.train_state_specs(state, tr.pspecs, tr))[1:]
+    replicated = [not F.sharded_dims(s) for s in specs[:len(leaves)]]
+    return {"digests": [digest(t) for t in leaves], "replicated": replicated,
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t, rep in zip(leaves, replicated) if rep)}
+
+
+def _whisper_train(spec: dict, rank: int, mesh) -> dict:
+    """phase 19's whisper training: rank 0's one process, then 1 x 2 on
+    ``mesh`` (``make_train_step(mesh=)``: the launcher trains on the token
+    stream), 3 fused AdamW steps of ``bf16_sr_kahan`` on the whisper
+    phase's batch (8 x 1500 frames, 448 target tokens) each."""
+    import types
+    import torch
+    from repro_torch.core.policy import get_policy
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.dist import axes
+    from repro_torch.dist import fsdp as F
+    from repro_torch.dist import partition as PT
+    from repro_torch.dist import transport as TR
+    from repro_torch.models import registry as R
+    from repro_torch.optim import constant, fused_adamw_optimizer
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.train_state import make_train_state
+    from repro_torch.tree import tree_leaves
+    card = spec["device"] == "cuda"
+    FA = kernel_module("fused_adamw")
+    cfg, _, src, _ = _whisper_model(spec)
+    tpol = get_policy("bf16_sr_kahan")
+    toks = next(lm_batches(cfg.vocab, B, 64 if spec.get("reduced") else R.TGT_LEN_ENCDEC,
+                           seed=0, device=spec["device"]))
+    batch = {"src_embeds": src, **toks}
+    out = {}
+
+    def run(m):
+        params = R.init(cfg, 0, tpol.param_dtype, device=spec["device"])
+        pspecs = PT.param_specs(params, cfg, m) if m is not None else None
+        opt = fused_adamw_optimizer(tpol, b2=0.99609375, weight_decay=0.01, mesh=m,
+                                    pspecs=pspecs)
+        tr = (TR.make_transport(mesh=m, placement=PT.Placement(), pspecs=pspecs)
+              if m is not None else None)
+        if m is not None:
+            params = F.shard_state(params, pspecs, m)
+        state = make_train_state(params, opt, transport=tr)
+        step = make_train_step(cfg, tpol, opt, constant(WHISPER_LR), attn_chunk=src.shape[1],
+                               transport=tr, mesh=m)
+        axis = axes.for_mesh(m)
+        nb = F.per_device_bytes((state.params, state.opt_state))
+        if card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        FA.LAUNCHES = 0
+        losses, walls, marks = [], [], []
+        for i in range(TP_HYB_TRAIN_STEPS):
+            t = time.perf_counter()
+            if axis is not None and i == 1:
+                marks.append((axis.stats.calls, axis.stats.seconds, axis.stats.host_copy_s))
+            state, met = step(state, batch, 0)
+            losses.append(float(met["loss"]))
+            walls.append(time.perf_counter() - t)
+        res = {"losses": losses, "step_s": walls, "bytes": nb,
+               "launches": {"fused_adamw": FA.LAUNCHES},
+               "n_leaves": len(tree_leaves(state.params)),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if card else 0.0}
+        if axis is not None:
+            st = axis.stats
+            res.update({k: (b - a) / (TP_HYB_TRAIN_STEPS - 1) for k, a, b in zip(
+                ("collectives", "collective_s", "host_copy_s"), marks[0],
+                (st.calls, st.seconds, st.host_copy_s))})
+            res.update(_state_digests(state, tr))
+            fake = types.SimpleNamespace(transport=tr, mesh=m)
+            res["plain_check"] = fsdp_shard_check(fake, state, types.SimpleNamespace(seed=0),
+                                                  leaf=TP_HYB_WHISPER_LEAF)
+        return res
+    if rank == 0:
+        out["one"] = run(None)
+        if card:
+            torch.cuda.empty_cache()
+    out["a"] = run(mesh)
+    return out
+
+
+def tp_hybrid_launches(run: dict, start) -> None:
+    """Phase 19's launches, into ``run``, all five side by side: each
+    model's training and 1 x 2 serving on 2 ranks each, recurrentgemma's
+    1 x 4 serving on 4 (~50 GiB of the card together). A launch's rank 1 idles
+    while its rank 0 runs the one-process comparisons, so more launches
+    keep the cores busy. ``start(scenario, n)`` starts one
+    (:func:`_tp_start`)."""
+    names = (("train-hyb-rg", 2), ("train-hyb-whisper", 2), ("hyb-serve", 2),
+             ("hyb-whisper", 2), ("hyb-quad", 4))
+    launches = dict(zip((name for name, _ in names), (start(name, n) for name, n in names)))
+    walls = {}
+    while len(walls) < len(launches):          # each launch's own wall
+        for name, (proc, t0, *_) in launches.items():
+            if name not in walls and proc.poll() is not None:
+                walls[name] = time.perf_counter() - t0
+        if len(walls) < len(launches):
+            check(min(t0 for _, t0, *_ in launches.values()) > time.perf_counter() - 600,
+                  f"[tp-hybrid] launches {sorted(set(launches) - set(walls))} did not end")
+            time.sleep(0.5)
+    for name, launch in launches.items():
+        run[name] = (_tp_wait(launch)[0], walls[name])
+
+
+def hyb_runs(*, rehearsal: bool = False) -> dict:
+    """Phase 19's launches (:func:`tp_hybrid_launches`) in a root of their
+    own; a launch still running when another fails is ended. Returns what
+    :func:`phase_tp_hybrid` checks."""
+    import tempfile
+    kw = dict(device="cpu", reduced=True) if rehearsal else {}
+    run = {"root": Path(tempfile.mkdtemp(prefix="repro-hyb-"))}
+    procs = []
+
+    def start(name, n):
+        launch = _tp_start(run["root"], name, n, **kw)
+        procs.append(launch[0])
+        return launch
+    try:
+        tp_hybrid_launches(run, start)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+    return run
+
+
+def phase_kernel_hybrid(card: str) -> float:
+    """The contiguous decode kernel at phase 19's per-rank shapes and cache
+    sizes (``HYB_KERNEL_CASES``): recurrentgemma's local attention on 1 x 2
+    (G = 5, D = 256) and 1 x 4 (G = 3, the last two query heads zero, as
+    the last rank's padding is), window 2048, over the engines' 256-cell
+    ring and the window's 2048-cell view, lanes at mixed depths, two of
+    them parked; whisper's under 1 x 2 (G = 1, D = 64, 4 heads): its
+    self-attention over the 24-cell lock-step cache at mixed depths, two
+    lanes parked, and its cross-attention over the 1500 source keys, the
+    query at 1500. bf16 and f32: within atol = rtol = 1e-2 and 1% of each
+    lane's RMS of the plain version, two calls equal, parked lanes zero;
+    then each bf16 case's time beside its bound, the plain version's and
+    ``scaled_dot_product_attention``'s. Returns the largest |kernel −
+    plain|."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models.registry import get_config
+    src = get_config("whisper-base").max_source_len
+
+    def call(fn, x):
+        return fn(x["q"], x["k"], x["v"], x["k_pos"], x["q_pos"], window=x["window"],
+                  p_dtype=x["q"].dtype)
+
+    def case(shape, dtype, seed):
+        heads = dict(hq=shape["hq"], hkv=shape["hkv"], d=shape["d"])
+        if shape["cells"] == "cross":
+            x = _inputs(src, seed, **heads, dtype=dtype)
+            cells = torch.arange(src, dtype=torch.int32, device="cuda")[None].expand(B, -1)
+            x.update(k_pos=cells.contiguous(),
+                     q_pos=torch.full((B,), src, dtype=torch.int32, device="cuda"))
+            return x, ()
+        x = _inputs(shape["cells"], seed, window=shape.get("window"), parked=(1, 6), **heads,
+                    dtype=dtype)
+        if shape.get("pad"):
+            x["q"][:, :, 1:] = 0                # the last rank's padded heads 10 and 11
+        return x, (1, 6)
+
+    max_err = 0.0
+    for i, (tag, shape) in enumerate(HYB_KERNEL_CASES.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, parked = case(shape, dtype, 90 + i)
+            got, again = call(DA.fused_decode_attention, x), call(DA.fused_decode_attention, x)
+            want = call(DA.decode_attention_ref, x)
+            torch.cuda.synchronize()
+            name = f"{tag} {str(dtype).split('.')[-1]}"
+            check(got.shape == (B, 1, shape["hq"], shape["d"])
+                  and bool(torch.isfinite(got).all()), f"{name}: output or non-finite")
+            check(torch.equal(got, again), f"{name}: two calls differ")
+            check(all(bool((got[lane] == 0).all()) for lane in parked),
+                  f"{name}: a parked lane is not exactly zero")
+            err = float((got - want).abs().max())
+            ratio = rms_ratio(got, want, x["q_pos"])
+            check(torch.allclose(got, want, atol=ATOL, rtol=RTOL) and ratio <= REL_RMS,
+                  f"{name}: kernel vs plain max |err| {err}, {ratio} of a lane's RMS")
+            max_err = max(max_err, err)
+            print(f"[kernel-hybrid] {name}: max |kernel - plain| {err:.3e} (atol=rtol={ATOL}), "
+                  f"{ratio:.3e} of a lane's RMS; two calls equal"
+                  + (f", parked lanes {parked[0]}, {parked[1]} zero" if parked else ""))
+        x, _ = case(shape, torch.bfloat16, 95 + i)
+        kv_bytes = 2 * x["k"].numel() * x["k"].element_size()
+        # the timed graph cycles over at most 64 calls' copies
+        copies = [x] + [{n: t.clone() if hasattr(t, "clone") else t for n, t in x.items()}
+                        for _ in range(min(-(-64 * 2**20 // kv_bytes), 64) - 1)]
+        ms = time_ms([lambda c=c: call(DA.fused_decode_attention, c) for c in copies])
+        plain_ms = time_ms([lambda c=c: call(DA.decode_attention_ref, c) for c in copies],
+                           calls=16)
+
+        def sdpa(c):
+            allowed = ((c["k_pos"] >= 0) & (c["k_pos"] <= c["q_pos"][:, None]))[:, None, None]
+            qt, kt, vt = c["q"].transpose(1, 2), c["k"].transpose(1, 2), c["v"].transpose(1, 2)
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                          enable_gqa=True)
+        library_ms = time_ms([sdpa(c) for c in copies])
+        bound_ms, bound_by = _bound_ms(x)
+        live = x["q_pos"][x["q_pos"] >= 0]
+        print(f"[kernel-hybrid] {tag} bf16, {B} lanes over {x['k'].shape[1]} cells, q_pos "
+              f"{int(live.min())}-{int(live.max())} on {card}: kernel {ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {library_ms:.4f} ms (device time, "
+              f"{len(copies)} input copies rotated)")
+    return max_err
+
+
+def phase_tp_hybrid(card: str, run: dict, *, rehearsal: bool = False) -> dict:
+    """ROADMAP A12 items 1b and 2 on the card (phase 19): the RG-LRU hybrid
+    and the encoder-decoder on the model axis, ranks sharing the card over
+    gloo (``--tp-worker`` scenarios ``hyb-serve``, ``hyb-quad``,
+    ``hyb-whisper``, ``train-hyb-rg`` and ``train-hyb-whisper``), at
+    published widths.
+
+    Serving: recurrentgemma-2b at ``TP_HYB_SERVE_LAYERS`` on 1 x 2 (its kv
+    head gathered, 5 query heads per rank) on the families' stream (12
+    greedy requests of 24 tokens, 8 slots, eager), and at
+    ``TP_HYB_QUAD_LAYERS`` on 1 x 4 (10 query heads padded to 12) on 4
+    requests of 8 tokens: the ranks' tokens bitwise equal, the share equal
+    to a 1-rank engine's at the same depth (CUDA graphs; printed, C18), per
+    step the counted collectives and launches (:func:`_hyb_per_step`),
+    weights per rank. whisper-base whole on 1 x 2 (its embedding and tied
+    head whole), 8 lanes x ``TP_HYB_WHISPER_STEPS`` tokens in lock-step:
+    the ranks' tokens and last logits bitwise equal, the last logits within
+    0.05 of the largest |logit| of one process teacher-forced on the same
+    tokens (the whisper phase's bound), the token share against one
+    process's greedy run printed, 3 collectives per decoder layer per step
+    and none at the whole embedding or logits. Training: recurrentgemma-2b
+    at ``TP_HYB_TRAIN_LAYERS`` through the launcher (``bf16_sr_kahan
+    --fused-update``, 1 x 512, lr 1e-4) and whisper-base on the whisper
+    phase's batch (``make_train_step(mesh=)``), 3 steps each beside one
+    process: ranks bitwise on the losses and every replicated or whole
+    leaf, losses within ``TP_TRAIN_LOSS_BAR`` of one process's, a shard's
+    ``fused_adamw`` == its plain version with the folded seed, the weights
+    and state of the leaves the specs shard at most ``TP_TRAIN_BYTES_BAR``
+    of one process's bytes of them per rank (whole leaves, whisper's
+    embedding, count in full), one ``fused_adamw`` launch per local leaf
+    per step. Prints ms per step,
+    collectives (counted and predicted), their ms and host-copy ms, peak
+    GiB per rank. ``run`` is :func:`hyb_runs`'s. Returns the runs'
+    launches (serving: rank 0's; ``fused_adamw``: every rank's)."""
+    import shutil
+    import numpy as np
+    from repro_torch.models import registry as R
+    shutil.rmtree(run["root"], ignore_errors=True)
+    (serve, serve_wall), (quad, quad_wall) = run["hyb-serve"], run["hyb-quad"]
+    trains = {"recurrentgemma-2b": run["train-hyb-rg"],
+              "whisper-base": run["train-hyb-whisper"]}
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def ms_of(seconds, steps):
+        return 1e3 * seconds / max(steps, 1)
+
+    for ranks, mp in ((serve, 2), (quad, 4)):
+        tag = f"recurrentgemma-2b 1 x {mp}"
+        r0 = ranks[0]["recurrentgemma-2b"]
+        check(all(r["recurrentgemma-2b"]["tokens"] == r0["tokens"] for r in ranks),
+              f"[tp-hybrid] {tag}: the ranks' tokens differ")
+        n_req = TP_HYB_QUAD_REQUESTS if mp == 4 else 12
+        check(r0["finished"] == n_req and r0["graphs"] == 0,
+              f"[tp-hybrid] {tag}: finished {r0['finished']}/{n_req}, graphs {r0['graphs']}")
+        cfg = R.get_config("recurrentgemma-2b")
+        cfg = cfg.reduced() if rehearsal else dataclasses.replace(cfg, n_layers=r0["n_layers"])
+        coll, per_kernel = _hyb_per_step(cfg, mp)
+        check(r0["collectives"] == coll * r0["steps"],
+              f"[tp-hybrid] {tag}: {r0['collectives']} collectives in {r0['steps']} steps, "
+              f"expected {coll} per step")
+        per = {k: n / r0["steps"] for k, n in r0["launches"].items() if n}
+        check(rehearsal or per == per_kernel,
+              f"[tp-hybrid] {tag}: launches per step {per}, expected {per_kernel}")
+        add(r0["launches"])
+        one = r0["one_tokens"]
+        same = sum(int(np.sum(np.asarray(r0["tokens"][rid]) == np.asarray(t)))
+                   for rid, t in one.items())
+        total = sum(len(t) for t in one.values())
+        firsts = sum(r0["tokens"][rid][0] == t[0] for rid, t in one.items())
+        w1, w2 = r0["weights"]
+        print(f"[tp-hybrid] serve {tag} on {card}: {r0['n_layers']} layers over gloo, "
+              f"{r0['steps']} eager steps in {r0['seconds']:.2f}s -> "
+              f"{ms_of(r0['seconds'], r0['steps']):.2f} ms per step; collectives {coll} per "
+              f"step (counted {r0['collectives'] / r0['steps']:.0f}) taking "
+              f"{ms_of(r0['collective_s'], r0['steps']):.2f} ms, of which host copies "
+              f"{ms_of(r0['host_copy_s'], r0['steps']):.2f} ms; launches per step {per}; "
+              f"weights {w2 / 2**30:.3f} GiB per rank ({w2 / w1:.4f} of one rank's "
+              f"{w1 / 2**30:.3f}), KV and state {r0['kv'] / 2**20:.1f} MiB; peak "
+              f"{max(r['recurrentgemma-2b']['peak_gib'] for r in ranks):.2f} GiB per rank; "
+              f"ranks bitwise; tokens equal to the 1-rank engine's (graphs): {same}/{total}, "
+              f"first tokens {firsts}/{len(one)} (C18)")
+    (wserve, wserve_wall) = run["hyb-whisper"]
+    w0, w1 = wserve[0]["whisper-base"], wserve[1]["whisper-base"]
+    check(w0["fed"] == w1["fed"] and w0["last_digest"] == w1["last_digest"],
+          "[tp-hybrid] whisper 1 x 2: the ranks' tokens or last logits differ")
+    cfg = R.get_config("whisper-base")
+    if rehearsal:
+        cfg = cfg.reduced()
+    n = TP_HYB_WHISPER_STEPS
+    rel = w0["logits_err"] / w0["logits_scale"]
+    check(rel < 0.05, f"[tp-hybrid] whisper 1 x 2: last logits {rel:.3e} of the largest "
+          "|logit| from one process's on the same tokens (bound 0.05)")
+    per_step = 3 * cfg.n_layers + (0 if cfg.vocab % 2 else 2)
+    enc = 2 * cfg.n_enc_layers
+    check(w0["collectives"] == enc + per_step * n,
+          f"[tp-hybrid] whisper 1 x 2: {w0['collectives']} collectives, expected {enc} to "
+          f"encode and {per_step} per step")
+    want = {"decode_attention": 2 * cfg.n_layers, "qmatmul": 6 * cfg.n_layers,
+            "qmatmul_f32": 3 * cfg.n_layers}
+    per = {k: v / n for k, v in w0["launches"].items() if v}
+    check(rehearsal or per == want,
+          f"[tp-hybrid] whisper 1 x 2: launches per step {per}, expected {want}")
+    add(w0["launches"])
+    fed, one_fed = np.asarray(w0["fed"]), np.asarray(w0["one_fed"])
+    same = int((fed[:, WHISPER_PROMPT:] == one_fed[:, WHISPER_PROMPT:]).sum())
+    total = fed[:, WHISPER_PROMPT:].size
+    step_ms = 1e3 * float(np.mean(w0["step_s"][1:]))
+    print(f"[tp-hybrid] serve whisper-base 1 x 2 on {card}: {cfg.n_enc_layers} + "
+          f"{cfg.n_layers} layers, vocab {cfg.vocab} "
+          f"{'whole on every rank' if cfg.vocab % 2 else 'vocab-parallel'}; {B} lanes encoded "
+          f"in {w0['enc_s']:.3f}s, {n} lock-step steps at {step_ms:.2f} ms per step after the "
+          f"first; collectives {per_step} per step (+ {enc} to encode), "
+          f"{1e3 * w0['collective_s'] / n:.2f} ms per step, of which host copies "
+          f"{1e3 * w0['host_copy_s'] / n:.2f} ms; launches per step {per}; weights "
+          f"{w0['weights'][1] / 2**20:.1f} MiB per rank ({w0['weights'][1] / w0['weights'][0]:.4f} "
+          f"of one process's); last logits {rel:.3e} of scale from one process's on the same "
+          f"tokens (bound 0.05); ranks bitwise; greedy tokens equal to one process's: "
+          f"{same}/{total} (C18); peak {w0['peak_gib']:.2f} GiB per rank")
+    for name, (train, _) in trains.items():
+        t0, t1 = train[0][name], train[1][name]
+        a0, a1 = t0["a"], t1["a"]
+        check(a0["losses"] == a1["losses"], f"[tp-hybrid] train {name}: the ranks' losses "
+              f"differ: {a0['losses']} {a1['losses']}")
+        n_rep = 0
+        for i, rep in enumerate(a0["replicated"]):
+            if rep:
+                n_rep += 1
+                check(a0["digests"][i] == a1["digests"][i],
+                      f"[tp-hybrid] train {name}: replicated state leaf {i} differs between "
+                      "the ranks")
+        one = t0["one"]["losses"]
+        gap = max(abs(x - y) for x, y in zip(a0["losses"], one))
+        check(len(one) == len(a0["losses"]) == TP_HYB_TRAIN_STEPS
+              and gap <= TP_TRAIN_LOSS_BAR,
+              f"[tp-hybrid] train {name}: losses {a0['losses']} against one process's {one} "
+              f"(bar {TP_TRAIN_LOSS_BAR})")
+        for res in (t0, t1):
+            check(res["a"]["plain_check"]["equal"],
+                  f"[tp-hybrid] train {name}: the {res['a']['plain_check']['leaf']} shard's "
+                  "fused_adamw != its plain version with the folded seed")
+            k = res["a"]["n_leaves"] * TP_HYB_TRAIN_STEPS
+            check(rehearsal or res["a"]["launches"]["fused_adamw"] == k,
+                  f"[tp-hybrid] train {name}: launches {res['a']['launches']} for {k} leaf "
+                  "steps")
+            add({"fused_adamw": res["a"]["launches"]["fused_adamw"]})
+        # the leaves the specs shard at most the bar's share of one
+        # process's bytes of them; whole leaves (whisper's 51865-row
+        # embedding: 36% of its parameters) count in full
+        whole = a0["whole_bytes"]
+        ratio = max(a0["bytes"], a1["bytes"]) / t0["one"]["bytes"]
+        sharded = (max(a0["bytes"], a1["bytes"]) - whole) / (t0["one"]["bytes"] - whole)
+        check(sharded <= TP_TRAIN_BYTES_BAR, f"[tp-hybrid] train {name}: the sharded "
+              f"leaves' bytes per rank {sharded:.4f} of one process's (bar "
+              f"{TP_TRAIN_BYTES_BAR}; {whole} bytes of whole leaves)")
+        ms = [1e3 * sum(r["a"]["step_s"][1:]) / max(len(r["a"]["step_s"]) - 1, 1)
+              for r in (t0, t1)]
+        one_ms = 1e3 * sum(t0["one"]["step_s"][1:]) / max(len(t0["one"]["step_s"]) - 1, 1)
+        print(f"[tp-hybrid] train {name} 1 x 2 on {card}: {t0.get('n_layers', 'all')} layers, "
+              f"bf16_sr_kahan fused: losses {[round(x, 4) for x in a0['losses']]} (1 process "
+              f"{[round(x, 4) for x in one]}, within {gap:.2e}, bar {TP_TRAIN_LOSS_BAR}); "
+              f"ranks bitwise on {n_rep} replicated or whole leaves and the losses; the "
+              f"{a0['plain_check']['leaf']} shard's fused_adamw == plain (folded seed); steps "
+              f"1-{TP_HYB_TRAIN_STEPS - 1} {ms[0]:.2f} ms per step (rank 1 {ms[1]:.2f}; 1 "
+              f"process {one_ms:.2f}); model-axis collectives {a0['collectives']:.0f} per "
+              f"step taking {1e3 * a0['collective_s']:.2f} ms, of which host copies "
+              f"{1e3 * a0['host_copy_s']:.2f} ms; weights and state "
+              f"{a0['bytes'] / 2**30:.3f} GiB per rank, {ratio:.4f} of one process's "
+              f"{t0['one']['bytes'] / 2**30:.3f} (its sharded leaves {sharded:.4f}, bar "
+              f"{TP_TRAIN_BYTES_BAR}; whole leaves {whole / 2**30:.3f} GiB); peak "
+              f"{a0['peak_gib']:.2f} GiB per rank (1 process {t0['one']['peak_gib']:.2f}); "
+              f"launches {a0['launches']}")
+    print(f"[tp-hybrid] launch walls, side by side: training recurrentgemma "
+          f"{trains['recurrentgemma-2b'][1]:.1f}s and whisper {trains['whisper-base'][1]:.1f}s, "
+          f"1 x 2 serving recurrentgemma {serve_wall:.1f}s and whisper {wserve_wall:.1f}s, "
+          f"1 x 4 serving {quad_wall:.1f}s")
+    return launches
+
+
 def phase_qmatmul_f32(card: str) -> dict:
     """(d) The f32-result entry of ``qmatmul``: rounded to bf16 it is the
     bf16 entry bit for bit on both paths, its rows do not depend on the
@@ -5541,6 +6228,8 @@ def main():
     g10_err = phase_kernel_g10(card)
     for name in ("decode_attention", "paged_decode_attention"):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], g10_err)
+    rows["decode_attention"]["max_abs_err"] = max(rows["decode_attention"]["max_abs_err"],
+                                                  phase_kernel_hybrid(card))
     stamp("serve")
     model = serve_model()
     rows["row_mean_sq"] = phase_row_probe(card, *model)
@@ -5604,6 +6293,12 @@ def main():
         launches[k] += n
     stamp("tp-families checks")
     for k, n in phase_tp_families(card, tp_run).items():
+        launches[k] += n
+    # phase 19 in series: beside the paper window and the tp thread (phase
+    # 18's mixtral training, then phase 17's) its launches ran the card out
+    # of memory
+    stamp("tp-hybrid")
+    for k, n in phase_tp_hybrid(card, hyb_runs()).items():
         launches[k] += n
     stamp("dist")
     for k, n in phase_dist(card, *train_ref).items():

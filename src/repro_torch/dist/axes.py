@@ -21,6 +21,10 @@ model reads it with :func:`current`, and the collectives are explicit
   order in f32 and rounds the sum once to the compute dtype, so every rank
   gets the same bits. Its backward hands the replicated cotangent to this
   rank's partial;
+* :func:`vocab_whole` — whether this rank holds the whole vocabulary
+  (no axis, or one that does not divide it: ``param_specs`` then leaves
+  the embedding and the head whole), the one rule the embedding, the
+  logits and the loss read;
 * :func:`embed_lookup` — the vocab-parallel embedding: each rank gathers
   the rows its vocab slice holds (zero elsewhere); the rows are gathered
   and each token takes the part of the one rank that holds its id, which
@@ -37,7 +41,14 @@ model reads it with :func:`current`, and the collectives are explicit
   contiguously): the rank holding a half's columns sends each rank that
   rank's channels of it (one all-to-all, no arithmetic), so every rank
   gets both halves of its own channels; its backward is the inverse
-  exchange.
+  exchange;
+* :func:`gather_shards` — column-parallel outputs whole on every rank
+  (the shards concatenated in rank order; exact), where a shard holds
+  part of a unit later work needs whole: a head the axis splits (k and v
+  of fewer kv heads than ranks, q of query heads the axis does not
+  divide, the attention output before ``wo``), RG-LRU's channels before
+  its square gate kernels. Its backward sums the ranks' cotangents in
+  f32 in rank order, rounds once and keeps this rank's columns.
 
 Each Function captures the :class:`ModelAxis` at forward time, and its
 backward never reads :func:`current`: the installed axis is thread-local,
@@ -62,8 +73,8 @@ import torch
 from repro_torch.optim.grad_compress import WireStats, exchange_parts, gather_parts
 
 __all__ = ["AxisStats", "ModelAxis", "current", "model_axis", "for_mesh", "local_slice",
-           "copy_to_model", "row_parallel_sum", "embed_lookup", "vocab_parallel_xent",
-           "gather_logits", "own_halves"]
+           "copy_to_model", "row_parallel_sum", "vocab_whole", "embed_lookup", "vocab_parallel_xent",
+           "gather_logits", "own_halves", "gather_shards"]
 
 
 @dataclasses.dataclass
@@ -223,6 +234,17 @@ class _SelectOwner(torch.autograd.Function):
             None, None
 
 
+def vocab_whole(vocab: int) -> bool:
+    """Whether this rank holds the whole vocabulary of ``vocab`` ids: no
+    model axis is installed, or its size does not divide ``vocab``, so
+    that ``partition.param_specs`` leaves the embedding and the head
+    whole. The lookup, the logits and the loss are then one process's on
+    every rank, and so is each rank's gradient of the embedding and of
+    the head."""
+    axis = current()
+    return axis is None or vocab % axis.size != 0
+
+
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows ``ids`` of the vocab-parallel ``table`` (this rank's
     ``(V / size, D)`` slice): each rank looks up the ids of its slice, the
@@ -333,3 +355,33 @@ def own_halves(local: torch.Tensor) -> torch.Tensor:
     a model axis."""
     axis = current()
     return local if axis is None else _OwnHalves.apply(local, axis)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, *locals_):
+        ctx.axis = axis
+        ctx.width = locals_[0].shape[-1]
+        parts = _gather(torch.stack(locals_), axis)          # size x (n, ..., w)
+        return tuple(torch.cat([p[i] for p in parts], dim=-1) for i in range(len(locals_)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis, w = ctx.axis, ctx.width
+        total = _rank_order_sum(torch.stack(grads), axis).to(grads[0].dtype)
+        return (None, *(t.narrow(-1, axis.rank * w, w).contiguous() for t in total))
+
+
+def gather_shards(*locals_: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each of ``locals_`` (column-parallel outputs of one shape: this
+    rank's share of their last dim) whole on every rank, the shards
+    concatenated in rank order: exact, no arithmetic, one collective for
+    all of them. The gradient of a result is the model group's
+    cotangents summed in f32 in rank order, rounded once to its dtype,
+    at this rank's columns (each rank's cotangent covers the columns its
+    later work read: the sum is the whole one). ``locals_`` themselves
+    outside a model axis."""
+    axis = current()
+    if axis is None:
+        return locals_
+    return _GatherShards.apply(axis, *locals_)

@@ -15,11 +15,15 @@ size divides that the model axis did not claim (:func:`param_specs`), and
 :func:`state_shardings` co-shards every parameter-shaped optimizer buffer
 with its parameter.
 
-What the port runs on a model axis above 1 is serving and training the
-dense decoder-only families, the MoE families and Mamba
-(:func:`serve_refusal`); RG-LRU, the encoder-decoder, padded head counts
-and paged pools under a data axis above 1 are ROADMAP A12, FSDP beside a
-model axis above 1 is A13.
+What the port runs on a model axis above 1 is serving and training every
+family (:func:`serve_refusal`): the dense and MoE decoder-only families,
+Mamba, the RG-LRU hybrid and the encoder-decoder, with head counts the
+axis does not divide (the reference's padded head split,
+``models/layers.py::head_plan``) and a vocabulary it does not divide (the
+embedding and head whole on every rank, as the name rules leave them).
+Paged pools under a data axis above 1 and channel widths the axis does
+not divide (``d_ff``, ``d_inner``, RG-LRU's width) are ROADMAP A12, FSDP
+beside a model axis above 1 is A13.
 
 :func:`batch_specs`, :func:`cache_specs` and :func:`serve_input_specs`
 give the reference's specs; :func:`rank_rows` applies the batch's: a rank
@@ -145,33 +149,35 @@ def mp_size(mesh) -> int:
 def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
     """Why the port cannot serve (or, with ``paged=False``, train) ``cfg``
     on ``mesh`` (None when it can). On a model axis above 1 it serves and
-    trains the dense families, the MoE families (tensor parallelism inside
-    the experts) and Mamba, with the axis dividing the head counts, the
-    MLP or expert width, Mamba's ``d_inner`` and the vocabulary; RG-LRU
-    and the encoder-decoder there are A12's item 1b, padded shards its
-    item 2; a paged pool takes no data axis above 1 (a lane's block table
-    may name any page row, so its rows would need a cross-rank gather
-    every step: A12's item 3)."""
+    trains every family; head counts and a vocabulary the axis does not
+    divide take the padded head split and the whole embedding. It refuses
+    a channel width the axis does not divide (the MLP's or the experts'
+    ``d_ff``, Mamba's ``d_inner``, RG-LRU's width, a projection's head
+    columns: the name rules would leave those kernels whole, and their
+    products would be summed once per rank), A12's item 2; and a paged
+    pool under a data axis above 1 (a lane's block table may name any page
+    row, so its rows would need a cross-rank gather every step: A12's item
+    3)."""
     if mesh is None:
         return None
     mp = mp_size(mesh)
     if paged and dp_size(mesh) > 1:
         return (f"a paged pool on {dp_size(mesh)} data-parallel ranks is {SERVE_ITEM} "
-                "(any lane's block table may name any page row)")
+                "(item 3: any lane's block table may name any page row)")
     if mp == 1:
         return None
-    if cfg.encdec or cfg.block_pattern:
-        return (f"{cfg.name}: RG-LRU and encoder-decoder models on a model axis (serving "
-                f"and training) are {SERVE_ITEM} (item 1b)")
+    dims = [("d_ff", cfg.d_ff)] if cfg.d_ff else []
     if cfg.family == "ssm":
-        dims = (("d_inner", cfg.d_inner), ("vocab", cfg.vocab))
-    else:
-        dims = (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
-                ("d_ff", cfg.d_ff), ("vocab", cfg.vocab))
+        dims.append(("d_inner", cfg.d_inner))
+    if cfg.block_pattern:
+        dims.append(("lru_width", cfg.lru_width or cfg.d_model))
+    if cfg.n_heads:
+        dims += [("n_heads x head_dim", cfg.n_heads * cfg.head_dim),
+                 ("n_kv_heads x head_dim", cfg.n_kv_heads * cfg.head_dim)]
     for what, n in dims:
         if n % mp:
-            return (f"{cfg.name}: model axis {mp} does not divide {what} {n}; padded "
-                    f"shards are {SERVE_ITEM} (item 2)")
+            return (f"{cfg.name}: model axis {mp} does not divide {what} {n}; channel "
+                    f"shards the axis does not divide are {SERVE_ITEM} (item 2)")
     return None
 
 

@@ -39,12 +39,16 @@ On a ``(data, model)`` mesh of processes (``--data-parallel D
 mesh without ``--data-parallel``, as the reference's launcher): the
 weights are drawn whole from ``--seed`` and each rank keeps its shards
 (``partition.param_specs``), the slots split over the data ranks and the
-kv heads over the model ranks. A model axis above 1 serves the dense
-decoder-only families (qwen2.5, yi, mistral-nemo, command-r, qwen2-vl's
-text), the MoE families (mixtral, llama4-scout: each expert's FFN width
-split) and Mamba (falcon-mamba: ``d_inner`` split) and runs its step
-eagerly; RG-LRU, whisper and ``--paged`` with a data axis above 1 are
-ROADMAP A12. Several ranks share one card with ``--dist-backend gloo``:
+kv heads over the model ranks. A model axis above 1 serves every
+decoder-only family (qwen2.5, yi, mistral-nemo, command-r, qwen2-vl's
+text; the MoE families, each expert's FFN width split; falcon-mamba,
+``d_inner`` split; recurrentgemma, the RG-LRU channels split) and runs its
+step eagerly, head counts it does not divide included (recurrentgemma's
+one kv head and, on 4 ranks, its 10 query heads padded to 12; qwen2.5's 2
+kv heads on 4); ``--paged`` with a data axis above 1 and channel widths
+the axis does not divide are ROADMAP A12 (whisper decodes in lock-step
+on the axis through ``registry.make_cache(batch=, mesh=)``). Several
+ranks share one card with ``--dist-backend gloo``:
 
     PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
         python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu \\

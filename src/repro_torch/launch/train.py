@@ -75,9 +75,12 @@ update runs on each shard with its folded seed::
         python -m repro_torch.launch.train --arch qwen2.5-3b --reduced \
         --device cpu --data-parallel 2 --model-parallel 2 --grad-wire bf16
 
-The dense, MoE (tensor parallelism inside the experts) and Mamba families
-train on a model axis; RG-LRU and whisper there are ROADMAP A12, FSDP
-beside it A13; both raise.
+Every decoder-only family trains on a model axis (the MoE families with
+tensor parallelism inside the experts, Mamba and RG-LRU on channel
+shards), head counts and a vocabulary it does not divide included;
+channel widths it does not divide are ROADMAP A12, FSDP beside it A13;
+both raise. The launcher trains on the token stream, so whisper (an
+audio batch) trains on the axis through ``make_train_step(mesh=)``.
 """
 from __future__ import annotations
 

@@ -17,6 +17,18 @@ encodes once and holds the self-attention KV ring ``(k, v, k_pos)``
 ``cross_pos`` ((B,S_src) int32, ``arange``), built once and contiguous, as
 the decode kernel takes them. A step's cross-attention is a decode
 attention with the query at position S_src, which sees every key.
+
+Under a model axis (:mod:`repro_torch.dist.axes`) both stacks are
+tensor-parallel as the decoder-only families are: the self-attention
+blocks through ``layers.attention_apply``, the MLPs through
+``moe.mlp_apply``, the cross-attention on this rank's heads
+(``layers.head_plan``: its q from ``ln_x``'s output, its k and v from the
+encoder output, each input through ``copy_to_model`` at every use, and a
+row-parallel ``wo``); the caches hold this rank's kv heads, as the
+reference's ``cache_specs`` shard them. The embedding and the tied head
+share the decoder-only path (``transformer.embed_rows``,
+``transformer.lm_logits``): vocab-parallel where the axis divides the
+vocabulary, whole on every rank otherwise (whisper-base's 51865).
 """
 from __future__ import annotations
 
@@ -24,6 +36,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
@@ -94,14 +107,17 @@ def encode(qa: QArith, params, cfg, src_embeds, *, remat: bool = True,
     B, S, _ = src_embeds.shape
     x = qa.cast(src_embeds + sinusoidal(S, cfg.d_model, src_embeds.device)[None])
     positions = _positions(B, S, x.device)
+    axis = axes.current()
 
     def body(x, p):
-        h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
-        y, _ = L.attention_apply(qa, p["attn"], h, cfg, positions=positions, causal=False,
-                                 chunk=attn_chunk)
-        x = qa.add(x, y)
-        h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
-        return qa.add(x, M.mlp_apply(qa, p["mlp"], h, cfg.act_fn))
+        # a remat recompute runs on autograd's thread: re-install the axis
+        with axes.model_axis(axis):
+            h = L.norm_apply(qa, cfg.norm, p["ln1"], x)
+            y, _ = L.attention_apply(qa, p["attn"], h, cfg, positions=positions,
+                                     causal=False, chunk=attn_chunk)
+            x = qa.add(x, y)
+            h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
+            return qa.add(x, M.mlp_apply(qa, p["mlp"], h, cfg.act_fn))
 
     for p in T._unstack(params["enc_layers"], cfg.n_enc_layers):
         x = checkpoint(body, x, p, use_reentrant=False) if remat else body(x, p)
@@ -109,10 +125,10 @@ def encode(qa: QArith, params, cfg, src_embeds, *, remat: bool = True,
 
 
 def _cross_kv(qa: QArith, cfg, p, enc_out):
-    B, S_src = enc_out.shape[:2]
-    shape = (B, S_src, cfg.n_kv_heads, cfg.head_dim)
-    return (L.dense(qa, p["cross_attn"]["wk"], enc_out).reshape(shape),
-            L.dense(qa, p["cross_attn"]["wv"], enc_out).reshape(shape))
+    """The cross-attention's k and v of this rank's kv heads
+    (B,S_src,Hkv_local,hd)."""
+    return L.local_kv(qa, p["cross_attn"]["wk"], p["cross_attn"]["wv"],
+                      axes.copy_to_model(enc_out), L.head_plan(cfg), cfg.head_dim)
 
 
 def _dec_block(qa: QArith, cfg, p, x, enc_out, positions, *, self_cache=None,
@@ -126,9 +142,9 @@ def _dec_block(qa: QArith, cfg, p, x, enc_out, positions, *, self_cache=None,
                              cache=self_cache, chunk=attn_chunk)
     x = qa.add(x, y)
     h = L.norm_apply(qa, cfg.norm, p["ln_x"], x)
-    B, S = h.shape[:2]
-    hd, H = cfg.head_dim, cfg.n_heads
-    q = L.dense(qa, p["cross_attn"]["wq"], h).reshape(B, S, H, hd)
+    B = h.shape[0]
+    plan = L.head_plan(cfg)
+    q = L.local_q(qa, p["cross_attn"]["wq"], axes.copy_to_model(h), plan, cfg.head_dim)
     if cross_kv is not None:
         k, v = cross_kv
         q_pos = torch.full((B,), k.shape[1], dtype=torch.int32, device=x.device)
@@ -136,32 +152,31 @@ def _dec_block(qa: QArith, cfg, p, x, enc_out, positions, *, self_cache=None,
     else:
         k, v = _cross_kv(qa, cfg, p, enc_out)
         att = L.flash_attention(qa, q, k, v, causal=False, chunk=attn_chunk)
-    y = L.dense(qa, p["cross_attn"]["wo"], att.reshape(B, S, H * hd))
-    x = qa.add(x, y)
+    x = qa.add(x, L.attention_out(qa, p["cross_attn"]["wo"], att, plan))
     h = L.norm_apply(qa, cfg.norm, p["ln2"], x)
     return qa.add(x, M.mlp_apply(qa, p["mlp"], h, cfg.act_fn))
 
 
-def _logits(qa: QArith, cfg, params, x):
-    h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
-    return qa.matmul_f32out(h, params["embed"]["embedding"].T)
-
-
 def decoder_forward(qa: QArith, params, cfg, tokens, enc_out, *, remat: bool = True,
                     attn_chunk: int = 1024):
-    """Teacher-forced decoder pass over tokens (B,S) → f32 logits (B,S,V)."""
+    """Teacher-forced decoder pass over tokens (B,S) → f32 logits (B,S,V);
+    under a model axis (training) this rank's vocab columns where the axis
+    divides the vocabulary (``transformer.lm_logits``)."""
     B, S = tokens.shape
     positions = _positions(B, S, tokens.device)
-    x = qa.cast(params["embed"]["embedding"][tokens.long()]
+    x = qa.cast(T.embed_rows(cfg, params, tokens)
                 + sinusoidal(S, cfg.d_model, tokens.device)[None])
 
+    axis = axes.current()
+
     def body(x, p, enc_out):
-        return _dec_block(qa, cfg, p, x, enc_out, positions, attn_chunk=attn_chunk)
+        with axes.model_axis(axis):
+            return _dec_block(qa, cfg, p, x, enc_out, positions, attn_chunk=attn_chunk)
 
     for p in T._unstack(params["dec_layers"], cfg.n_layers):
         x = (checkpoint(body, x, p, enc_out, use_reentrant=False) if remat
              else body(x, p, enc_out))
-    return _logits(qa, cfg, params, x)
+    return T.lm_logits(qa, cfg, params, x, gather=False)
 
 
 def init_decode_cache(cfg, params, qa: QArith, enc_out, batch: int, max_len: int,
@@ -170,8 +185,8 @@ def init_decode_cache(cfg, params, qa: QArith, enc_out, batch: int, max_len: int
     ring ``self`` = (k, v, k_pos) of ``max_len`` cells (positions −1:
     empty), the per-layer cross K/V ``cross`` = (k, v) of the encoder
     output in ``dtype``, and ``cross_pos``, their (batch, S_src) int32 key
-    positions."""
-    hd, Hkv, n = cfg.head_dim, cfg.n_kv_heads, cfg.n_layers
+    positions. Under a model axis both hold this rank's kv heads."""
+    hd, Hkv, n = cfg.head_dim, len(L.head_plan(cfg).kv_index), cfg.n_layers
     dev = enc_out.device
     S_src = enc_out.shape[1]
     selfkv = (torch.zeros((n, batch, max_len, Hkv, hd), dtype=dtype, device=dev),
@@ -194,11 +209,10 @@ def encdec_decode_step(qa: QArith, params, cfg, token, cache, cache_pos):
         raise ValueError(f"the encoder-decoder decodes one token per step, got {S}")
     positions = torch.as_tensor(cache_pos, device=token.device).to(torch.int32)
     positions = positions.reshape(-1, 1).expand(B, 1)
-    x = qa.cast(params["embed"]["embedding"][token.long()]
-                + sinusoidal_at(positions, cfg.d_model))
+    x = qa.cast(T.embed_rows(cfg, params, token) + sinusoidal_at(positions, cfg.d_model))
     k_cross, v_cross = cache["cross"]
     for i in range(cfg.n_layers):
         x = _dec_block(qa, cfg, T._layer(params["dec_layers"], i), x, None, positions,
                        self_cache=T._layer(cache["self"], i),
                        cross_kv=(k_cross[i], v_cross[i]), cross_pos=cache["cross_pos"])
-    return _logits(qa, cfg, params, x), cache
+    return T.lm_logits(qa, cfg, params, x), cache

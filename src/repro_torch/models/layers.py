@@ -14,6 +14,7 @@ block table.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -30,6 +31,7 @@ from repro_torch.kernels.row_mean_sq import row_mean_sq
 __all__ = ["dense_init", "dense", "project", "project_f32", "project_row_parallel",
            "f32_rows_product", "embed_init", "norm_init", "norm_apply", "rope", "mrope", "flash_attention", "decode_attention",
            "attention_as_lanes", "paged_attention_as_lanes", "attention_init",
+           "HeadPlan", "head_plan", "local_q", "local_kv", "attention_out",
            "attention_apply", "copy_page_rows"]
 
 
@@ -358,9 +360,10 @@ def flash_attention(qa: QArith, q, k, v, *, q_offset=0, causal=True,
 
     q: (B,Sq,Hq,D); k,v: (B,Sk,Hkv,D). One fused op per the FMAC model:
     f32 internals, single rounding of the output. The backward recomputes
-    p per chunk (no per-chunk probabilities kept). The reference's head
-    padding exists only for tensor parallelism and is ported with the
-    ``dist`` slice.
+    p per chunk (no per-chunk probabilities kept). Under a model axis q
+    holds this rank's heads (the reference's zero-padded head count
+    split, :func:`head_plan`) and k, v the kv heads they read; every head's
+    arithmetic is one process's.
     """
     Hq = q.shape[2]
     Sk = k.shape[1]
@@ -475,6 +478,111 @@ def attention_init(gen: torch.Generator, cfg, dtype=torch.float32):
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """This rank's attention heads on a model axis of ``size`` ranks.
+
+    Query heads split as the reference's flash path splits them: padded
+    with zero heads to a multiple of the axis (``padded``,
+    ``src/repro/dist/axes.py::padded_head_count``), ``padded / size``
+    consecutive heads per rank (``q_heads``). Where the axis divides
+    ``n_heads`` these are the heads of the rank's ``wq`` columns;
+    otherwise a shard of ``wq`` ends inside a head, so q is gathered
+    (``gather_q``) and the rank takes its padded share. Where the axis
+    divides ``n_kv_heads`` the rank's ``wk``/``wv`` columns are its kv
+    heads; otherwise k and v are gathered (``gather_kv``) and the rank
+    keeps the kv heads its query heads read (``kv_index``): each once
+    when its query heads form whole consecutive groups, else one per
+    query head (a rank whose heads straddle two groups). The reference's
+    ``cache_specs`` replicates such a cache's kv heads; the port's cache
+    holds just ``kv_index``."""
+    n_heads: int
+    n_kv_heads: int
+    size: int = 1
+    rank: int = 0
+
+    @property
+    def gather_q(self) -> bool:
+        return self.n_heads % self.size != 0
+
+    @property
+    def gather_kv(self) -> bool:
+        return self.n_kv_heads % self.size != 0
+
+    @property
+    def padded(self) -> int:
+        return -(-self.n_heads // self.size) * self.size
+
+    @property
+    def q_heads(self) -> range:
+        per = self.padded // self.size
+        return range(self.rank * per, (self.rank + 1) * per)
+
+    @property
+    def kv_index(self) -> tuple[int, ...]:
+        if not self.gather_kv:
+            per = self.n_kv_heads // self.size
+            return tuple(range(self.rank * per, (self.rank + 1) * per))
+        group = self.n_heads // self.n_kv_heads
+        reads = [min(h, self.n_heads - 1) // group for h in self.q_heads]
+        kept = sorted(set(reads))
+        g = len(reads) // len(kept)
+        if len(reads) % len(kept) == 0 and reads == [k for k in kept for _ in range(g)]:
+            return tuple(kept)
+        return tuple(reads)
+
+
+def head_plan(cfg, size: int | None = None, rank: int | None = None) -> HeadPlan:
+    """The :class:`HeadPlan` of ``cfg`` on a model axis of ``size`` ranks
+    at ``rank`` (default: the installed axis, or one process)."""
+    if size is None:
+        axis = axes.current()
+        size, rank = (1, 0) if axis is None else (axis.size, axis.rank)
+    return HeadPlan(cfg.n_heads, cfg.n_kv_heads, size, rank or 0)
+
+
+def local_q(qa: QArith, p, x, plan: HeadPlan, hd: int):
+    """This rank's query heads (B,S,Hq_local,hd) of ``x`` (the column
+    group's shared input): its ``wq`` columns, or, where they end inside
+    a head, the gathered q zero-padded to ``plan.padded`` heads and
+    narrowed to ``plan.q_heads``."""
+    q = dense(qa, p, x)
+    B, S = q.shape[:2]
+    if not plan.gather_q:
+        return q.reshape(B, S, -1, hd)
+    q, = axes.gather_shards(q)
+    q = q.reshape(B, S, plan.n_heads, hd)
+    q = torch.cat([q, q.new_zeros((B, S, plan.padded - plan.n_heads, hd))], dim=2)
+    return q[:, :, plan.q_heads.start:plan.q_heads.stop]
+
+
+def local_kv(qa: QArith, pk, pv, x, plan: HeadPlan, hd: int):
+    """This rank's k and v heads (B,S,len(plan.kv_index),hd): its
+    ``wk``/``wv`` columns, or the gathered heads (one collective for
+    both) at ``plan.kv_index``."""
+    k, v = dense(qa, pk, x), dense(qa, pv, x)
+    B, S = k.shape[:2]
+    if not plan.gather_kv:
+        return k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
+    idx = torch.tensor(plan.kv_index, dtype=torch.long, device=k.device)
+    return tuple(t.reshape(B, S, plan.n_kv_heads, hd).index_select(2, idx)
+                 for t in axes.gather_shards(k, v))
+
+
+def attention_out(qa: QArith, p, out, plan: HeadPlan):
+    """``wo`` (row-parallel) of this rank's head outputs (B,S,H_local,hd).
+    Where its heads are the padded split's, the outputs are gathered, the
+    pad heads dropped and the rows of this rank's ``wo`` shard taken."""
+    B, S = out.shape[:2]
+    out = out.reshape(B, S, -1)
+    if plan.gather_q:
+        hd = out.shape[-1] // len(plan.q_heads)
+        rows = p["kernel"].shape[-2]
+        full, = axes.gather_shards(out)
+        out = full[..., :plan.n_heads * hd].narrow(-1, plan.rank * rows, rows)
+    return dense(qa, p, out, row_parallel=True)
+
+
 def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, cache=None,
                     window=None, chunk: int = 1024, block_table=None,
                     mrope_positions=None):
@@ -514,13 +622,14 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
     """
     B, S, _ = x.shape
     hd = cfg.head_dim
-    # the heads of this rank's kernels: all of them in one process, a model
-    # axis's share under tensor parallelism (the decode kernels see G = Hq/Hkv)
-    Hq, Hkv = p["wq"]["kernel"].shape[-1] // hd, p["wk"]["kernel"].shape[-1] // hd
+    # this rank's heads: all of them in one process, its share on a model
+    # axis (head_plan; the decode kernels see G = Hq/Hkv). RoPE rotates
+    # pairs (i, i + hd/2), so a gathered head is rotated whole
+    plan = head_plan(cfg)
     x = axes.copy_to_model(x)       # the column-parallel group's shared input
-    q = dense(qa, p["wq"], x).reshape(B, S, Hq, hd)
-    k = dense(qa, p["wk"], x).reshape(B, S, Hkv, hd)
-    v = dense(qa, p["wv"], x).reshape(B, S, Hkv, hd)
+    q = local_q(qa, p["wq"], x, plan, hd)
+    k, v = local_kv(qa, p["wk"], p["wv"], x, plan, hd)
+    Hq, Hkv = q.shape[2], k.shape[2]
     if cfg.rope_type == "mrope" and mrope_positions is not None:
         q = mrope(q, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
         k = mrope(k, mrope_positions, cfg.mrope_sections, cfg.rope_theta)
@@ -530,7 +639,7 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
     if cache is None:
         out = flash_attention(qa, q, k, v, causal=causal, window=window, chunk=chunk,
                               softcap=cfg.attn_logit_softcap)
-        return dense(qa, p["wo"], out.reshape(B, S, Hq * hd), row_parallel=True), None
+        return attention_out(qa, p["wo"], out, plan), None
 
     tpos = positions.reshape(B, S).to(torch.int32)
     live = tpos >= 0
@@ -576,5 +685,4 @@ def attention_apply(qa: QArith, p, x, cfg, *, positions, causal: bool = True, ca
         k_pos[lane, slot] = torch.where(live, tpos, k_pos[lane, slot])
         out = decode_attention(qa, q, k_cache, v_cache, k_pos, q_pos=q_pos,
                                window=window, softcap=cfg.attn_logit_softcap)
-    out = out.reshape(B, S, Hq * hd)
-    return dense(qa, p["wo"], out, row_parallel=True), cache
+    return attention_out(qa, p["wo"], out.reshape(B, S, Hq, hd), plan), cache

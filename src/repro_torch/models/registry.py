@@ -28,7 +28,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.qarith import QArith
 from repro_torch.dist import partition as PT
+from repro_torch.dist import axes
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["ARCH_IDS", "TGT_LEN_ENCDEC", "get_config", "init", "forward_logits",
@@ -90,38 +92,29 @@ def forward_logits(qa: QArith, params, cfg, batch: dict, *, remat: bool = True,
                      remat=remat, attn_chunk=attn_chunk)
 
 
-def _kv_heads(params, cfg) -> int | None:
-    """The kv heads of the first attention block's ``wk`` in ``params``:
-    this rank's share under tensor parallelism (None without attention)."""
-    for block in params.get("layers", {}).values():
-        mixer = block.get("mixer", {})
-        if "wk" in mixer:
-            return mixer["wk"]["kernel"].shape[-1] // cfg.head_dim
-    return None
-
-
-def _d_inner(params, cfg) -> int | None:
-    """The Mamba channels of the first Mamba block's ``out_proj`` in
-    ``params``: this rank's share under tensor parallelism (None without
-    Mamba blocks)."""
-    for block in params.get("layers", {}).values():
-        mixer = block.get("mixer", {})
-        if "in_proj" in mixer and "out_proj" in mixer:
-            return mixer["out_proj"]["kernel"].shape[-2]
-    return None
+def _local_widths(cfg, mesh) -> dict:
+    """The cache widths of this rank's blocks on ``mesh``'s model axis
+    (the whole ones without): the kv heads its attention reads
+    (``layers.head_plan``), its share of Mamba's ``d_inner`` and of
+    RG-LRU's channels."""
+    mp = PT.mp_size(mesh)
+    rank = mesh.index(PT.MODEL_AXIS) if mp > 1 else 0
+    out = {"d_inner": cfg.d_inner // mp, "lru_width": (cfg.lru_width or cfg.d_model) // mp}
+    if cfg.n_heads:
+        out["kv_heads"] = len(L.head_plan(cfg, mp, rank).kv_index)
+    return out
 
 
 def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat16,
                page_size=None, n_rows=None, batch: dict | None = None,
                qa: QArith | None = None, mesh=None):
     """Decode cache for ``batch_size`` lanes, on the parameters' device;
-    ``page_size``/``n_rows`` build the paged pool instead. The attention
-    leaves hold the kv heads of ``params``' kernels, so a rank's shards
-    (tensor parallelism) get their share of the heads, and the Mamba
-    state its share of ``d_inner``; ``mesh`` refuses
-    what the port does not serve on it (``partition.serve_refusal``).
-    The
-    encoder-decoder encodes ``batch["src_embeds"]`` under ``qa`` into its
+    ``page_size``/``n_rows`` build the paged pool instead. On ``mesh``'s
+    model axis ``params`` are this rank's shards and the cache holds this
+    rank's share: the kv heads its attention reads (``layers.head_plan``),
+    its Mamba and RG-LRU channels; ``mesh`` refuses what the port does not
+    serve on it (``partition.serve_refusal``). The encoder-decoder encodes
+    ``batch["src_embeds"]`` under ``qa`` (and the model axis) into its
     cross K/V (it has no paged pool), its attention over the whole source
     in one flash chunk: the reference's chunk of 1024 does not divide
     whisper's 1500 frames, and the chunk only orders the sums."""
@@ -135,11 +128,12 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
             raise ValueError("the enc-dec cache encodes its source: pass batch= "
                              "(with src_embeds) and qa=")
         src = batch["src_embeds"]
-        enc_out = ED.encode(qa, params, cfg, src, remat=False, attn_chunk=src.shape[1])
-        return ED.init_decode_cache(cfg, params, qa, enc_out, batch_size, max_len, dtype)
+        with axes.model_axis(axes.for_mesh(mesh)):
+            enc_out = ED.encode(qa, params, cfg, src, remat=False, attn_chunk=src.shape[1])
+            return ED.init_decode_cache(cfg, params, qa, enc_out, batch_size, max_len, dtype)
     return T.init_cache(cfg, batch_size, max_len, dtype, page_size=page_size,
                         n_rows=n_rows, device=params["embed"]["embedding"].device,
-                        kv_heads=_kv_heads(params, cfg), d_inner=_d_inner(params, cfg))
+                        **_local_widths(cfg, mesh))
 
 
 def decode(qa: QArith, params, cfg, token, cache, cache_pos, *, mrope_positions=None,

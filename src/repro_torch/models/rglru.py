@@ -10,6 +10,18 @@ Temporal conv + Real-Gated Linear Recurrent Unit, on the chunked
 
 The gates are elementwise after two dense products, so on the serve step's
 kernel route (``qmatmul``) a row's bits do not depend on the row count.
+
+Under a model axis (:mod:`repro_torch.dist.axes`) the block runs on this
+rank's share of the ``W`` channels, with the reference's name rules:
+``in_x`` and ``in_gate`` are column-parallel (their shared input through
+``copy_to_model``); ``conv`` and ``lambda`` are replicated and take their
+local slice (``axes.local_slice``: their gradients summed over the group);
+``w_r`` and ``w_i`` are column-parallel on the square ``W × W`` kernel,
+so their input ``xs``, channel-sharded after the conv, is gathered whole
+(``axes.gather_shards``) and ``r`` and ``i`` come out on this rank's
+channels; ``out`` is row-parallel (f32 partials summed in rank order and
+rounded once). The scan and the decode state (``conv`` (B, W−1, W/size),
+``h`` (B, W/size)) are channel-local.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import torch
 
 from repro_torch.core.formats import sqrt_rn
 from repro_torch.core.qarith import QArith
+from repro_torch.dist import axes
 from repro_torch.models.layers import dense, dense_init
 from repro_torch.models.ssm import causal_conv1d, conv_init, linear_recurrence, softplus
 
@@ -42,10 +55,22 @@ def rglru_init(gen: torch.Generator, cfg, dtype=torch.float32):
     return p
 
 
+def _inputs(qa: QArith, p, x, state=None):
+    """The GELU gate and the conv's output on this rank's channels, and
+    the conv's new state."""
+    x = axes.copy_to_model(x)       # in_x's and in_gate's shared input
+    gate = qa.gelu(dense(qa, p["in_gate"], x))
+    xs, conv_state = causal_conv1d(qa, p["conv"], dense(qa, p["in_x"], x), state)
+    return gate, xs, conv_state
+
+
 def _gates(qa: QArith, p, xs):
-    r = torch.sigmoid(dense(qa, p["w_r"], xs).to(torch.float32))
-    i = torch.sigmoid(dense(qa, p["w_i"], xs).to(torch.float32))
-    log_a = -_C * softplus(p["lambda"]) * r
+    """``a`` and ``b`` on ``xs``'s channels; ``w_r`` and ``w_i`` read all
+    ``W`` channels (gathered under a model axis)."""
+    whole, = axes.gather_shards(xs)
+    r = torch.sigmoid(dense(qa, p["w_r"], whole).to(torch.float32))
+    i = torch.sigmoid(dense(qa, p["w_i"], whole).to(torch.float32))
+    log_a = -_C * softplus(axes.local_slice(p["lambda"], r.shape[-1])) * r
     a = torch.exp(log_a)
     # √(1 − a²) keeps the state variance O(1)
     b_scale = sqrt_rn(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -54,22 +79,18 @@ def _gates(qa: QArith, p, xs):
 
 def rglru_apply(qa: QArith, p, x, cfg, *, chunk: int = 256):
     """Full-sequence Griffin recurrent block. x: (B,S,D) → (B,S,D)."""
-    gate = qa.gelu(dense(qa, p["in_gate"], x))
-    xs = dense(qa, p["in_x"], x)
-    xs, _ = causal_conv1d(qa, p["conv"], xs)
+    gate, xs, _ = _inputs(qa, p, x)
     a, b = _gates(qa, p, xs)
     hs, _ = linear_recurrence(a, b, chunk=chunk)          # (B,S,W) f32
     y = qa.cast(hs * gate.to(torch.float32))
-    return dense(qa, p["out"], y)
+    return dense(qa, p["out"], y, row_parallel=True)
 
 
 def rglru_decode_step(qa: QArith, p, x, cfg, state):
-    """One-token step. state {"conv": (B,W-1,Wd), "h": (B,Wd) f32}; returns
-    (y, new state) with new tensors."""
-    gate = qa.gelu(dense(qa, p["in_gate"], x))
-    xs = dense(qa, p["in_x"], x)
-    xs, conv_state = causal_conv1d(qa, p["conv"], xs, state["conv"])
-    a, b = _gates(qa, p, xs)                               # (B,1,W)
+    """One-token step. state {"conv": (B,W-1,Wd), "h": (B,Wd) f32}, Wd
+    this rank's channels; returns (y, new state) with new tensors."""
+    gate, xs, conv_state = _inputs(qa, p, x, state["conv"])
+    a, b = _gates(qa, p, xs)                               # (B,1,Wd)
     h = a[:, 0] * state["h"] + b[:, 0]
     y = qa.cast(h[:, None, :] * gate.to(torch.float32))
-    return dense(qa, p["out"], y), {"conv": conv_state, "h": h}
+    return dense(qa, p["out"], y, row_parallel=True), {"conv": conv_state, "h": h}

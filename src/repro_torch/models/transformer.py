@@ -39,7 +39,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 
-__all__ = ["init_lm", "init_cache", "forward", "decode_step"]
+__all__ = ["init_lm", "init_cache", "forward", "decode_step", "embed_rows", "lm_logits"]
 
 PyTree = Any
 
@@ -178,7 +178,7 @@ def init_lm(cfg, gen: torch.Generator, dtype=torch.float32) -> PyTree:
 
 
 def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_rows,
-                 device, kv_heads, d_inner, lead=()):
+                 device, kv_heads, d_inner, lru_width, lead=()):
     """One block's decode cache, with ``lead`` dims (the group dim) first."""
     def zeros(*shape, dt=dtype):
         return torch.zeros((*lead, *shape), dtype=dt, device=device)
@@ -186,9 +186,8 @@ def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_r
         return {"conv": zeros(batch, cfg.ssm_conv - 1, d_inner),
                 "h": zeros(batch, d_inner, cfg.ssm_state, dt=torch.float32)}
     if kind == "rec":
-        w = cfg.lru_width or cfg.d_model
-        return {"conv": zeros(batch, cfg.ssm_conv - 1, w),
-                "h": zeros(batch, w, dt=torch.float32)}
+        return {"conv": zeros(batch, cfg.ssm_conv - 1, lru_width),
+                "h": zeros(batch, lru_width, dt=torch.float32)}
     window = cfg.local_attn_window if kind == "local_attn" else cfg.swa_window
     clen = min(max_len, window) if window else max_len
     hd, Hkv = cfg.head_dim, kv_heads
@@ -205,42 +204,53 @@ def _block_cache(cfg, kind: str, batch: int, max_len: int, dtype, page_size, n_r
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                page_size=None, n_rows=None, device=None, kv_heads=None,
-               d_inner=None) -> PyTree:
+               d_inner=None, lru_width=None) -> PyTree:
     """Decode cache (reference ``transformer.py:146-190``): per stacked
     block a leaf with the group dim first, per remainder block one without.
     ``page_size``/``n_rows`` switch full-context attention layers to the
     paged pool of ``n_rows`` pages (all layers share one block table);
     ring-window and recurrent leaves keep the per-slot layout.
     ``kv_heads`` (default ``cfg.n_kv_heads``) is the kv heads this rank's
-    attention kernels compute: a model axis's share under tensor
-    parallelism; ``d_inner`` (default ``cfg.d_inner``) likewise the Mamba
-    channels of this rank's blocks (the reference's ``cache_specs`` split
-    ``conv`` and ``h`` on that axis)."""
+    attention kernels read: a model axis's share under tensor parallelism
+    (``layers.head_plan``); ``d_inner`` (default ``cfg.d_inner``) and
+    ``lru_width`` (default ``cfg.lru_width or cfg.d_model``) likewise the
+    Mamba and RG-LRU channels of this rank's blocks (the reference's
+    ``cache_specs`` split ``conv`` and ``h`` on that axis)."""
     if (page_size is None) != (n_rows is None):
         raise ValueError("page_size and n_rows must be given together")
     kv_heads = cfg.n_kv_heads if kv_heads is None else kv_heads
     d_inner = cfg.d_inner if d_inner is None else d_inner
+    lru_width = (cfg.lru_width or cfg.d_model) if lru_width is None else lru_width
     kinds, n_groups, rem = _layer_plan(cfg)
-    cache = {"layers": {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device, kv_heads, d_inner, (n_groups,))
+    shared = (batch, max_len, dtype, page_size, n_rows, device, kv_heads, d_inner, lru_width)
+    cache = {"layers": {f"b{i}": _block_cache(cfg, kind, *shared, (n_groups,))
                         for i, kind in enumerate(kinds)}}
     if rem:
-        cache["rem"] = {f"b{i}": _block_cache(cfg, kind, batch, max_len, dtype, page_size,
-                                              n_rows, device, kv_heads, d_inner)
+        cache["rem"] = {f"b{i}": _block_cache(cfg, kind, *shared)
                         for i, kind in enumerate(rem)}
     return cache
 
 
+def embed_rows(cfg, params, ids):
+    """The embedding rows of token ids, unrounded. Under a model axis the
+    embedding holds this rank's vocab rows
+    (:func:`repro_torch.dist.axes.embed_lookup`, whose gradient reaches
+    this rank's rows), or, where the axis does not divide the vocabulary,
+    the whole table (``param_specs`` replicates it): a plain lookup,
+    whose gradient is already the whole one on every rank."""
+    table = params["embed"]["embedding"]
+    if axes.vocab_whole(cfg.vocab):
+        return table[ids.long()]
+    return axes.embed_lookup(table, ids)
+
+
 def _embed_tokens(qa: QArith, cfg, params, tokens):
-    """Token ids (B,S) int32/int64 → their embedding rows; (B,S,D) float
-    embeddings (the vlm frontend stub's patch and text embeddings) pass
-    through. Both are rounded to the compute grid. Under a model axis the
-    embedding holds this rank's vocab rows (:func:`repro_torch.dist.axes.embed_lookup`,
-    whose gradient reaches this rank's rows)."""
+    """Token ids (B,S) int32/int64 → their embedding rows
+    (:func:`embed_rows`); (B,S,D) float embeddings (the vlm frontend
+    stub's patch and text embeddings) pass through. Both are rounded to
+    the compute grid."""
     if tokens.dtype in (torch.int32, torch.int64):
-        table = params["embed"]["embedding"]
-        x = (table[tokens.long()] if axes.current() is None
-             else axes.embed_lookup(table, tokens))
+        x = embed_rows(cfg, params, tokens)
     elif tokens.is_floating_point() and tokens.dim() == 3:
         x = tokens
     else:
@@ -252,19 +262,23 @@ def _embed_tokens(qa: QArith, cfg, params, tokens):
     return x
 
 
-def _logits(qa: QArith, cfg, params, x, *, gather: bool = True):
-    """f32 logits over the vocabulary. Under a model axis the tied
-    embedding or the untied ``lm_head`` holds this rank's vocab columns
-    (the final norm's output, their shared input, through
-    ``axes.copy_to_model``): the ranks' logits gathered in rank order, or
-    with ``gather=False`` this rank's columns (training's loss,
-    ``axes.vocab_parallel_xent``)."""
-    h = axes.copy_to_model(L.norm_apply(qa, cfg.norm, params["final_norm"], x))
-    if cfg.tie_embeddings:
-        logits = qa.matmul_f32out(h, params["embed"]["embedding"].T)
-    else:
-        logits = qa.matmul_f32out(h, params["lm_head"]["kernel"])
-    return logits if axes.current() is None or not gather else axes.gather_logits(logits)
+def lm_logits(qa: QArith, cfg, params, x, *, gather: bool = True):
+    """f32 logits over the vocabulary of the final norm of ``x``. Under a
+    model axis the tied embedding or the untied ``lm_head`` holds this
+    rank's vocab columns (the final norm's output, their shared input,
+    through ``axes.copy_to_model``): the ranks' logits gathered in rank
+    order, or with ``gather=False`` this rank's columns (training's loss,
+    ``axes.vocab_parallel_xent``). A head the axis leaves whole (it does
+    not divide the vocabulary) gives every rank the whole logits, and the
+    norm's output skips ``copy_to_model``: each rank's gradient is
+    already the whole one, and summing it over the group would count it
+    once per rank."""
+    h = L.norm_apply(qa, cfg.norm, params["final_norm"], x)
+    w = params["embed"]["embedding"].T if cfg.tie_embeddings else params["lm_head"]["kernel"]
+    if axes.vocab_whole(cfg.vocab):
+        return qa.matmul_f32out(h, w)
+    out = qa.matmul_f32out(axes.copy_to_model(h), w)
+    return axes.gather_logits(out) if gather else out
 
 
 def _unstack(stack: PyTree, n: int) -> list[PyTree]:
@@ -302,7 +316,7 @@ def forward(qa: QArith, params, cfg, tokens, *, positions=None, mrope_positions=
     for i, kind in enumerate(rem):
         x, _ = block_apply(qa, cfg, kind, params["rem"][f"b{i}"], x, positions=positions,
                            attn_chunk=attn_chunk, mrope_positions=mrope_positions)
-    return _logits(qa, cfg, params, x, gather=False) if logits else x
+    return lm_logits(qa, cfg, params, x, gather=False) if logits else x
 
 
 def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,
@@ -348,4 +362,4 @@ def decode_step(qa: QArith, params, cfg, token, cache, cache_pos, *,
             x, new_cache["rem"][name] = run(kind, params["rem"][name], cache["rem"][name], x)
     if out_rows is not None:
         x = torch.gather(x, 1, out_rows.long()[:, None, None].expand(-1, 1, x.shape[-1]))
-    return _logits(qa, cfg, params, x), new_cache
+    return lm_logits(qa, cfg, params, x), new_cache

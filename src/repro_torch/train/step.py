@@ -22,9 +22,12 @@ order. Under FSDP the optimizer then updates this rank's shards.
 On a mesh with a ``model`` axis above 1 (tensor parallelism, Megatron's
 split of :mod:`repro_torch.dist.axes`) the gradient phase runs under that
 axis: each rank holds its shards of the column- and row-parallel kernels
-and the vocab-parallel embedding, its forward and backward run the model
-group's collectives, the loss is taken on its vocab columns, and the
-gradients land on its shards, which the data axes reduce as any leaf.
+and the vocab-parallel embedding (whole where the axis does not divide
+the vocabulary), its forward and backward run the model group's
+collectives, the loss is taken on its vocab columns (on the whole logits
+of a whole head), and the gradients land on its shards, which the data
+axes reduce as any leaf; a whole leaf's gradient is the same on every
+rank and counts once in the norm.
 """
 from __future__ import annotations
 
@@ -183,7 +186,7 @@ def make_train_step(cfg, policy: PrecisionPolicy, optimizer, lr_schedule, *,
         logits = R.forward_logits(qa, wc, cfg, batch, remat=remat, attn_chunk=attn_chunk)
         if loss_fn is not None:
             return loss_fn(logits, batch)
-        return softmax_xent(logits, batch["labels"])
+        return softmax_xent(logits, batch["labels"], vocab=cfg.vocab)
 
     def _micro_grads(wc, leaves, paths, batch):
         with torch.enable_grad(), axes.model_axis(axis):
@@ -364,8 +367,9 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     ``mesh`` with a ``model`` axis above 1: ``params`` and ``cache`` are
     this rank's shards (``partition.param_specs``/``cache_specs``) and the
     step runs under that axis (:mod:`repro_torch.dist.axes`): the
-    vocab-parallel embedding, the local heads, the row-parallel ``wo`` and
-    ``w_down`` summed over the model group, the logits gathered, so every
+    vocab-parallel embedding (or a whole one), the local heads
+    (``layers.head_plan``), the row-parallel ``wo`` and ``w_down`` summed
+    over the model group, the logits gathered, so every
     rank of the group returns the same tokens (and logits). The slots are
     whatever the caller hands it: the engine hands each rank its own.
     """

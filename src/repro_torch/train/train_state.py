@@ -34,14 +34,16 @@ def make_train_state(params: PyTree, optimizer, *, transport=None) -> TrainState
     return TrainState(0, params, optimizer.init(params), residuals)
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, ignore: int = -1
-                 ) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *, ignore: int = -1,
+                 vocab: int | None = None) -> torch.Tensor:
     """Mean next-token cross entropy. logits (B,S,V) f32, labels (B,S) int;
     positions labelled ``ignore`` do not count. Under a model axis the
     logits are this rank's vocab columns and the loss is
     :func:`repro_torch.dist.axes.vocab_parallel_xent` (the same function
-    of the gathered logits)."""
-    if axes.current() is not None:
+    of the gathered logits), unless ``vocab``, the model's vocabulary
+    size, is whole on every rank (:func:`axes.vocab_whole`). Without
+    ``vocab`` the logits under an axis are taken as vocab columns."""
+    if axes.current() is not None and (vocab is None or not axes.vocab_whole(vocab)):
         return axes.vocab_parallel_xent(logits, labels, ignore=ignore)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)

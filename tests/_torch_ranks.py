@@ -17,6 +17,13 @@ def rank_env(**extra) -> dict:
                 **extra)
 
 
+def config_overrides(spec: str) -> tuple[str, dict]:
+    """``arch`` or ``arch:field=N:...`` → (arch, the integer config fields
+    to replace), e.g. ``recurrentgemma-2b:n_heads=5``."""
+    arch, *fields = spec.split(":")
+    return arch, {k: int(v) for k, v in (f.split("=") for f in fields)}
+
+
 def log_tails(log_dir: Path, n: int, chars: int = 3000) -> str:
     """The last ``chars`` characters of every rank's log."""
     out = []

@@ -16,11 +16,14 @@ the shards against the one-process update, the backward from a thread
 with no axis installed, ``vocab_parallel_xent`` on random logits, and
 ``quad``'s checkpoint restored under 1 x 2. ``family`` (2 ranks, 1 x 2)
 runs the per-policy part for each arch A from ``OUT/ref_<A>.npz`` and
-``OUT/init_<A>_<policy>``. Each rank saves what it saw to
+``OUT/init_<A>_<policy>``; A may be a config spec ``arch:field=N:...``
+(:func:`configs`), and an encoder-decoder's batch carries its
+``src_embeds``. Each rank saves what it saw to
 ``OUT/rank<r>_<scenario>[_<A>].pt``. Imports torch and the port only.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import threading
@@ -46,6 +49,8 @@ from repro_torch.train.step import Gradients, _global_norm, compute_params, make
 from repro_torch.train.train_state import make_train_state, softmax_xent
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
+from _torch_ranks import config_overrides
+
 CFG = R.get_config("qwen2.5-3b").reduced()
 REF_POLICIES = ("fp32", "bf16_sr")
 BATCH, SEQ, CHUNK = 4, 16, 8
@@ -54,6 +59,13 @@ QUAD_STEPS = 2
 # the random logits of the vocab-parallel loss's check: (B, S) positions,
 # the first IGNORED of row 0 labelled -1
 XENT_SHAPE, IGNORED = (2, 5), 2
+
+
+def configs(spec: str):
+    """The reduced config of ``spec``'s arch with its fields replaced (the
+    reference's script replaces the same fields in its own config)."""
+    arch, over = config_overrides(spec)
+    return dataclasses.replace(R.get_config(arch).reduced(), **over)
 
 
 def xent_inputs():
@@ -188,9 +200,11 @@ def scenario_family(out: Path, rank: int, *archs: str):
     initial states ``OUT/init_<arch>_<policy>``."""
     mesh = make_local_mesh(1, 2)
     for arch in archs:
-        cfg = R.get_config(arch).reduced()
+        cfg = configs(arch)
         ref = np.load(out / f"ref_{arch}.npz")
         batch = {k: torch.from_numpy(ref[k].astype(np.int32)) for k in ("tokens", "labels")}
+        if "src_embeds" in ref:
+            batch["src_embeds"] = torch.from_numpy(ref["src_embeds"])
         res = {"coords": mesh.coords(rank)}
         res.update(policy_runs(out, cfg, batch, mesh, f"init_{arch}"))
         torch.save(res, out / f"rank{rank}_family_{arch}.pt")

@@ -6,6 +6,8 @@ a reduced config (``ARCH``, or the one a scenario is given) served on
     python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py quad OUT
     python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_worker.py family OUT A...
     python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py family_quad OUT A
+    python -m repro_torch.launch.dist_launch -n 2 -- python tests/_torch_tp_worker.py hybrid OUT S...
+    python -m repro_torch.launch.dist_launch -n 4 -- python tests/_torch_tp_worker.py hybrid_quad OUT
 
 ``pair`` (2 ranks) serves qwen2.5-3b on 1 x 2 (contiguous, paged, paged
 with chunk 4, sampled lanes, and the teacher-forced schedule's logits), on
@@ -13,11 +15,18 @@ with chunk 4, sampled lanes, and the teacher-forced schedule's logits), on
 each arch A (MoE, Mamba) on 1 x 2 (contiguous, paged, the schedule's
 logits under ``bf16_standard`` and ``fp32``) and in one process, and
 holds ``axes.own_halves`` against the unsplit product; ``family_quad``
-serves A on 2 x 2. Each rank saves what it saw to
-``OUT/rank<r>_<scenario>[_<arch>].pt``.
+serves A on 2 x 2. ``hybrid`` takes config specs S (``arch[:field=N...]``:
+the reduced config with those fields replaced, :func:`configs`): an
+RG-LRU spec as ``family`` does (the engine for the plain arch only), an
+encoder-decoder spec's lock-step decode logits (:func:`encdec_logits`),
+and ``axes.gather_shards`` against the unsplit product; ``hybrid_quad``
+serves recurrentgemma on 2 x 2 and qwen2.5-3b and recurrentgemma with 5
+query heads on 1 x 4. Each rank saves what it saw to
+``OUT/rank<r>_<scenario>[_<arch or spec>].pt``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 from pathlib import Path
@@ -30,6 +39,7 @@ from repro.core import get_policy as j_get_policy
 from repro.models import registry as JR
 from repro_torch.convert import from_jax_params
 from repro_torch.core.policy import get_policy
+from repro_torch.core.qarith import QArith
 from repro_torch.dist import axes
 from repro_torch.dist import fsdp as F
 from repro_torch.dist import multihost as MH
@@ -38,6 +48,8 @@ from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models import registry as R
 from repro_torch.serve.engine import Engine
 from repro_torch.train.step import make_serve_step
+
+from _torch_ranks import config_overrides
 
 ARCH = "qwen2.5-3b"
 POLICY = "bf16_standard"
@@ -58,8 +70,28 @@ def schedule(vocab: int) -> np.ndarray:
     return np.random.default_rng(5).integers(0, vocab, (SCHEDULE_STEPS, N_SLOTS)).astype(np.int32)
 
 
+# the encoder-decoder's source frames (one flash chunk) in its lock-step decode
+SRC_LEN = 16
+
+
+def configs(spec: str):
+    """(the port's config, the reference's) of ``spec`` = ``arch`` or
+    ``arch:field=N:...``: the reduced config with those integer fields
+    replaced on both sides (e.g. ``recurrentgemma-2b:n_heads=5``, 2.5 query
+    heads per rank on 1 x 2; ``whisper-base:vocab=515``, a vocabulary no
+    even axis divides)."""
+    arch, over = config_overrides(spec)
+    return (dataclasses.replace(R.get_config(arch).reduced(), **over),
+            dataclasses.replace(JR.get_config(arch).reduced(), **over))
+
+
+def src_embeds(d_model: int) -> np.ndarray:
+    return np.random.default_rng(4).standard_normal((N_SLOTS, SRC_LEN, d_model)).astype(
+        np.float32)
+
+
 def reference_tree(arch: str = ARCH):
-    cfg = JR.get_config(arch).reduced()
+    cfg = configs(arch)[1]
     params = JR.init(cfg, jax.random.PRNGKey(0), j_get_policy(POLICY).param_dtype)
     return jax.tree_util.tree_map(np.asarray, params)
 
@@ -89,13 +121,7 @@ def schedule_logits(tree, cfg, mesh, policy=None) -> np.ndarray:
     """The serve step's logits (steps, slots, vocab) on the teacher-forced
     schedule, from an empty pool. ``tree`` None: the port's own f32
     weights from seed 0 under ``policy`` (``fp32``)."""
-    if tree is None:
-        full = R.init(cfg, 0, torch.float32, device="cpu")
-        params = full if mesh is None else F.shard_state(
-            full, PT.param_specs(full, cfg, mesh), mesh)
-    else:
-        policy = get_policy(POLICY)
-        params = shards(tree, cfg, mesh)
+    params, policy = _params(tree, cfg, mesh, policy)
     step = make_serve_step(cfg, policy, return_logits=True, mesh=mesh)
     cache = R.make_cache(params, cfg, batch_size=N_SLOTS, max_len=MAX_LEN,
                          dtype=policy.compute_dtype, mesh=mesh)
@@ -107,6 +133,35 @@ def schedule_logits(tree, cfg, mesh, policy=None) -> np.ndarray:
                                     torch.full((N_SLOTS,), t, dtype=torch.int32),
                                     torch.ones(N_SLOTS, dtype=torch.bool),
                                     torch.full((N_SLOTS,), t == 0))
+            out.append(logits.numpy())
+    return np.stack(out)
+
+
+def _params(tree, cfg, mesh, policy):
+    """The reference's weights (``tree``) under ``bf16_standard``, or the
+    port's own from seed 0 (``tree`` None) under ``policy``, sharded on
+    ``mesh``; and the policy."""
+    if tree is not None:
+        return shards(tree, cfg, mesh), get_policy(POLICY)
+    full = R.init(cfg, 0, torch.float32, device="cpu")
+    return (full if mesh is None else
+            F.shard_state(full, PT.param_specs(full, cfg, mesh), mesh)), policy
+
+
+def encdec_logits(tree, cfg, mesh, policy=None) -> np.ndarray:
+    """An encoder-decoder's lock-step decode logits (steps, slots, vocab)
+    on the schedule: ``make_cache`` encodes :func:`src_embeds`, then the
+    serve step advances every lane one token a step."""
+    params, policy = _params(tree, cfg, mesh, policy)
+    step = make_serve_step(cfg, policy, return_logits=True, mesh=mesh)
+    cache = R.make_cache(params, cfg, batch_size=N_SLOTS, max_len=MAX_LEN,
+                         dtype=policy.compute_dtype, qa=QArith(policy), mesh=mesh,
+                         batch={"src_embeds": torch.from_numpy(src_embeds(cfg.d_model))})
+    out = []
+    with torch.no_grad():
+        for t, row in enumerate(schedule(cfg.vocab)):
+            _, logits, cache = step(params, cache, torch.from_numpy(row)[:, None],
+                                    torch.full((N_SLOTS,), t, dtype=torch.int32))
             out.append(logits.numpy())
     return np.stack(out)
 
@@ -199,6 +254,77 @@ def scenario_family(out: Path, rank: int, *archs: str):
                                 schedule_logits(None, cfg, None, fp32))
         res["own_halves"] = own_halves_check(rank, tp)
         torch.save(res, out / f"rank{rank}_family_{arch}.pt")
+
+
+def gather_shards_check(rank: int, mesh) -> dict:
+    """``axes.gather_shards`` of two column-parallel products, forward and
+    backward, against the unsplit products (f64: the forward is exact,
+    the backward's sum runs in f32). Each
+    rank's later work reads the whole outputs with its own cotangents, so
+    a shard's gradient is the sum of every rank's at its columns."""
+    axis = axes.for_mesh(mesh)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 3, 8), generator=g, dtype=torch.float64)
+    w = [torch.randn((8, 12), generator=g, dtype=torch.float64) for _ in range(2)]
+    cots = [[torch.randn((2, 3, 12), generator=g, dtype=torch.float64) for _ in range(2)]
+            for _ in range(axis.size)]
+    width = 12 // axis.size
+    cols = slice(rank * width, (rank + 1) * width)
+    local = [t[:, cols].clone().requires_grad_(True) for t in w]
+    calls = axis.stats.calls
+    with axes.model_axis(axis):
+        got = axes.gather_shards(*(x @ t for t in local))
+    sum((o * c).sum() for o, c in zip(got, cots[rank])).backward()
+    flat = x.reshape(-1, 8).T
+    return {"fwd": [o.detach() for o in got], "want": [x @ t for t in w],
+            "grad": [t.grad for t in local],
+            "want_grad": [(flat @ sum(c[i] for c in cots).reshape(-1, 12))[:, cols]
+                          for i in range(2)],
+            "calls": axis.stats.calls - calls}
+
+
+def scenario_hybrid(out: Path, rank: int, *specs: str):
+    tp = make_local_mesh(1, 2)
+    fp32 = get_policy("fp32")
+    stats = axes.for_mesh(tp).stats
+    torch.save(gather_shards_check(rank, tp), out / f"rank{rank}_hybrid_gather.pt")
+    for spec in specs:
+        cfg = configs(spec)[0]
+        tree = reference_tree(spec)
+        logits = encdec_logits if cfg.encdec else schedule_logits
+        res = {"coords": tp.coords(rank)}
+        if spec == "recurrentgemma-2b":
+            res["tp"] = serve(tree, cfg, tp)
+            res["tp_paged"] = serve(tree, cfg, tp, paged=True, page_size=4, n_pages=12)
+            res["one"] = serve(tree, cfg, None)
+        calls = stats.calls
+        res["tp_schedule"] = logits(tree, cfg, tp)
+        res["schedule_calls"] = stats.calls - calls
+        res["one_schedule"] = logits(tree, cfg, None)
+        res["fp32_schedule"] = (logits(None, cfg, tp, fp32), logits(None, cfg, None, fp32))
+        torch.save(res, out / f"rank{rank}_hybrid_{spec}.pt")
+
+
+def scenario_hybrid_quad(out: Path, rank: int):
+    """recurrentgemma's engine on 2 x 2 (the sharded RG-LRU state under a
+    data axis); on 1 x 4 qwen2.5-3b (2 kv heads: each rank keeps the one
+    its query heads read) contiguous and paged, and recurrentgemma with 5
+    query heads (padded to 8), the schedule's logits beside one process's."""
+    quad = make_local_mesh(2, 2)
+    res = {"coords": quad.coords(rank)}
+    rg = "recurrentgemma-2b"
+    res["rg_tokens"] = serve(reference_tree(rg), configs(rg)[0], quad)
+    wide = make_local_mesh(1, 4)
+    for spec in ("qwen2.5-3b", "recurrentgemma-2b:n_heads=5"):
+        cfg, tree = configs(spec)[0], reference_tree(spec)
+        res[spec] = {"tp_schedule": schedule_logits(tree, cfg, wide),
+                     "one_schedule": schedule_logits(tree, cfg, None)}
+    q = configs("qwen2.5-3b")[0]
+    tree = reference_tree("qwen2.5-3b")
+    res["qwen_tp"] = serve(tree, q, wide)
+    res["qwen_paged"] = serve(tree, q, wide, paged=True, page_size=4, n_pages=12)
+    res["qwen_one"] = serve(tree, q, None)
+    torch.save(res, out / f"rank{rank}_hybrid_quad.pt")
 
 
 def scenario_family_quad(out: Path, rank: int, arch: str):

@@ -29,6 +29,7 @@ import signal
 import pytest
 import torch
 
+from _torch_cpu import one_torch_thread  # noqa: F401
 from repro_torch.core.policy import get_policy
 from repro_torch.data.synthetic import lm_batches
 from repro_torch.launch import train as launch_train

@@ -43,6 +43,8 @@ from repro_torch.models import registry as R
 from repro_torch.serve.decode import generate
 from repro_torch.serve.engine import Engine
 
+from _torch_cpu import one_torch_thread  # noqa: F401
+
 NEAREST = get_policy("bf16_standard")
 LOGIT_TOL = 0.125
 N_SLOTS, MAX_LEN = 4, 48

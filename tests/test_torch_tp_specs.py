@@ -5,11 +5,12 @@
 (1, 2), (2, 2) and (4, 2) ``(data, model)`` meshes equal the reference's
 for every config of the registry, reduced. The reference's functions read
 only ``mesh.axis_names`` and ``mesh.shape``, so a stand-in mesh serves.
-Then the refusals of what the model axis does not serve (ROADMAP A12),
+Then what the model axis serves and still refuses (ROADMAP A12),
 the training transport on it (A11; FSDP beside it is A13), the f32 plain
 version of ``qmatmul`` and the vocab-parallel collectives' local
 arithmetic.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import jax
@@ -24,6 +25,7 @@ from repro.dist import partition as JPT
 from repro.models import registry as JR
 from repro_torch.core.policy import get_policy
 from repro_torch.dist import axes
+from repro_torch.dist import fsdp as F
 from repro_torch.dist import partition as PT
 from repro_torch.dist import transport as T
 from repro_torch.kernels.qmatmul import plan, qmatmul, qmatmul_f32, qmatmul_ref
@@ -119,31 +121,57 @@ def test_serve_input_specs_match_reference(sizes):
             assert all(_norm(got[k]) == _norm(want[k]) for k in got), (n_slots, paged, chunk)
 
 
+def _standin(sizes) -> Mesh:
+    """A (data, model) mesh of this one process with a stand-in model
+    group: enough to build an engine and its cache (no collective runs)."""
+    ranks = tuple(range(sizes[1]))
+    return Mesh(("data", "model"), sizes, groups={("model",): {ranks: object()}})
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-base"])
 def test_other_families_refuse_the_model_axis(arch):
-    """RG-LRU and the encoder-decoder on a model axis: A12 (item 1b)."""
+    """RG-LRU and the encoder-decoder on a model axis (A12 item 1b, ported):
+    ``serve_refusal`` passes them on 1 x 2 and 2 x 1; on 1 x 2 rank 0's
+    cache holds its share (recurrentgemma: the one kv head its query heads
+    read, half of the RG-LRU channels) and its engine builds;
+    whisper's cache needs its source (``batch=``), not a refusal."""
     cfg = R.get_config(arch).reduced()
-    mesh = Mesh(("data", "model"), (1, 2))
-    assert "A12" in PT.serve_refusal(cfg, mesh)
+    mesh = _standin((1, 2))
+    assert PT.serve_refusal(cfg, mesh) is None
     assert PT.serve_refusal(cfg, Mesh(("data", "model"), (2, 1))) is None
-    if not cfg.encdec:
-        params = R.init(cfg, 0, torch.bfloat16, device="cpu")
-        with pytest.raises(ValueError, match="A12"):
-            R.make_cache(params, cfg, batch_size=2, max_len=8, mesh=mesh)
-        with pytest.raises(ValueError, match="A12"):
-            Engine(params, cfg, get_policy("bf16_standard"), n_slots=2, max_len=8,
-                   device="cpu", mesh=mesh)
+    params = R.init(cfg, 0, torch.bfloat16, device="cpu")
+    local = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
+    if cfg.encdec:
+        with pytest.raises(ValueError, match="pass batch="):
+            R.make_cache(local, cfg, batch_size=2, max_len=8, mesh=mesh)
+        return
+    cache = R.make_cache(local, cfg, batch_size=2, max_len=8, mesh=mesh)
+    rec, attn = cache["layers"]["b0"], cache["layers"]["b2"]
+    assert rec["h"].shape[-1] == cfg.lru_width // 2 and rec["conv"].shape[-1] == cfg.lru_width // 2
+    assert attn[0].shape[-2] == 1 == cfg.n_kv_heads
+    eng = Engine(local, cfg, get_policy("bf16_standard"), n_slots=2, max_len=8, device="cpu",
+                 mesh=mesh)
+    assert eng.pool.cache["layers"]["b0"]["h"].shape == rec["h"].shape
 
 
 def test_uneven_heads_and_paged_data_axes_refuse():
+    """Head counts the axis does not divide are served (A12 item 2:
+    qwen2.5-3b's 2 kv heads and recurrentgemma-2b's 10 query heads on
+    1 x 4, each rank's cache holding the kv heads its query heads read);
+    a channel width it does not divide and a paged pool under a data
+    axis above 1 (item 3) are still refused, naming A12."""
     cfg = R.get_config("qwen2.5-3b").reduced()
-    # a model axis that divides the query heads but not the kv heads:
-    # padded shards are A12
     assert cfg.n_heads % 4 == 0 and cfg.n_kv_heads % 4
-    odd = Mesh(("data", "model"), (1, 4))
-    assert "A12" in PT.serve_refusal(cfg, odd) and "n_kv_heads" in PT.serve_refusal(cfg, odd)
-    # a paged pool under a data axis above 1
+    odd = _standin((1, 4))
+    for arch in ("qwen2.5-3b", "recurrentgemma-2b"):
+        assert PT.serve_refusal(R.get_config(arch), odd) is None
     params = R.init(cfg, 0, torch.bfloat16, device="cpu")
+    local = F.shard_state(params, PT.param_specs(params, cfg, odd), odd)
+    cache = R.make_cache(local, cfg, batch_size=2, max_len=8, mesh=odd)
+    assert cache["layers"]["b0"][0].shape[-2] == 1
+    narrow = dataclasses.replace(cfg, d_ff=258)
+    assert "A12" in PT.serve_refusal(narrow, odd) and "d_ff" in PT.serve_refusal(narrow, odd)
+    # a paged pool under a data axis above 1
     for sizes in ((2, 1), (2, 2)):
         with pytest.raises(ValueError, match="A12"):
             Engine(params, cfg, get_policy("bf16_standard"), n_slots=4, max_len=8,

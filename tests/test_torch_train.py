@@ -348,20 +348,16 @@ def test_launcher_refuses_flags_of_later_slices(flags, slice_):
                                         (["--model-parallel", "2", "--arch",
                                           "recurrentgemma-2b"], "A12")])
 def test_launcher_refuses_the_later_dist_items(flags, item):
-    """The model axis's ``--model-parallel`` (ported with A11) and FSDP's
-    ``--fsdp-parallel`` (A9) parse, and a single process cannot build their
-    2-process mesh; FSDP beside a model axis (A13) and the families the
-    model axis does not train (A12) are refused, before any mesh."""
+    """The model axis's ``--model-parallel`` (ported with A11; RG-LRU on it
+    with A12) and FSDP's ``--fsdp-parallel`` (A9) parse, and a single
+    process cannot build their 2-process mesh; FSDP beside a model axis
+    (A13) is refused before any mesh."""
     argv = ["--reduced", "--device", "cpu", *flags]
     if item == "A13":
         with pytest.raises(ValueError, match=item):
             launch_train.parse_args(argv)
         return
     args = launch_train.parse_args(argv)
-    if item == "A12":
-        with pytest.raises(ValueError, match=item):
-            launch_train.build(args)
-        return
-    assert (args.model_parallel if item == "A11" else args.fsdp_parallel) == 2
+    assert (args.fsdp_parallel if item == "A9" else args.model_parallel) == 2
     with pytest.raises(ValueError, match="needs 2 processes"):
         launch_train.build(args)
