@@ -1228,8 +1228,10 @@ def _paged_bound_ms(x) -> tuple[float, str]:
     the views of active lanes, q_pos, the distinct K/V cells some active
     lane can see (a shared page is one input) read once, the f32 output
     written once, over HBM; 4·D flops per (query head, visible cell) of
-    each lane against the bf16 peak."""
+    each lane against the bf16 peak. The shapes are the input's."""
     import torch
+    B, _, HQ, D = x["q"].shape
+    HKV = x["k"].shape[2]
     active = x["q_pos"] >= 0
     table = x["table"][active].long()
     kp = x["pos"][table].reshape(table.shape[0], -1)
@@ -4570,7 +4572,9 @@ def tp_worker(spec_path: str) -> None:
     out = {"rank": rank}
 
     try:
-        if spec["scenario"].startswith("hyb-"):
+        if spec["scenario"] in DP_PAGED:
+            out.update(dp_paged_worker(spec))
+        elif spec["scenario"].startswith("hyb-"):
             out.update(tp_hybrid_worker(spec))
         elif spec["scenario"] == "fam-serve":
             import torch.distributed as tdist
@@ -4743,8 +4747,12 @@ def _tp_start(root: Path, scenario: str, n: int, device: str = "cuda",
     cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
            "560", "--log-dir", str(log_dir), "--", sys.executable, str(ROOT / "chip_smoke.py"),
            "--tp-worker", str(spec_path)]
+    # a CPU rehearsal's ranks take one thread each: side by side, more
+    # oversubscribe the host's cores and stall the gloo collectives
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               **({"OMP_NUM_THREADS": "1"} if device == "cpu" else {}))
     proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT)
+                            env=env, cwd=ROOT)
     return proc, time.perf_counter(), root, scenario, n
 
 
@@ -5818,15 +5826,19 @@ def _whisper_train(spec: dict, rank: int, mesh) -> dict:
     return out
 
 
-def tp_hybrid_launches(run: dict, start) -> None:
-    """Phase 19's launches, into ``run``, all five side by side: each
-    model's training and 1 x 2 serving on 2 ranks each, recurrentgemma's
-    1 x 4 serving on 4 (~50 GiB of the card together). A launch's rank 1 idles
+# phase 19's launches (scenario, ranks): each model's training and 1 x 2
+# serving on 2 ranks each, recurrentgemma's 1 x 4 serving on 4 (~50 GiB of
+# the card together)
+HYB_LAUNCHES = (("train-hyb-rg", 2), ("train-hyb-whisper", 2), ("hyb-serve", 2),
+                ("hyb-whisper", 2), ("hyb-quad", 4))
+
+
+def tp_hybrid_launches(run: dict, start, names=HYB_LAUNCHES) -> None:
+    """The launches ``names`` ((scenario, ranks) pairs; phase 19's five
+    unless given) into ``run``, all side by side. A launch's rank 1 idles
     while its rank 0 runs the one-process comparisons, so more launches
     keep the cores busy. ``start(scenario, n)`` starts one
     (:func:`_tp_start`)."""
-    names = (("train-hyb-rg", 2), ("train-hyb-whisper", 2), ("hyb-serve", 2),
-             ("hyb-whisper", 2), ("hyb-quad", 4))
     launches = dict(zip((name for name, _ in names), (start(name, n) for name, n in names)))
     walls = {}
     while len(walls) < len(launches):          # each launch's own wall
@@ -5841,10 +5853,11 @@ def tp_hybrid_launches(run: dict, start) -> None:
         run[name] = (_tp_wait(launch)[0], walls[name])
 
 
-def hyb_runs(*, rehearsal: bool = False) -> dict:
-    """Phase 19's launches (:func:`tp_hybrid_launches`) in a root of their
-    own; a launch still running when another fails is ended. Returns what
-    :func:`phase_tp_hybrid` checks."""
+def hyb_runs(names=HYB_LAUNCHES, *, rehearsal: bool = False) -> dict:
+    """The launches ``names`` side by side (:func:`tp_hybrid_launches`;
+    phase 19's unless given) in a root of their own; a launch still running
+    when another fails is ended. Returns what :func:`phase_tp_hybrid` and
+    :func:`phase_dp_paged` check."""
     import tempfile
     kw = dict(device="cpu", reduced=True) if rehearsal else {}
     run = {"root": Path(tempfile.mkdtemp(prefix="repro-hyb-"))}
@@ -5855,7 +5868,7 @@ def hyb_runs(*, rehearsal: bool = False) -> dict:
         procs.append(launch[0])
         return launch
     try:
-        tp_hybrid_launches(run, start)
+        tp_hybrid_launches(run, start, names)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -6133,6 +6146,304 @@ def phase_tp_hybrid(card: str, run: dict, *, rehearsal: bool = False) -> dict:
     return launches
 
 
+# ROADMAP A12 item 3 (the dp-paged part): a paged pool whose page rows shard
+# over the data ranks, its rows moved by the page exchange (dist/pages.py).
+# tp (b)'s paged stream and pool (TP_PAGED_*) at TP_LAYERS, on 2 x 1 and on
+# 2 x 2; its two launches run beside phase 19's
+DP_PAGED = {"dp-paged": (2, 1), "dp-paged-quad": (2, 2)}   # scenario: (data, model)
+DP_LAUNCHES = tuple((name, data * model) for name, (data, model) in DP_PAGED.items())
+
+
+def _dp_paged_plans(eng) -> dict:
+    """Watch ``eng``'s page exchange: the count of its single-token steps,
+    and the single-token step whose working buffer was largest (this
+    rank's remapped tables, their rows and its lanes' query positions),
+    the shapes the paged kernel ran at there."""
+    seen = {"single": 0, "largest": None}
+    plan = eng.pages.plan
+
+    def watch(table, page_reset, copies, positions, **kw):
+        got = plan(table, page_reset, copies, positions, **kw)
+        if positions.shape[1] == 1:
+            seen["single"] += 1
+            if seen["largest"] is None or len(got.work) + 1 > seen["largest"]["rows"]:
+                lo, hi = eng.pool.slots
+                seen["largest"] = {"rows": len(got.work) + 1, "table": got.table.tolist(),
+                                   "q_pos": positions[lo:hi, 0].tolist()}
+        return got
+    eng.pages.plan = watch
+    return seen
+
+
+def _dp_paged_digests(pool, rows: range) -> dict:
+    """Digests of rows ``rows`` of every paged leaf of ``pool``."""
+    from repro_torch.dist import pages as PG
+    return {f"{root}.{name}.{k}": digest(t.narrow(pdim, rows.start, len(rows)))
+            for root, name, leaf, pdim in PG.paged_leaves(pool.cache) for k, t in leaf.items()}
+
+
+def dp_paged_worker(spec: dict) -> dict:
+    """One rank of the dp-paged part (``--tp-worker`` scenario ``dp-paged``:
+    2 x 1, or ``dp-paged-quad``: 2 x 2): full-width qwen2.5-3b at
+    ``TP_LAYERS``, tp (b)'s stream and pool at chunk 1 and ``CHUNK``, eager
+    steps with the page exchange; on 2 x 1 rank 0 then serves both in one
+    process (CUDA graphs). Returns tokens, stats, launches, the exchange's
+    and the token gather's counts and times, pool bytes, digests of the
+    rank's owned rows and the shapes of its largest single-token step."""
+    import torch
+    from repro_torch.dist import multihost as MH
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve import serve_stream
+    from repro_torch.serve.engine import Engine
+    dev = spec["device"]
+    rank = MH.process_index()
+    data, model = DP_PAGED[spec["scenario"]]
+    mesh = make_local_mesh(data, model)
+    params, cfg, policy = _tp_model(spec, TP_LAYERS)
+    whole = params if model == 1 and rank == 0 else None
+    local = _tp_shard(params, cfg, mesh, dev)
+    del params
+    stream = paged_stream(cfg.vocab)[:TP_PAGED_REQUESTS]
+    kw = dict(n_slots=8, max_len=TP_PAGED_MAX_LEN, fused_decode=True, device=dev, paged=True,
+              page_size=PAGE, n_pages=TP_PAGED_PAGES)
+    out = {"coords": mesh.coords(rank), "n_layers": cfg.n_layers, "kv_heads": None}
+    for chunk in (1, CHUNK):
+        eng = Engine(local, cfg, policy, mesh=mesh, prefill_chunk=chunk, **kw)
+        plans = _dp_paged_plans(eng)
+        _tp_sync(dev)
+        mods = _tp_counts()
+        res = serve_stream(eng, stream)
+        _tp_sync(dev)
+        eng.pool.check_invariants()
+        ex, tg, pool, st = eng.pages.stats, eng.token_gather, eng.pool, eng.stats
+        lo, hi = pool.rows
+        out["kv_heads"] = pool.cache["layers"]["b0"]["k_pages"].shape[-2]
+        out[str(chunk)] = dict(
+            tokens=_tp_tokens(res), steps=res.calls, seconds=res.seconds, finished=st.finished,
+            stats=[st.steps, st.preemptions, st.prefix_hits, st.prefix_tokens_reused],
+            launches=_tp_read(mods), graphs=len(eng.graphs), single_steps=plans["single"],
+            largest=plans["largest"],
+            exchange=dict(calls=ex.calls, planned_calls=ex.planned_calls, bytes=ex.bytes,
+                          planned_bytes=ex.planned_bytes, seconds=ex.seconds,
+                          host_copy_s=ex.host_copy_s, steps=ex.steps, rows_sent=ex.rows_sent,
+                          cells_sent=ex.cells_sent, work_peak_bytes=ex.work_peak_bytes),
+            token_gather=dict(calls=tg.calls, seconds=tg.seconds),
+            pool_bytes=pool.nbytes(), page_bytes=pool.page_nbytes(), n_rows=pool.n_rows,
+            rows=[lo, hi], digests=_dp_paged_digests(pool, range(0, min(hi, pool.n_pages) - lo)))
+        del eng
+    if whole is not None:
+        # the one-process engine on the same stream, pool and chunk; its rows
+        # digested by the data ranks' shares of the mesh's (padded) row count
+        per = out["1"]["rows"][1] - out["1"]["rows"][0]
+        for chunk in (1, CHUNK):
+            one = Engine(whole, cfg, policy, prefill_chunk=chunk, **kw)
+            res = serve_stream(one, stream)
+            st = one.stats
+            out[f"one_{chunk}"] = dict(
+                tokens=_tp_tokens(res), seconds=res.seconds, graphs=len(one.graphs),
+                stats=[st.steps, st.preemptions, st.prefix_hits, st.prefix_tokens_reused],
+                page_bytes=one.pool.page_nbytes(), n_rows=one.pool.n_rows,
+                digests=[_dp_paged_digests(one.pool, range(d * per, min((d + 1) * per,
+                                                                        one.pool.n_pages)))
+                         for d in range(data)])
+            del one
+    _tp_sync(dev)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
+    return out
+
+
+def _dp_kernel_inputs(largest: dict, hkv: int, seed: int) -> dict:
+    """The paged kernel's inputs at a dp-paged step's shapes: this rank's
+    lanes (their query positions), its working buffer's rows and its
+    remapped tables, ``hkv`` kv heads of ``D`` at G = HQ / HKV; K/V random,
+    each mapped cell's position its logical one up to its lane's depth."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    table = torch.tensor(largest["table"], dtype=torch.int32)
+    q_pos = torch.tensor(largest["q_pos"], dtype=torch.int32)
+    lanes, rows = table.shape[0], largest["rows"]
+    hq = hkv * (HQ // HKV)
+    q = torch.randn((lanes, 1, hq, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((rows, PAGE, hkv, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((rows, PAGE, hkv, D), generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.full((rows, PAGE), -1, dtype=torch.int32)
+    cells = torch.arange(PAGE, dtype=torch.int32)
+    for lane in range(lanes):
+        for blk, r in enumerate(table[lane].tolist()):
+            if r != rows - 1 and q_pos[lane] >= 0:
+                logical = blk * PAGE + cells
+                pos[r] = torch.where(logical <= q_pos[lane], logical, pos[r])
+    return dict(q=q, k=k, v=v, pos=pos.to(dev), table=table.to(dev), q_pos=q_pos.to(dev),
+                window=None, softcap=None)
+
+
+def phase_kernel_dp_paged(card: str, shapes: dict) -> tuple[float, dict]:
+    """The paged kernel at the dp-paged part's shapes (``shapes``: mesh
+    name → its rank 0's largest single-token step at chunk 1), against
+    ``decode_attention_ref`` on the gathered view at ATOL/RTOL and REL_RMS of
+    a lane's RMS; its time beside its bound, the plain version's and SDPA's
+    on the pre-gathered view. Returns the largest error and the times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    max_err, times = 0.0, {}
+    for name, (largest, hkv) in shapes.items():
+        x = _dp_kernel_inputs(largest, hkv, 30)
+
+        def view(t, c):
+            return DA._gather_view(t, c["table"]).contiguous()
+
+        def kernel(c):
+            return DA.fused_paged_decode_attention(c["q"], c["k"], c["v"], c["pos"], c["table"],
+                                                   c["q_pos"], p_dtype=torch.bfloat16)
+
+        def plain(c):
+            return DA.decode_attention_ref(c["q"], view(c["k"], c), view(c["v"], c),
+                                           view(c["pos"], c), c["q_pos"], p_dtype=torch.bfloat16)
+        got, want = kernel(x), plain(x)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"[kernel-dp-paged] {name}: non-finite output")
+        err = float((got - want).abs().max())
+        ratio = rms_ratio(got, want, x["q_pos"])
+        check(torch.allclose(got, want, atol=ATOL, rtol=RTOL) and ratio <= REL_RMS,
+              f"[kernel-dp-paged] {name}: kernel vs plain max |err| {err}, {ratio} of a "
+              f"lane's RMS")
+        max_err = max(max_err, err)
+        kv_bytes = 2 * x["k"].numel() * x["k"].element_size()
+        copies = [x] + [{n: t.clone() if hasattr(t, "clone") else t for n, t in x.items()}
+                        for _ in range(min(-(-64 * 2**20 // kv_bytes) - 1, 255))]
+        ms = time_ms([lambda c=c: kernel(c) for c in copies])
+        plain_ms = time_ms([lambda c=c: plain(c) for c in copies])
+
+        def sdpa(c):
+            kv = view(c["pos"], c)
+            allowed = ((kv >= 0) & (kv <= c["q_pos"][:, None]))[:, None, None, :]
+            qt = c["q"].transpose(1, 2)
+            kt, vt = view(c["k"], c).transpose(1, 2), view(c["v"], c).transpose(1, 2)
+            return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed,
+                                                          enable_gqa=True)
+        library_ms = time_ms([sdpa(c) for c in copies])
+        bound_ms, bound_by = _paged_bound_ms(x)
+        lanes = len(largest["table"])
+        times[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, err=err)
+        print(f"[kernel-dp-paged] {name} on {card}: {lanes} lanes (query positions "
+              f"{largest['q_pos']}), a working buffer of {largest['rows']} rows of {PAGE}, "
+              f"tables of {len(largest['table'][0])} blocks, {hkv} kv heads of {D}, G = "
+              f"{HQ // HKV}: max |kernel - plain| {err:.3e} (atol=rtol={ATOL}), {ratio:.3e} of "
+              f"a lane's RMS (<= {REL_RMS}); kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.4f} ms, scaled_dot_product_attention on the "
+              f"pre-gathered view {library_ms:.4f} ms ({len(copies)} input copies rotated)")
+        del copies, x
+    return max_err, times
+
+
+def phase_dp_paged(card: str, run: dict, tp_b: dict, *, rehearsal: bool = False) -> dict:
+    """ROADMAP A12 item 3 on the card: ``Engine(paged=True, mesh=)`` on a
+    data axis of 2 ranks sharing the card over gloo, the page rows sharded
+    over them and moved by the page exchange; ``run`` holds the ``dp-paged``
+    (2 x 1) and ``dp-paged-quad`` (2 x 2) launches, ``tp_b`` the tp phase's
+    (b) results (1 x 2 paged at the same layers). Checks, at chunk 1 and
+    ``CHUNK``: every rank finishes every request with the same tokens; chunk
+    ``CHUNK`` == chunk 1; 2 x 1 == the one-process engine bitwise (tokens,
+    steps, preemptions, prefix hits, prefix tokens skipped, and each rank's
+    owned rows of every paged leaf by digest); 2 x 2 == tp (b)'s tokens; each
+    rank's page leaves 1/D of the pool's padded rows (on 2 x 1: of the
+    one-process engine's bytes scaled to the padded row count); one paged
+    launch per layer per step, eager; the exchange's collectives and bytes
+    equal its plans'. Then the paged kernel at the part's own shapes
+    (:func:`phase_kernel_dp_paged`). Prints the part's walls and per mesh
+    ms per eager step, the exchange's and token gather's collectives per step
+    and their ms and host-copy ms, exchange bytes per step, pool MiB and
+    peak GiB per rank. Returns rank 0's launches of both launches and the
+    kernel check's largest error (0 in a rehearsal)."""
+    import shutil
+    shutil.rmtree(run["root"], ignore_errors=True)
+    launches, shapes = {}, {}
+    for name, (data, model) in DP_PAGED.items():
+        ranks, wall = run[name]
+        r0 = ranks[0]
+        tag = f"[dp-paged] {data} x {model}"
+        n_layers = r0["n_layers"]
+        for chunk in ("1", str(CHUNK)):
+            for r in ranks:
+                got = r[chunk]
+                check(got["finished"] == TP_PAGED_REQUESTS and got["graphs"] == 0,
+                      f"{tag} chunk {chunk} rank {r['rank']}: finished {got['finished']}, "
+                      f"graphs {got['graphs']}")
+                check(got["tokens"] == r0[chunk]["tokens"] and got["stats"] == r0[chunk]["stats"],
+                      f"{tag} chunk {chunk}: rank {r['rank']}'s tokens or stats != rank 0's")
+                ex = got["exchange"]
+                check(ex["calls"] == ex["planned_calls"] and ex["bytes"] == ex["planned_bytes"],
+                      f"{tag} chunk {chunk} rank {r['rank']}: exchange {ex['calls']} calls, "
+                      f"{ex['bytes']} bytes; planned {ex['planned_calls']}, "
+                      f"{ex['planned_bytes']}")
+                check(rehearsal or got["launches"]["paged_decode_attention"]
+                      == n_layers * got["steps"],
+                      f"{tag} chunk {chunk} rank {r['rank']}: paged launches "
+                      f"{got['launches']} for {got['steps']} steps of {n_layers} layers")
+                rows = got["rows"][1] - got["rows"][0]
+                want = n_layers * rows * PAGE * (2 * r["kv_heads"] * D * 2 + 4)
+                check(rows * data == got["n_rows"] and (rehearsal or got["page_bytes"] == want),
+                      f"{tag} rank {r['rank']}: {rows} of {got['n_rows']} rows, page leaves "
+                      f"{got['page_bytes']} bytes (want {want})")
+            check(r0[chunk]["tokens"] == r0["1"]["tokens"],
+                  f"{tag}: chunk {chunk} tokens != chunk 1's")
+            check(chunk != "1" or (r0[chunk]["stats"][1] >= 1 and r0[chunk]["stats"][2] >= 1),
+                  f"{tag} chunk 1: stats {r0[chunk]['stats']} (no preemption or prefix hit)")
+            if model == 1:
+                one = r0[f"one_{chunk}"]
+                check(one["tokens"] == r0[chunk]["tokens"] and one["stats"] == r0[chunk]["stats"],
+                      f"{tag} chunk {chunk}: tokens or stats {r0[chunk]['stats']} != the "
+                      f"one-process engine's {one['stats']}")
+                for r in ranks:
+                    d = r["coords"]["data"]
+                    check(r[chunk]["digests"] == one["digests"][d],
+                          f"{tag} chunk {chunk}: data rank {d}'s owned rows != the one-process "
+                          f"pool's rows")
+                check(r0[chunk]["page_bytes"] * data * one["n_rows"]
+                      == one["page_bytes"] * r0[chunk]["n_rows"],
+                      f"{tag}: page leaves {r0[chunk]['page_bytes']} bytes per rank vs one "
+                      f"process's {one['page_bytes']} at {one['n_rows']} rows")
+            else:
+                want = tp_b[chunk]["tokens"]
+                check(r0[chunk]["tokens"] == want,
+                      f"{tag} chunk {chunk}: tokens != the 1 x 2 paged run's (tp (b))")
+        for k, n in r0["1"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n + r0[str(CHUNK)]["launches"][k]
+        shapes[f"{data} x {model}"] = (r0["1"]["largest"], r0["kv_heads"])
+        for chunk in ("1", str(CHUNK)):
+            got, steps = r0[chunk], r0[chunk]["steps"]
+            ex, tg = got["exchange"], got["token_gather"]
+            peaks = [r["peak_gib"] for r in ranks]
+            versus = ("== the one-process engine (bitwise: tokens, stats, owned rows)"
+                      if model == 1 else "== tp (b)'s 1 x 2 tokens")
+            print(f"{tag} on {card}: qwen2.5-3b {n_layers} layers, {TP_PAGED_REQUESTS} "
+                  f"requests, {TP_PAGED_PAGES} pages of {PAGE}, chunk {chunk}: {steps} eager "
+                  f"steps ({got['single_steps']} single-token) in {got['seconds']:.2f}s -> "
+                  f"{1e3 * got['seconds'] / steps:.2f} ms per step; steps, preemptions, "
+                  f"prefix hits, tokens skipped {got['stats']}; page exchange "
+                  f"{ex['calls'] / steps:.2f} collectives per step ({ex['calls']} = planned) "
+                  f"taking {1e3 * ex['seconds'] / steps:.2f} ms per step, host copies "
+                  f"{1e3 * ex['host_copy_s'] / steps:.2f} ms; {ex['bytes'] / steps:.0f} bytes "
+                  f"per step handed ({ex['rows_sent']} rows, {ex['cells_sent']} cells; = "
+                  f"planned); token gather {tg['calls'] / steps:.2f} per step, "
+                  f"{1e3 * tg['seconds'] / steps:.2f} ms; pool {got['pool_bytes'] / 2**20:.2f} "
+                  f"MiB per rank (page leaves {got['page_bytes']} bytes, rows "
+                  f"{got['rows'][0]}..{got['rows'][1] - 1} of {got['n_rows']}), working buffers "
+                  f"peak {ex['work_peak_bytes'] / 2**20:.3f} MiB; paged launches "
+                  f"{got['launches']['paged_decode_attention']} = {n_layers} x {steps}; peak "
+                  f"{max(peaks):.2f} GiB per rank; tokens {versus}"
+                  + (f" (one process, graphs: {r0[f'one_{chunk}']['seconds']:.2f}s)"
+                     if model == 1 else ""))
+        print(f"{tag}: launch wall {wall:.1f}s (beside phase 19's launches)")
+    max_err = 0.0
+    if not rehearsal:
+        max_err, times = phase_kernel_dp_paged(card, shapes)
+    return {"launches": launches, "max_abs_err": max_err}
+
+
 def phase_qmatmul_f32(card: str) -> dict:
     """(d) The f32-result entry of ``qmatmul``: rounded to bf16 it is the
     bf16 entry bit for bit on both paths, its rows do not depend on the
@@ -6296,10 +6607,17 @@ def main():
         launches[k] += n
     # phase 19 in series: beside the paper window and the tp thread (phase
     # 18's mixtral training, then phase 17's) its launches ran the card out
-    # of memory
-    stamp("tp-hybrid")
-    for k, n in phase_tp_hybrid(card, hyb_runs()).items():
+    # of memory; the dp-paged part's two launches ride beside its five
+    stamp("tp-hybrid and dp-paged")
+    hyb = hyb_runs(HYB_LAUNCHES + DP_LAUNCHES)
+    for k, n in phase_tp_hybrid(card, hyb).items():
         launches[k] += n
+    stamp("dp-paged checks")
+    dp = phase_dp_paged(card, hyb, tp_run["cut"][0][0]["paged"])
+    for k, n in dp["launches"].items():
+        launches[k] += n
+    rows["paged_decode_attention"]["max_abs_err"] = max(
+        rows["paged_decode_attention"]["max_abs_err"], dp["max_abs_err"])
     stamp("dist")
     for k, n in phase_dist(card, *train_ref).items():
         launches[k] += n

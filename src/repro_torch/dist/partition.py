@@ -21,9 +21,11 @@ Mamba, the RG-LRU hybrid and the encoder-decoder, with head counts the
 axis does not divide (the reference's padded head split,
 ``models/layers.py::head_plan``) and a vocabulary it does not divide (the
 embedding and head whole on every rank, as the name rules leave them).
-Paged pools under a data axis above 1 and channel widths the axis does
-not divide (``d_ff``, ``d_inner``, RG-LRU's width) are ROADMAP A12, FSDP
-beside a model axis above 1 is A13.
+A paged pool under a data axis above 1 shards its page rows over the data
+ranks (:func:`page_rows`; the rows a lane reads move through
+:mod:`repro_torch.dist.pages`). Channel widths the axis does not divide
+(``d_ff``, ``d_inner``, RG-LRU's width) are ROADMAP A12, FSDP beside a
+model axis above 1 is A13.
 
 :func:`batch_specs`, :func:`cache_specs` and :func:`serve_input_specs`
 give the reference's specs; :func:`rank_rows` applies the batch's: a rank
@@ -44,7 +46,7 @@ __all__ = ["MODEL_AXIS", "DATA_AXIS", "POD_AXIS", "FSDP_AXIS", "KNOWN_AXES",
            "STACKED_CACHE_ROOTS", "SERVE_ITEM", "FSDP_TP_ITEM", "P", "Placement",
            "default_placement", "dp_axes", "dp_size", "mp_size", "param_specs",
            "state_shardings", "batch_specs", "cache_specs", "serve_input_specs",
-           "serve_refusal", "rank_index", "rank_rows"]
+           "serve_refusal", "page_rows", "rank_index", "rank_rows"]
 
 PyTree = Any
 
@@ -146,24 +148,19 @@ def mp_size(mesh) -> int:
     return mesh.shape[MODEL_AXIS] if mesh is not None and MODEL_AXIS in mesh.axis_names else 1
 
 
-def serve_refusal(cfg, mesh, *, paged: bool = False) -> Optional[str]:
-    """Why the port cannot serve (or, with ``paged=False``, train) ``cfg``
-    on ``mesh`` (None when it can). On a model axis above 1 it serves and
+def serve_refusal(cfg, mesh) -> Optional[str]:
+    """Why the port cannot serve or train ``cfg`` on ``mesh`` (None when
+    it can). On a model axis above 1 it serves and
     trains every family; head counts and a vocabulary the axis does not
     divide take the padded head split and the whole embedding. It refuses
     a channel width the axis does not divide (the MLP's or the experts'
     ``d_ff``, Mamba's ``d_inner``, RG-LRU's width, a projection's head
     columns: the name rules would leave those kernels whole, and their
-    products would be summed once per rank), A12's item 2; and a paged
-    pool under a data axis above 1 (a lane's block table may name any page
-    row, so its rows would need a cross-rank gather every step: A12's item
-    3)."""
+    products would be summed once per rank), A12's item 2. A paged pool
+    is served on any data axis (its rows shard, :func:`page_rows`)."""
     if mesh is None:
         return None
     mp = mp_size(mesh)
-    if paged and dp_size(mesh) > 1:
-        return (f"a paged pool on {dp_size(mesh)} data-parallel ranks is {SERVE_ITEM} "
-                "(item 3: any lane's block table may name any page row)")
     if mp == 1:
         return None
     dims = [("d_ff", cfg.d_ff)] if cfg.d_ff else []
@@ -379,6 +376,21 @@ def serve_input_specs(n_slots: int, mesh, *, paged: bool = False, n_rows: int | 
     if chunk > 1:
         specs["n_tok"] = P(slot)
     return specs
+
+
+def page_rows(n_rows: int, mesh, index: int | None = None) -> tuple[int, int]:
+    """The page rows ``[lo, hi)`` that data index ``index`` (default: this
+    rank's, :func:`rank_index`) holds of a pool of ``n_rows``: the
+    reference's ``P(data)`` split of the row dim (``cache_specs``), so
+    index ``d`` of ``D`` holds ``[d·R/D, (d+1)·R/D)`` and the null row
+    ``R − 1`` lies on the last. The pool pads ``n_rows`` to a multiple of
+    ``D``; one that does not divide raises."""
+    n = 1 if mesh is None else dp_size(mesh)
+    if n_rows % n:
+        raise ValueError(f"{n_rows} page rows do not split over {n} data ranks")
+    at = 0 if n == 1 else (rank_index(mesh) if index is None else index)
+    per = n_rows // n
+    return at * per, (at + 1) * per
 
 
 def rank_index(mesh, first: str | None = None, rank: int | None = None) -> int:

@@ -45,16 +45,22 @@ text; the MoE families, each expert's FFN width split; falcon-mamba,
 ``d_inner`` split; recurrentgemma, the RG-LRU channels split) and runs its
 step eagerly, head counts it does not divide included (recurrentgemma's
 one kv head and, on 4 ranks, its 10 query heads padded to 12; qwen2.5's 2
-kv heads on 4); ``--paged`` with a data axis above 1 and channel widths
-the axis does not divide are ROADMAP A12 (whisper decodes in lock-step
-on the axis through ``registry.make_cache(batch=, mesh=)``). Several
-ranks share one card with ``--dist-backend gloo``:
+kv heads on 4); channel widths the axis does not divide are ROADMAP A12
+(whisper decodes in lock-step on the axis through
+``registry.make_cache(batch=, mesh=)``). ``--paged`` with a data axis
+above 1 shards the page rows over the data ranks and moves the rows each
+rank's lanes read through the page exchange (``dist/pages.py``); each
+rank prints its pool MiB, its rows and the exchange's collectives and
+bytes per step. Several ranks share one card with ``--dist-backend gloo``:
 
     PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
         python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu \\
         --data-parallel 1 --model-parallel 2 --fused-decode
     python -m repro_torch.launch.dist_launch -n 4 -- python -m repro_torch.launch.serve \\
         --data-parallel 2 --model-parallel 2 --dist-backend gloo --fused-decode
+    PYTHONPATH=src python -m repro_torch.launch.dist_launch -n 2 -- \\
+        python -m repro_torch.launch.serve --arch qwen2.5-3b --reduced --device cpu \\
+        --paged --data-parallel 2
 """
 from __future__ import annotations
 
@@ -243,13 +249,16 @@ def _serve(args, cfg, policy, device, mesh, ap):
               if args.paged else "contiguous")
     if mesh is not None:
         weight = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        mode = ("eager steps (model group)" if engine.axis else
+                "eager steps (page exchange)" if engine.pages else "graphs on CUDA")
         print(f"[serve] rank {MH.process_index()} of mesh {mesh.shape}: slots "
               f"{engine.pool.slots[0]}..{engine.pool.slots[1] - 1}, weights "
               f"{weight / 2**20:.1f} MiB, KV {engine.pool.nbytes() / 2**20:.1f} MiB; "
-              f"{'eager steps (model group)' if engine.axis else 'graphs on CUDA'}",
+              f"{mode}",
               flush=True)
     if not MH.is_primary():
         serve_stream(engine, stream, lambda i: knobs)
+        _print_exchange(engine)
         return
     print(f"[serve] {cfg.name} policy={policy.name} slots={args.slots} "
           f"max_len={args.max_len} kv_dtype={engine.pool.dtype} {layout} "
@@ -285,6 +294,22 @@ def _serve(args, cfg, policy, device, mesh, ap):
     for c in res.completions[:4]:
         print(f"  rid={c.rid} {c.finish_reason:6s} prompt={c.prompt.size:3d} "
               f"gen={c.tokens.size:3d} tokens={c.tokens[:8].tolist()}…")
+    _print_exchange(engine)
+
+
+def _print_exchange(engine: Engine) -> None:
+    """A paged pool on a data axis: this rank's pool, its page rows and
+    the page exchange's collectives and bytes per step."""
+    if engine.pages is None:
+        return
+    st, pool = engine.pages.stats, engine.pool
+    steps = max(st.steps, 1)
+    print(f"[serve] rank {MH.process_index()} pages: rows {pool.rows[0]}..{pool.rows[1] - 1} of "
+          f"{pool.n_rows}, pool {pool.nbytes() / 2**20:.2f} MiB (page leaves "
+          f"{pool.page_nbytes() / 2**20:.2f} of {pool.global_page_nbytes() / 2**20:.2f}); "
+          f"exchange {st.calls / steps:.2f} collectives and {st.bytes / steps:.0f} bytes per "
+          f"step over {st.steps} steps ({st.rows_sent} rows, {st.cells_sent} cells sent), "
+          f"working buffers peak {st.work_peak_bytes / 2**20:.2f} MiB", flush=True)
 
 
 if __name__ == "__main__":

@@ -82,8 +82,9 @@ def copy_page_rows(pages, dst, src, pdim: int = 0):
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    # scaled in place: drawing a large embedding holds one f32 copy, not two
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,

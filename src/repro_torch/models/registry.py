@@ -109,7 +109,9 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
                page_size=None, n_rows=None, batch: dict | None = None,
                qa: QArith | None = None, mesh=None):
     """Decode cache for ``batch_size`` lanes, on the parameters' device;
-    ``page_size``/``n_rows`` build the paged pool instead. On ``mesh``'s
+    ``page_size``/``n_rows`` build the paged pool instead (on a data axis
+    above 1 this rank's rows of it, ``partition.page_rows``; the caller
+    passes its own lanes' count as for a contiguous cache). On ``mesh``'s
     model axis ``params`` are this rank's shards and the cache holds this
     rank's share: the kv heads its attention reads (``layers.head_plan``),
     its Mamba and RG-LRU channels; ``mesh`` refuses what the port does not
@@ -118,7 +120,7 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
     cross K/V (it has no paged pool), its attention over the whole source
     in one flash chunk: the reference's chunk of 1024 does not divide
     whisper's 1500 frames, and the chunk only orders the sums."""
-    reason = PT.serve_refusal(cfg, mesh, paged=page_size is not None)
+    reason = PT.serve_refusal(cfg, mesh)
     if reason is not None:
         raise ValueError(reason)
     if cfg.encdec:
@@ -131,6 +133,9 @@ def make_cache(params, cfg, *, batch_size: int, max_len: int, dtype=torch.bfloat
         with axes.model_axis(axes.for_mesh(mesh)):
             enc_out = ED.encode(qa, params, cfg, src, remat=False, attn_chunk=src.shape[1])
             return ED.init_decode_cache(cfg, params, qa, enc_out, batch_size, max_len, dtype)
+    if page_size is not None:
+        lo, hi = PT.page_rows(n_rows, mesh)      # this data rank's rows
+        n_rows = hi - lo
     return T.init_cache(cfg, batch_size, max_len, dtype, page_size=page_size,
                         n_rows=n_rows, device=params["embed"]["embedding"].device,
                         **_local_widths(cfg, mesh))

@@ -54,7 +54,7 @@ from repro_torch.kernels.sr_cast import sr_cast
 from repro_torch.optim.base import LeafNoise, _mix
 
 __all__ = ["WIRE_TAG", "WireKey", "WireStats", "init_residual", "compress_leaf",
-           "gather_parts", "exchange_parts", "wire_mean", "reduce_scatter_mean",
+           "gather_parts", "exchange_parts", "exchange_bytes", "wire_mean", "reduce_scatter_mean",
            "compressed_psum"]
 
 # the reference folds 7 into a step's key for its wire (train/step.py)
@@ -212,6 +212,29 @@ def exchange_parts(send: torch.Tensor, to: Sequence[int], frm: Sequence[int], gr
     out = torch.empty_like(recv)
     out[outs] = recv
     return out
+
+
+def exchange_bytes(parts: Sequence[torch.Tensor], recv_sizes: Sequence[int], group,
+                   stats: WireStats | None = None, kind: str = "reduce") -> list[torch.Tensor]:
+    """An all-to-all of uneven byte parts: ``parts[j]`` (a u8 tensor, empty
+    for none) goes to rank j of ``group``, and part i of the result holds
+    the ``recv_sizes[i]`` bytes rank i sent this one (``all_to_all_single``
+    with uneven splits). Counted in ``stats`` as ``kind``, at the bytes
+    this rank hands the collective."""
+    device = parts[0].device
+    send = torch.cat([p.reshape(-1) for p in parts])
+    via_host = _via_host(send, group)
+    if via_host:
+        send = _to_host(send, stats)
+    recv = torch.empty((sum(recv_sizes),), dtype=torch.uint8, device=send.device,
+                       pin_memory=via_host)
+    dist.all_to_all_single(recv, send, output_split_sizes=list(recv_sizes),
+                           input_split_sizes=[p.numel() for p in parts], group=group)
+    if stats is not None:
+        stats.count(send, kind)
+    if via_host:
+        recv = _to_device([recv], device, stats)[0]
+    return list(torch.split(recv, list(recv_sizes)))
 
 
 def wire_mean(payload: torch.Tensor, group, stats: WireStats | None = None,

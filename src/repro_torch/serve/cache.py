@@ -156,16 +156,17 @@ def keep_active(active: Optional[torch.Tensor], new: PyTree, old: PyTree) -> PyT
     return old
 
 
-def local_slots(n_slots: int, mesh) -> tuple[int, int]:
-    """The slot range ``[lo, hi)`` whose state this rank holds: on a mesh
-    whose data axes divide the slots, its index's contiguous share (the
-    reference's slot spec, ``partition.cache_specs``); otherwise every slot
-    (they replicate, as the reference's do)."""
+def local_slots(n_slots: int, mesh, index: Optional[int] = None) -> tuple[int, int]:
+    """The slot range ``[lo, hi)`` whose state data index ``index``
+    (default: this rank's) holds: on a mesh whose data axes divide the
+    slots, its contiguous share (the reference's slot spec,
+    ``partition.cache_specs``); otherwise every slot (they replicate, as
+    the reference's do)."""
     n = 1 if mesh is None else PT.dp_size(mesh)
     if n == 1 or n_slots % n:
         return 0, n_slots
     per = n_slots // n
-    at = PT.rank_index(mesh)
+    at = PT.rank_index(mesh) if index is None else index
     return at * per, (at + 1) * per
 
 

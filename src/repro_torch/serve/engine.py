@@ -73,6 +73,18 @@ ranks that compute it, from the whole-vocabulary logits and with the
 token. Under a model group of more than one rank the step runs eagerly
 (its collectives are host operations on a gloo group, which a CUDA graph
 cannot capture) and ``graphs`` stays empty; the kernels still launch.
+
+A paged pool under a data axis above 1 (ROADMAP A12 item 3) holds this
+rank's page rows (``partition.page_rows``) and its lanes' slot-indexed
+state; the page ids, the free list and the block tables stay global and
+the same on every rank. Each step the engine plans the pool's page
+exchange (:mod:`repro_torch.dist.pages`: the rows this rank's lanes name
+that other ranks own, and the cells they write into them), hands the step
+this rank's lanes' tables remapped onto the exchange's working buffers and
+its own rows of ``page_reset``, and the step pulls and pushes around the
+model: at most two collectives per step (``pool.exchange.stats``) beside
+the token gather. That step runs eagerly too; capturing a sharded step as
+a graph is ROADMAP A12 item 4.
 """
 from __future__ import annotations
 
@@ -284,9 +296,9 @@ class Engine:
     ``mesh`` (see the module's note) serves on the processes' ``(data,
     model)`` mesh: ``params`` are this rank's shards
     (``partition.param_specs``; ``convert.from_jax_params(specs=, mesh=)``
-    or ``dist.fsdp.shard_state``). A model axis above 1 takes the dense
-    decoder-only families (``partition.serve_refusal``), a paged pool no
-    data axis above 1.
+    or ``dist.fsdp.shard_state``). A model axis above 1 takes every
+    decoder-only family (``partition.serve_refusal``); a paged pool on a
+    data axis above 1 shards its rows over the data ranks.
     """
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
@@ -297,7 +309,7 @@ class Engine:
                  prefix_cache: Optional[bool] = None, device=None, mesh=None):
         if cfg.encdec:
             raise ValueError(f"Engine is decoder-only; encoder-decoder {ENCDEC_ROUTE}")
-        refusal = PT.serve_refusal(cfg, mesh, paged=paged)
+        refusal = PT.serve_refusal(cfg, mesh)
         if refusal is not None:
             raise ValueError(refusal)
         if prefill_chunk < 1:
@@ -337,23 +349,28 @@ class Engine:
         self.mesh = mesh
         # the model axis's collectives (None in one process or at model 1)
         self.axis = axes.for_mesh(mesh)
-        # the data ranks whose slots this step's tokens gather from (None
-        # when this rank computes every slot)
+        # whether this rank computes a share of the slots: the step's tokens
+        # are then gathered over the data ranks
         lo, hi = self.pool.slots
-        self._data_group = mesh.dp_group() if hi - lo < n_slots else None
+        self._split = hi - lo < n_slots
         self.token_gather = axes.AxisStats()
+        # the paged pool's page exchange (None: this rank holds every row)
+        self.pages = self.pool.exchange if paged else None
         # one step function per (token width, with_logits): the greedy
         # variants of widths 1 and C now, a logits variant at the first
         # step that samples at its width; on CUDA each is captured as a
         # graph at its first step
         self._fused_decode = fused_decode
         self._fns = {(w, False): make_serve_step(cfg, policy, fused_decode=fused_decode,
-                                                 paged=self.paged, chunk=w, mesh=mesh)
+                                                 paged=self.paged, chunk=w, mesh=mesh,
+                                                 exchange=self.pages)
                      for w in {1, self.prefill_chunk}}
         self._staging: dict[tuple, _Staging] = {}
         self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, tuple]] = {}
-        # a model group's collectives run on the host: no graph captures them
-        self._use_graphs = self.device.type == "cuda" and self.axis is None
+        # a model group's collectives and the page exchange run on the host:
+        # no graph captures them
+        self._use_graphs = (self.device.type == "cuda" and self.axis is None
+                            and self.pages is None)
         self.graphs: dict[tuple, GraphStats] = {}
         # static width of the per-step copy-on-write list (the reference's
         # _max_copies): each scheduled lane's write range spans at most
@@ -374,7 +391,8 @@ class Engine:
         if fn is None:
             fn = self._fns[key] = make_serve_step(
                 self.cfg, self.policy, fused_decode=self._fused_decode, paged=self.paged,
-                chunk=width, return_logits=with_logits, mesh=self.mesh)
+                chunk=width, return_logits=with_logits, mesh=self.mesh,
+                exchange=self.pages)
         return fn
 
     # -- request intake -----------------------------------------------------
@@ -565,28 +583,46 @@ class Engine:
                 token[i, 0] = s.last_token
         # 4. one serve step for every lane
         args = {"token": token, "pos": pos, "active": active, "reset": reset}
+        plan = None
         if self.paged:
             args["block_table"] = self.pool.block_table
             args["page_reset"] = page_reset
-            # static-width CoW row lists; padding dst = n_rows copies nothing
+            # static-width CoW row lists; in one pool padding dst = n_rows
+            # copies nothing
             K = self._max_copies
             if len(copies) > K:
                 raise RuntimeError(f"{len(copies)} copy-on-write rows exceed the "
                                    f"static width {K}")
-            dst = np.full((K,), self.pool.n_rows, np.int32)
-            src = np.zeros((K,), np.int32)
-            for j, (d, sp) in enumerate(copies):
-                dst[j], src[j] = d, sp
+            if self.pages is None:
+                dst = np.full((K,), self.pool.n_rows, np.int32)
+                src = np.zeros((K,), np.int32)
+                for j, (d, sp) in enumerate(copies):
+                    dst[j], src[j] = d, sp
+            else:
+                # the exchange's plan from every lane's token positions (−1:
+                # none); the step copies the pairs of this rank's own rows
+                offs = np.arange(width, dtype=np.int32)
+                positions = np.where(offs[None, :] < feeds[:, None],
+                                     pos[:, None] + offs[None, :], -1)
+                plan = self.pages.plan(self.pool.block_table, page_reset, copies, positions,
+                                       copy_width=K)
+                dst, src = plan.copy_dst, plan.copy_src
             args["copy_dst"], args["copy_src"] = dst, src
         if width > 1:
             args["n_tok"] = feeds
         lo, hi = self.pool.slots
-        if hi - lo < n:               # this rank's slots, its lanes' draws
-            specs = PT.serve_input_specs(n, self.mesh, chunk=width)
-            args = {k: (v[lo:hi] if k in specs and specs[k][0] is not None else v)
+        if self.mesh is not None:
+            # this rank's slots (and its lanes' draws), its own page rows
+            specs = PT.serve_input_specs(n, self.mesh, paged=self.paged, chunk=width,
+                                         n_rows=self.pool.n_rows if self.paged else None)
+            args = {k: (v if k not in specs or specs[k][0] is None else
+                        v[slice(*self.pool.rows)] if k == "page_reset" else v[lo:hi])
                     for k, v in args.items()}
             draws = [(i - lo, *rest) for i, *rest in draws if lo <= i < hi]
-        sampled = self._gather_tokens(self._serve((width, bool(draws)), args, draws)).reshape(n)
+        if plan is not None:
+            args["block_table"] = plan.table
+        sampled = self._gather_tokens(
+            self._serve((width, bool(draws)), args, draws, plan)).reshape(n)
         # 5. account, publish prefixes, evict
         self.stats.steps += 1
         self.stats.slot_steps += n
@@ -628,9 +664,10 @@ class Engine:
                                     if self.paged else 0)
         return done
 
-    def _serve(self, key: tuple, args: dict, draws: list) -> np.ndarray:
+    def _serve(self, key: tuple, args: dict, draws: list, pages=None) -> np.ndarray:
         """Run the serve step variant ``key`` = (width, with_logits) on
-        ``args`` (numpy); its tokens, the lanes of ``draws`` sampled.
+        ``args`` (numpy) and ``pages`` (the page exchange's plan: eager
+        steps only); its tokens, the lanes of ``draws`` sampled.
 
         The inputs are staged into the variant's static buffers. On the
         CPU the step function runs on them eagerly. On CUDA the variant's
@@ -647,7 +684,7 @@ class Engine:
         fn = self._fn(*key)
         if not self._use_graphs:
             with torch.no_grad():
-                *out, self.pool.cache = fn(self.params, self.pool.cache, **inputs)
+                *out, self.pool.cache = fn(self.params, self.pool.cache, **inputs, pages=pages)
             return self._read(out, draws)
         with torch.cuda.device(self.device):
             graph = self._graphs.get(key)
@@ -674,12 +711,13 @@ class Engine:
     def _gather_tokens(self, tokens: np.ndarray) -> np.ndarray:
         """Every slot's token: this rank's ``tokens`` gathered in rank order
         over the data ranks when the slots are split over them."""
-        if self._data_group is None:
+        if not self._split:
             return tokens
         t0 = time.perf_counter()
+        group = self.mesh.dp_group()
         local = torch.from_numpy(np.ascontiguousarray(tokens).reshape(-1)).to(
-            MH.group_device(self._data_group))
-        parts = gather_parts(local, self._data_group, self.token_gather.wire)
+            MH.group_device(group))
+        parts = gather_parts(local, group, self.token_gather.wire)
         self.token_gather.calls += 1
         self.token_gather.seconds += time.perf_counter() - t0
         return torch.cat(parts).cpu().numpy()

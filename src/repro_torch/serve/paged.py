@@ -55,6 +55,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.policy import PrecisionPolicy
+from repro_torch.dist import pages as PG
 from repro_torch.dist import partition as PT
 from repro_torch.models import registry as R
 from repro_torch.serve import cache as SC
@@ -86,6 +87,16 @@ class PagedCachePool:
     come close to ``max_len``, so a pool with far fewer pages (or far
     more slots per page budget) sustains the same traffic; prefix sharing
     stretches the same bytes further again on common-prefix traffic.
+
+    On a ``mesh`` whose data axes exceed 1 (ROADMAP A12 item 3) the device
+    side holds this rank's page rows of every paged leaf (``rows``,
+    :func:`repro_torch.dist.partition.page_rows`) and its lanes' slots of
+    the slot-indexed leaves (``slots``, as :class:`CachePool`'s), and
+    ``exchange`` (:class:`repro_torch.dist.pages.PageExchange`) moves the
+    rows a step's lanes read across the data ranks. The host side stays
+    global and the same on every rank: page ids, free list, refcounts,
+    block tables and the prefix index, so every rank makes the same
+    admission, preemption and prefix decisions.
     """
 
     def __init__(self, params, cfg, policy: PrecisionPolicy, *,
@@ -108,15 +119,23 @@ class PagedCachePool:
         self.n_pages = int(n_pages)
         # + the null row; on a mesh the row count is padded to a multiple of
         # the data-parallel size, as the reference's (pad rows are never
-        # handed out). make_cache refuses a data axis above 1 (A12).
+        # handed out)
         n_rows = self.n_pages + 1
         if mesh is not None:
             n_rows = -(-n_rows // PT.dp_size(mesh)) * PT.dp_size(mesh)
         self.n_rows = n_rows
         self.null_page = self.n_rows - 1   # by convention: the last row
         self.dtype = SC.cache_dtype(policy)
-        self.slots = (0, self.n_slots)     # every lane: no data axis above 1
-        self.cache = R.make_cache(params, cfg, batch_size=self.n_slots,
+        # this rank's lanes and page rows (all of them in one process); the
+        # rows its lanes read from other data ranks move through the exchange
+        self.slots = SC.local_slots(self.n_slots, mesh)
+        self.rows = PT.page_rows(self.n_rows, mesh)
+        dp = 1 if mesh is None else PT.dp_size(mesh)
+        self.exchange = (PG.PageExchange(mesh, self.n_rows, self.page_size,
+                                         [SC.local_slots(self.n_slots, mesh, index=d)
+                                          for d in range(dp)])
+                         if dp > 1 else None)
+        self.cache = R.make_cache(params, cfg, batch_size=self.slots[1] - self.slots[0],
                                   max_len=self.max_len, dtype=self.dtype,
                                   page_size=self.page_size, n_rows=self.n_rows, mesh=mesh)
         self._free_slots: deque[int] = deque(range(self.n_slots))
@@ -378,5 +397,17 @@ class PagedCachePool:
                (self.block_table >= 0).all()
 
     def nbytes(self) -> int:
-        """Total pool bytes."""
+        """This rank's pool bytes: its page rows of every paged leaf, its
+        slots of the slot-indexed leaves (the whole pool in one process)."""
         return SC.nbytes(self.cache)
+
+    def page_nbytes(self) -> int:
+        """This rank's bytes of the paged leaves (``k_pages``, ``v_pages``,
+        ``pos_pages``): its ``rows`` of every layer's."""
+        return sum(t.numel() * t.element_size() for _, _, leaf, _ in PG.paged_leaves(self.cache)
+                   for t in leaf.values())
+
+    def global_page_nbytes(self) -> int:
+        """The paged leaves' bytes of the whole pool, every data rank's rows
+        (pad rows included): ``page_nbytes`` scaled to ``n_rows``."""
+        return self.page_nbytes() * self.n_rows // (self.rows[1] - self.rows[0])

@@ -314,7 +314,7 @@ def make_eval_step(cfg, policy: PrecisionPolicy, *, attn_chunk: int = 1024):
 
 def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                     paged: bool = False, chunk: int = 1,
-                    return_logits: bool = False, mesh=None):
+                    return_logits: bool = False, mesh=None, exchange=None):
     """Slot-indexed decode step:
     ``(params, cache, token, pos[, active, reset, ...]) → (next_token, cache)``.
 
@@ -349,6 +349,18 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
     nothing, applied after ``page_reset`` and before the model's KV
     writes; see :func:`repro_torch.serve.cache.copy_pages`).
 
+    ``exchange`` (a :class:`repro_torch.dist.pages.PageExchange`) serves a
+    paged pool whose rows shard over data ranks (ROADMAP A12 item 3), each
+    call given its step's plan as ``pages`` (a ``StepPlan``): ``cache``
+    holds this rank's rows, ``page_reset`` marks its own recycled rows,
+    ``block_table`` is this rank's lanes' tables remapped onto the plan's
+    working buffers and ``copy_dst``/``copy_src`` are the plan's pairs of
+    this rank's own rows. The step pulls the rows its lanes read into the
+    working buffers (copying the pairs whose source another rank holds),
+    runs the layers on them unchanged and pushes the written cells back to
+    their owners (two collectives at most, host operations: the step runs
+    eagerly).
+
     ``chunk=C > 1`` is the *chunked-prefill* variant: ``token`` is (N, C)
     and ``n_tok`` ((N,) i32) says how many of each lane's C tokens are real
     this step (1 for decode lanes, up to C for prefilling lanes; padding
@@ -380,7 +392,7 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
 
     def serve_step(params, cache, token, pos, active=None, reset=None, *,
                    mrope_positions=None, block_table=None, page_reset=None, n_tok=None,
-                   copy_dst=None, copy_src=None):
+                   copy_dst=None, copy_src=None, pages=None):
         with dispatch.fused_decode(fused_decode), axes.model_axis(axis):
             wc = compute_params(params, policy)
             if reset is not None:
@@ -389,6 +401,11 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                 cache = SC.reset_pages(cache, page_reset)
             if paged and copy_dst is not None:
                 cache = SC.copy_pages(cache, copy_dst, copy_src)
+            pool = cache
+            if pages is not None:
+                # this rank's lanes read the working buffers of the rows
+                # their tables name (block_table is already remapped onto them)
+                cache = exchange.pull(pool, pages)
             if chunk == 1:
                 cache_pos = pos if active is None else torch.where(active, pos, -1)
                 last = None
@@ -406,8 +423,10 @@ def make_serve_step(cfg, policy: PrecisionPolicy, *, fused_decode: bool = False,
                                          block_table=block_table if paged else None,
                                          out_rows=last)
             next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            if pages is not None:
+                exchange.push(pool, new_cache, pages)
             # recurrent state back into the pool's buffers, per active lane
-            new_cache = SC.keep_active(active, new_cache, cache)
+            new_cache = SC.keep_active(active, new_cache, pool)
             if active is not None:
                 next_token = torch.where(active, next_token, -1)
             if return_logits:

@@ -34,13 +34,33 @@ def log_tails(log_dir: Path, n: int, chars: int = 3000) -> str:
     return "\n".join(out)
 
 
+def start_ranks(worker: str, args: list[str], n: int, log_dir: Path, timeout: float,
+                env: dict | None = None) -> tuple:
+    """Start ``python worker *args`` on ``n`` ranks; :func:`wait_ranks`
+    ends it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
+           str(timeout - 10), "--log-dir", str(log_dir), "--", sys.executable, worker, *args]
+    proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                            env=env or rank_env(), cwd=ROOT)
+    return proc, n, log_dir, timeout
+
+
+def wait_ranks(launch: tuple) -> None:
+    """Wait for a :func:`start_ranks` launch; raise AssertionError with
+    every rank's log tail unless all ranks exit 0."""
+    proc, n, log_dir, timeout = launch
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, (f"dist_launch exited {proc.returncode}\n{err[-1000:]}\n"
+                                  + log_tails(log_dir, n))
+
+
 def run_ranks(worker: str, args: list[str], n: int, log_dir: Path, timeout: float,
               env: dict | None = None) -> None:
     """Run ``python worker *args`` on ``n`` ranks; raise AssertionError with
     every rank's log tail unless all exit 0."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.dist_launch", "-n", str(n), "--timeout",
-           str(timeout - 10), "--log-dir", str(log_dir), "--", sys.executable, worker, *args]
-    run = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
-                         env=env or rank_env(), cwd=ROOT)
-    assert run.returncode == 0, (f"dist_launch exited {run.returncode}\n{run.stderr[-1000:]}\n"
-                                 + log_tails(log_dir, n))
+    wait_ranks(start_ranks(worker, args, n, log_dir, timeout, env))

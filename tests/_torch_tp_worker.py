@@ -21,8 +21,10 @@ RG-LRU spec as ``family`` does (the engine for the plain arch only), an
 encoder-decoder spec's lock-step decode logits (:func:`encdec_logits`),
 and ``axes.gather_shards`` against the unsplit product; ``hybrid_quad``
 serves recurrentgemma on 2 x 2 and qwen2.5-3b and recurrentgemma with 5
-query heads on 1 x 4. Each rank saves what it saw to
-``OUT/rank<r>_<scenario>[_<arch or spec>].pt``.
+query heads on 1 x 4. ``dp_paged`` (2 ranks) serves paged pools whose rows
+shard over the data ranks (ROADMAP A12 item 3) on 2 x 1, and on 1 x 2 for
+``dp_paged_quad`` (4 ranks: 2 x 2) to be held against (:func:`paged_run`).
+Each rank saves what it saw to ``OUT/rank<r>_<scenario>[_<arch or spec>].pt``.
 """
 from __future__ import annotations
 
@@ -339,6 +341,147 @@ def scenario_quad(out: Path, rank: int):
     mesh = make_local_mesh(2, 2)
     eng_tokens = serve(reference_tree(), cfg, mesh)
     torch.save({"coords": mesh.coords(rank), "tokens": eng_tokens}, out / f"rank{rank}_quad.pt")
+
+
+# the paged engines under a data axis: the stream of the reference's
+# sharded paged engine test (rng 15, 6 requests), 4 slots, pages of 4
+DP_SIZES, DP_GENS = (5, 7, 5, 7, 5, 7), (6, 8, 6, 8, 6, 8)
+DP_SLOTS, DP_PAGE, DP_PAGES = 4, 4, 12
+# a stream that crosses ranks in every way the exchange handles: 8
+# requests, two in three behind one 8-token prefix (two pages), on 10 pages
+FORCED_REQUESTS, FORCED_PAGES = 8, 10
+
+
+def dp_requests(vocab: int) -> list:
+    rng = np.random.default_rng(15)
+    return [(rng.integers(0, vocab, size=s).astype(np.int32), g) for s, g in zip(DP_SIZES, DP_GENS)]
+
+
+def forced_requests(vocab: int) -> list:
+    """Prompts behind a shared 8-token prefix (some of them the prefix
+    alone: their last token's write copies a shared page) and unrelated
+    ones, on a pool tight enough to preempt."""
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, 8).astype(np.int32)
+    out = []
+    for _ in range(FORCED_REQUESTS):
+        shared = int(rng.integers(0, 3))
+        tail = rng.integers(0, vocab, int(rng.integers(0, 6))).astype(np.int32)
+        prompt = (np.concatenate([prefix, tail]) if shared else
+                  rng.integers(0, vocab, int(rng.integers(3, 10))).astype(np.int32))
+        out.append((prompt, int(rng.integers(3, 9))))
+    return out
+
+
+class CrossRank:
+    """Counts, on an engine whose pool shards its rows over 2 data ranks
+    with split slots, the steps' cases that cross ranks: a copy-on-write
+    whose source and destination lie on different ranks, a recycled page
+    owned by a rank other than its lane's, a prefix hit adopting another
+    rank's pages, a preemption of a lane on another rank than the lane
+    that needed the pages, and a lane whose table names rows of both."""
+
+    def __init__(self, eng):
+        self.counts = dict(cow=0, reset=0, hit=0, preempt=0, both=0)
+        ex, pool = eng.pages, eng.pool
+        lane = lambda slot: next(d for d, (a, b) in enumerate(ex.lanes)    # noqa: E731
+                                 if a <= slot < b)
+        planning = {}
+        prepare, adopt, preempt, plan = pool.prepare_write, pool.adopt_prefix, eng._preempt, ex.plan
+
+        def prepare_write(slot, start, n):
+            planning["slot"] = slot
+            got = prepare(slot, start, n)
+            if got is not None:
+                self.counts["cow"] += sum(ex.owner(d) != ex.owner(s) for d, s in got[1])
+                self.counts["reset"] += sum(ex.owner(p) != lane(slot) for p in got[0])
+            return got
+
+        def adopt_prefix(slot, pages):
+            self.counts["hit"] += any(ex.owner(p) != lane(slot) for p in pages)
+            return adopt(slot, pages)
+
+        def preempt_lane(victim, reset):
+            self.counts["preempt"] += lane(victim) != lane(planning["slot"])
+            return preempt(victim, reset)
+
+        def plan_step(table, *args, **kw):
+            for row in table:
+                owners = {ex.owner(g) for g in row if g != pool.null_page}
+                self.counts["both"] += len(owners) == 2
+            return plan(table, *args, **kw)
+        pool.prepare_write, pool.adopt_prefix = prepare_write, adopt_prefix
+        eng._preempt, ex.plan = preempt_lane, plan_step
+
+
+def paged_run(tree, cfg, mesh, reqs, *, n_slots=DP_SLOTS, n_pages=DP_PAGES, chunk=1,
+              count=False) -> dict:
+    """A paged engine's tokens, stats, this rank's page rows of every paged
+    leaf, its pool bytes and its exchange's counts on ``mesh`` (None: one
+    process) over ``reqs``."""
+    eng = Engine(shards(tree, cfg, mesh), cfg, get_policy(POLICY), n_slots=n_slots,
+                 max_len=MAX_LEN, device="cpu", mesh=mesh, paged=True, page_size=DP_PAGE,
+                 n_pages=n_pages, prefill_chunk=chunk)
+    counter = CrossRank(eng) if count else None
+    for p, g in reqs:
+        eng.submit(p, g)
+    done = eng.run()
+    assert len(done) == len(reqs) and not eng.graphs
+    eng.pool.check_invariants()
+    st, pool = eng.stats, eng.pool
+    out = {"tokens": {c.rid: c.tokens for c in done},
+           "stats": (st.steps, st.preemptions, st.prefix_hits, st.prefix_tokens_reused),
+           "rows": pool.rows, "n_rows": pool.n_rows, "slots": pool.slots,
+           "pages": {f"{root}.{name}.{k}": t.clone() for root, blocks in pool.cache.items()
+                     for name, leaf in blocks.items() if isinstance(leaf, dict) and
+                     "k_pages" in leaf for k, t in leaf.items()},
+           "page_nbytes": pool.page_nbytes(), "global_page_nbytes": pool.global_page_nbytes()}
+    if eng.pages is not None:
+        ex = eng.pages.stats
+        out["exchange"] = dict(calls=ex.calls, planned_calls=ex.planned_calls, bytes=ex.bytes,
+                               planned_bytes=ex.planned_bytes, steps=ex.steps,
+                               rows_sent=ex.rows_sent, cells_sent=ex.cells_sent)
+    if counter is not None:
+        out["cross"] = counter.counts
+    return out
+
+
+DP_FAMILIES = ("mixtral-8x22b", "recurrentgemma-2b")
+
+
+def scenario_dp_paged(out: Path, rank: int):
+    """2 x 1 (and 1 x 2) paged engines; the one-process runs they are held
+    to are split between the two ranks."""
+    cfg = R.get_config(ARCH).reduced()
+    tree = reference_tree()
+    dp, tp = make_local_mesh(2, 1), make_local_mesh(1, 2)
+    ref, forced = dp_requests(cfg.vocab), forced_requests(cfg.vocab)
+    res = {"coords": dp.coords(rank)}
+    cases = {}                                   # name: (tree, cfg, requests, keywords)
+    for chunk in (1, 4):
+        cases[f"ref_{chunk}"] = (tree, cfg, ref, dict(chunk=chunk))
+        cases[f"forced_{chunk}"] = (tree, cfg, forced, dict(chunk=chunk, n_pages=FORCED_PAGES))
+    cases["slots_3"] = (tree, cfg, ref, dict(n_slots=3))
+    for arch in DP_FAMILIES:
+        fcfg = R.get_config(arch).reduced()
+        cases[arch] = (reference_tree(arch), fcfg, dp_requests(fcfg.vocab), {})
+    for name, (t, c, reqs, kw) in cases.items():
+        res[f"dp_{name}"] = paged_run(t, c, dp, reqs, count=name.startswith("forced"), **kw)
+    for chunk in (1, 4):
+        res[f"tp_ref_{chunk}"] = paged_run(tree, cfg, tp, ref, chunk=chunk)
+    res["one"] = {name: paged_run(t, c, None, reqs, **kw)
+                  for i, (name, (t, c, reqs, kw)) in enumerate(cases.items()) if i % 2 == rank}
+    torch.save(res, out / f"rank{rank}_dp_paged.pt")
+
+
+def scenario_dp_paged_quad(out: Path, rank: int):
+    cfg = R.get_config(ARCH).reduced()
+    mesh = make_local_mesh(2, 2)
+    tree, ref = reference_tree(), dp_requests(cfg.vocab)
+    res = {"coords": mesh.coords(rank)}
+    for chunk in (1, 4):
+        res[f"ref_{chunk}"] = paged_run(tree, cfg, mesh, ref, chunk=chunk)
+    torch.save(res, out / f"rank{rank}_dp_paged_quad.pt")
 
 
 def main():

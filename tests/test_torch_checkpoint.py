@@ -45,6 +45,7 @@ from repro_torch.models import registry as R
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint as C
 from repro_torch.train.train_state import make_train_state
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _tree(seed=0):

@@ -46,6 +46,7 @@ from repro_torch.core.policy import get_policy
 from repro_torch.optim import GivenKey, adamw, sgd
 from repro_torch.optim import schedule as TSCH
 from repro_torch.tree import tree_leaves
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 N = 4099
 E8 = ["bf16", "bf14", "bf12", "bf10"]

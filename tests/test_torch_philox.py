@@ -28,6 +28,7 @@ from repro_torch.optim import adamw, fused_adamw_optimizer
 from repro_torch.optim import fused as FUSED
 from repro_torch.optim.base import GivenKey, StepKey
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 # Random123's kat_vectors for philox4x32_10: (counter, key) -> output

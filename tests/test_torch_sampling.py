@@ -42,6 +42,7 @@ from repro_torch.serve import sampling
 from repro_torch.serve.decode import generate
 from repro_torch.serve.engine import Engine
 from repro_torch.train.step import make_serve_step
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 NEAREST = get_policy("bf16_standard")
 FIVE_SIGMA = 5.0

@@ -33,6 +33,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import registry as R
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.paged import PagedCachePool
 
 from _torch_cpu import one_torch_thread  # noqa: F401
 
@@ -154,12 +155,13 @@ def test_other_families_refuse_the_model_axis(arch):
     assert eng.pool.cache["layers"]["b0"]["h"].shape == rec["h"].shape
 
 
-def test_uneven_heads_and_paged_data_axes_refuse():
+def test_uneven_heads_and_paged_data_axes_serve():
     """Head counts the axis does not divide are served (A12 item 2:
     qwen2.5-3b's 2 kv heads and recurrentgemma-2b's 10 query heads on
-    1 x 4, each rank's cache holding the kv heads its query heads read);
-    a channel width it does not divide and a paged pool under a data
-    axis above 1 (item 3) are still refused, naming A12."""
+    1 x 4, each rank's cache holding the kv heads its query heads read),
+    and so is a paged pool under a data axis above 1 (item 3: the engine
+    builds, its pool holding this rank's page rows); a channel width the
+    axis does not divide is still refused, naming A12."""
     cfg = R.get_config("qwen2.5-3b").reduced()
     assert cfg.n_heads % 4 == 0 and cfg.n_kv_heads % 4
     odd = _standin((1, 4))
@@ -171,12 +173,24 @@ def test_uneven_heads_and_paged_data_axes_refuse():
     assert cache["layers"]["b0"][0].shape[-2] == 1
     narrow = dataclasses.replace(cfg, d_ff=258)
     assert "A12" in PT.serve_refusal(narrow, odd) and "d_ff" in PT.serve_refusal(narrow, odd)
-    # a paged pool under a data axis above 1
+    # a paged pool under a data axis above 1: the engine on 2 x 1, its pool
+    # on 2 x 2 (a model axis needs the ranks' process group: the engine on
+    # 2 x 2 runs in tests/test_torch_dp_paged.py)
     for sizes in ((2, 1), (2, 2)):
-        with pytest.raises(ValueError, match="A12"):
-            Engine(params, cfg, get_policy("bf16_standard"), n_slots=4, max_len=8,
-                   device="cpu", paged=True, page_size=4, mesh=Mesh(("data", "model"), sizes))
-    assert PT.serve_refusal(cfg, Mesh(("data", "model"), (1, 2)), paged=True) is None
+        mesh = Mesh(("data", "model"), sizes)
+        assert PT.serve_refusal(cfg, mesh) is None
+        local = F.shard_state(params, PT.param_specs(params, cfg, mesh), mesh)
+        kw = dict(n_slots=4, max_len=8, page_size=4, mesh=mesh)
+        if sizes[1] == 1:
+            eng = Engine(local, cfg, get_policy("bf16_standard"), device="cpu", paged=True, **kw)
+            pool = eng.pool
+            assert eng.pages is pool.exchange and eng.pages.lanes == [(0, 2), (2, 4)]
+        else:
+            pool = PagedCachePool(local, cfg, get_policy("bf16_standard"), **kw)
+        assert pool.n_rows == 10 and pool.rows == (0, 5) and pool.slots == (0, 2)
+        assert pool.cache["layers"]["b0"]["k_pages"].shape[1] == 5
+        assert pool.cache["layers"]["b0"]["k_pages"].shape[-2] == cfg.n_kv_heads // sizes[1]
+    assert PT.serve_refusal(cfg, Mesh(("data", "model"), (1, 2))) is None
 
 
 def test_training_transport_on_the_model_axis():

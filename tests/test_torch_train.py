@@ -58,6 +58,7 @@ from repro_torch.optim import adamw, constant
 from repro_torch.train.step import make_eval_step, make_train_step
 from repro_torch.train.train_state import make_train_state
 from repro_torch.tree import tree_leaves
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 FLASH_TOL_F32 = 2e-5

@@ -39,6 +39,7 @@ from repro_torch.models import registry as R
 from repro_torch.optim import adamw, fused_adamw_optimizer, fused_sgd_optimizer, sgd
 from repro_torch.optim.base import StepKey
 from repro_torch.tree import tree_leaves, tree_map
+from _torch_cpu import one_torch_thread  # noqa: F401
 
 F32 = np.float32
 ADAMW_HP = dict(lr=F32(1e-3), b1=F32(0.8984375), b2=F32(0.99609375), eps=F32(1e-8),
